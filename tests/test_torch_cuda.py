@@ -1,0 +1,142 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch twins.
+
+Needs an NVIDIA GPU (sm_90a) and ``nvcc``; every test is marked ``cuda``
+and skips elsewhere. This file imports nothing of JAX, so it runs on a
+machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Fingerprints are held to 1e-4 dB where the DCT coefficient has |c| >= 1
+and to the same bound scaled by 1/|c| below that (an absolute bound of
+~2.3e-5 on c: 10*log10|c| magnifies the float32 summation-order difference
+of c near zero). Float32 kernels differ from the twins by ~4e-6 dB; TF32
+rounding of the inputs moves values by ~1e-3 dB. Votes are exact.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tiresias_tpu.config import ContextConfig, DspConfig, TiresiasConfig
+from tiresias_tpu.utils.audio import write_wav
+from tiresias_tpu_torch.ops import match_lattice as ml
+from tiresias_tpu_torch.ops import mfcc_kernels as mk
+from tiresias_tpu_torch.utils import build
+
+SR = 8000
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _speechlike(rng, n):
+    t = np.arange(n) / SR
+    f0 = rng.uniform(90, 220)
+    sig = sum(
+        rng.uniform(0.2, 1.0) / h * np.sin(2 * np.pi * f0 * h * t)
+        for h in range(1, 9)
+    )
+    sig = sig + 0.02 * rng.standard_normal(n)
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def _assert_fp_close(got, want):
+    err = (got - want).abs().double()
+    c = torch.pow(10.0, want.double() / 10.0)
+    bound = 1e-4 * torch.clamp(1.0 / c, min=1.0)
+    assert float((err / bound).max()) <= 1.0, float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 31, 32, 300, 8192])
+def test_mfcc_rows_matches_twin(dev, rows):
+    rng = np.random.default_rng(rows)
+    consts = mk.device_constants(DspConfig(), SR, dev)
+    frames = rng.standard_normal((rows, 512)).astype(np.float32)
+    frames[0] = 0.0  # digital silence: exact floor on coef 1
+    frames = torch.from_numpy(frames).to(dev)
+    got = mk.mfcc_rows(frames, consts)
+    want = mk.mfcc_rows_plain(frames, consts)
+    assert got.shape == (rows, 2)
+    _assert_fp_close(got, want)
+    assert got[0, 1] == want[0, 1] == np.float32(10.0) * np.float32(
+        mk.LOG10_FLOOR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 33, 256, 960])
+def test_mfcc_framed_matches_twin_and_rows_route(dev, frames):
+    rng = np.random.default_rng(frames)
+    consts = mk.device_constants(DspConfig(), SR, dev)
+    pcm = torch.from_numpy(
+        np.stack([_speechlike(rng, frames * 256) for _ in range(3)])
+    ).to(dev)
+    got = mk.mfcc_framed(pcm, consts, 256, 512)
+    _assert_fp_close(got, mk.mfcc_framed_plain(pcm, consts, 256, 512))
+    rows = mk.frames_from_pcm(pcm, 256, 512).reshape(-1, 512).contiguous()
+    _assert_fp_close(got.reshape(-1, 2), mk.mfcc_rows(rows, consts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5, 64, 70])
+def test_lattice_votes_match_twin_exactly(dev, b):
+    g = torch.Generator(device=dev).manual_seed(b)
+    vm = torch.rand((300, ml.K_SIZE), generator=g, device=dev) * 4.0
+    vm[7] = torch.inf
+    counts = torch.randint(0, 5, (b, ml.K_SIZE), generator=g, device=dev,
+                           dtype=torch.int32)
+    for tol in (0.001, 0.5, 1.0, 10.0):
+        got = ml.hit_votes(counts, vm, tol)
+        assert torch.equal(got, ml.lattice_votes_reference(counts, vm, tol))
+        assert (got[:, 7] == 0).all()
+
+
+@pytest.mark.cuda
+def test_wrappers_count_launches_and_reject_bad_inputs(dev):
+    consts = mk.device_constants(DspConfig(), SR, dev)
+    build.reset_launch_counts()
+    mk.mfcc_rows(torch.zeros((4, 512), device=dev), consts)
+    ml.hit_votes(torch.zeros((1, ml.K_SIZE), dtype=torch.int32, device=dev),
+                 torch.zeros((128, ml.K_SIZE), device=dev), 1.0)
+    assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
+                              "lattice_votes": 1}
+    with pytest.raises(ValueError):
+        mk.mfcc_rows(torch.zeros((4, 512), device=dev, dtype=torch.float64),
+                     consts)
+    with pytest.raises(ValueError):
+        mk.mfcc_rows(torch.zeros((512, 4), device=dev).T, consts)
+    with pytest.raises(ValueError):
+        ml.hit_votes(torch.zeros((1, ml.K_SIZE), device=dev),
+                     torch.zeros((128, ml.K_SIZE), device=dev), 1.0)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_agrees_with_cpu(dev, tmp_path):
+    from tiresias_tpu_torch.api import Tiresias
+
+    rng = np.random.default_rng(0)
+    media = tmp_path / "media"
+    os.makedirs(media)
+    sigs = [_speechlike(rng, int(s * SR)) for s in (3.0, 5.0, 8.0, 8.0)]
+    for i, s in enumerate(sigs):
+        write_wav(str(media / f"t{i}.wav"), s, SR)
+    cfg = TiresiasConfig(contexts=(ContextConfig("media", str(media)),),
+                         data_dir=str(tmp_path / "data"))
+    eng = Tiresias(cfg, device=dev)
+    assert eng.sync().created == 4
+    eng.close()
+    gpu = Tiresias(cfg, device=dev, exclusive=False)
+    cpu = Tiresias(cfg, device="cpu", exclusive=False)
+    queries = [s[256 * 3 : 256 * 3 + 24064] for s in sigs]
+    got = gpu.search_pcm_batch(None, queries, SR, tolerance=1.0)
+    want = cpu.search_pcm_batch(None, queries, SR, tolerance=1.0)
+    assert [(r.status, r.name) for r in got] == [
+        (r.status, r.name) for r in want]
+    assert all(r.found and r.match_count >= r.frame_count - 1 for r in got)

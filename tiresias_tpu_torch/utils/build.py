@@ -1,0 +1,142 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+All sources compile in one ``nvcc`` call into a shared library with a plain
+C interface, loaded with :mod:`ctypes` (no PyTorch headers: seconds to build,
+not minutes). The library lands in ``build/kernels/`` beside the package
+(``TIRESIAS_KERNEL_DIR`` overrides it), named by a hash of the sources and
+flags so an edited source never loads a stale build. Nothing is built at
+import time; the first kernel launch builds.
+
+ABI of every entry point: pointers and the stream are ``void*``, sizes
+``int``, the tolerance ``float``; each returns ``cudaGetLastError()`` right
+after its launch, and the wrapper raises on a non-zero code (a refused
+launch never runs, and ``torch.cuda.synchronize()`` would not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+SOURCES = ("mfcc.cu", "lattice.cu")
+HEADERS = ("common.cuh",)
+# No --use_fast_math / -ftz=true: the aubio log floor 2e-42 is subnormal.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Kernel launches per wrapper. Each wrapper adds one where it launches its
+# kernel and nowhere else, so a run can show that its main path went through
+# the kernels (chip_smoke.py zeroes the counts before driving the path).
+LAUNCHES: dict[str, int] = {"mfcc_rows": 0, "mfcc_framed": 0, "lattice_votes": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # frames, rows, win, dft_re, dft_im, n_bins, mel_t, n_filters, dct_t,
+    # n_coefs, out, stream
+    "tiresias_mfcc_rows": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+    # pcm, batch, n_samples, hop, n_frames, dft_re, dft_im, n_bins, mel_t,
+    # n_filters, dct_t, n_coefs, out, stream
+    "tiresias_mfcc_framed": [
+        _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P,
+    ],
+    # counts, value_map, batch, rows, k_size, tol, votes, stream
+    "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_build_seconds: float | None = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_dir() -> str:
+    root = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
+    return os.environ.get(
+        "TIRESIAS_KERNEL_DIR", os.path.join(root, "build", "kernels")
+    )
+
+
+def _nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        home = os.environ.get(env)
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME); the CUDA kernels build from "
+        "tiresias_tpu_torch/csrc on first use"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def kernel_library() -> ctypes.CDLL:
+    """The loaded kernel library, building it on first use. Raises when the
+    build or the load fails — there is no fallback."""
+    global _lib, _build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        out_dir = build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        so = os.path.join(out_dir, f"libtiresias_kernels.{_digest()}.so")
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *(os.path.join(CSRC, s) for s in SOURCES)]
+            proc = subprocess.run(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
+                )
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        _build_seconds = time.perf_counter() - t0
+        return _lib
+
+
+def build_seconds() -> float | None:
+    """Seconds the first :func:`kernel_library` call took (build + load)."""
+    return _build_seconds
+
+
+def check(name: str, rc: int) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` code from a launch;
+    otherwise count the launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
