@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's dialplan main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's search paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,8 +6,10 @@ Builds the hand-written CUDA kernels from ``tiresias_tpu_torch/csrc``,
 checks each against its plain PyTorch twin at the main path's shapes, then
 drives the port through the entry points a user calls — ``Tiresias.sync()``
 over a directory of WAVs, a 10,000-track catalog (30 s tracks, tier 1024)
-saved and restored, and ``search_pcm_batch`` at batch 1 and 64 — and checks
-the TIR* results against the plain twins and a brute-force search.
+saved and restored, and ``search_pcm_batch``/``search_pcm`` at batch 1 and
+64, first in the dialplan configuration, then (``[strict]``) in the strict
+bag, aligned and margin configurations — and checks the TIR* results
+against the plain twins and a brute-force search.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
 the main path, its error against its twin and both times, then the card's
@@ -47,6 +49,16 @@ N_NOISE = 8  # silence and noise queries
 # by ~1e-3 dB, so the check also runs that control and requires it to fail.
 FP_ATOL_DB = 1e-4
 FP_ATOL_C = 1.0
+# The [strict] path: coefs=2 without truncation (PARITY.md D8), bag and
+# aligned (D9) votes, and margin acceptance, at tolerance 0.1.
+STRICT_TOL = 0.1
+STRICT_MODES = {
+    "bag": {"coefs": 2, "trunc_coef1": False},
+    "aligned": {"coefs": 2, "trunc_coef1": False, "aligned": True},
+    "margin": {"coefs": 2, "trunc_coef1": False, "aligned": True,
+               "min_margin": 0.2},
+}
+N_STRICT_BRUTE = 4  # queries per mode held to the numpy brute force
 
 
 def fail(msg: str) -> None:
@@ -139,17 +151,18 @@ def device_ms(fn, reps: int = 20) -> float:
     return total_us / 1e3 / reps
 
 
-def timed(label: str, kernel, plain) -> dict:
+def timed(label: str, kernel, plain, plain_reps: int = 20) -> dict:
     """Device and per-call times of a kernel wrapper and its twin, taken in
-    turns (plain, kernel, kernel, plain) so drift hits both alike."""
-    d_plain = [device_ms(plain)]
+    turns (plain, kernel, kernel, plain) so drift hits both alike; a slow
+    twin is timed over ``plain_reps`` calls."""
+    d_plain = [device_ms(plain, plain_reps)]
     d_kern = [device_ms(kernel), device_ms(kernel)]
-    d_plain.append(device_ms(plain))
+    d_plain.append(device_ms(plain, plain_reps))
     out = {
         "ms": float(np.median(d_kern)),
         "plain_ms": float(np.median(d_plain)),
         "call_ms": call_ms(kernel),
-        "plain_call_ms": call_ms(plain),
+        "plain_call_ms": call_ms(plain, plain_reps),
     }
     say(f"[kernels] {label}: device {out['ms']} ms (plain {out['plain_ms']} "
         f"ms); per call incl. launch {out['call_ms']} ms (plain "
@@ -159,8 +172,11 @@ def timed(label: str, kernel, plain) -> dict:
 
 def synth_tracks(n: int, seconds: float, seed: int, device):
     """``n`` seeded speech-like int16 signals [n, seconds*SR] (harmonic
-    stacks with vibrato and amplitude modulation plus a little noise),
-    synthesized on the device."""
+    stacks with vibrato and amplitude modulation plus a little noise, in
+    syllables of random loudness), synthesized on the device. Without the
+    syllables every track's fingerprint stays within ~0.6 dB, and an
+    aligned search at tolerance 0.1 gives other tracks 75-90% of the true
+    track's votes (a 256-track sample); with them, ~40%."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -180,6 +196,14 @@ def synth_tracks(n: int, seconds: float, seed: int, device):
         out += amp * mod * torch.sin(2 * torch.pi * f0 * h * vib * t)
     out += 0.02 * torch.randn(out.shape, generator=g, device=device)
     out *= 0.3 / out.abs().amax(dim=1, keepdim=True).clamp(min=1e-9)
+    # syllables: consecutive 60-400 ms segments, each at its own level
+    # between -30 and 0 dB
+    seg = u(0.06, 0.4, n, int(seconds / 0.06) + 1)
+    which = torch.searchsorted(torch.cumsum(seg, 1),
+                               t.expand(n, -1).contiguous())
+    level_db = torch.gather(u(-30.0, 0.0, n, seg.shape[1]), 1,
+                            which.clamp(max=seg.shape[1] - 1))
+    out *= torch.pow(10.0, level_db / 20.0)
     return torch.clamp(torch.round(out * 32768.0), -32768, 32767).to(
         torch.int16
     )
@@ -291,6 +315,108 @@ def phase_kernels(device, dsp) -> list[dict]:
         "max_abs_err": 0.0, "ms": times[64]["ms"],
         "plain_ms": times[64]["plain_ms"],
     })
+    out += phase_match_kernels(device)
+    return out
+
+
+def match_case(device, seed: int, rows: int, t: int, coefs: int, b: int,
+               f: int, live_frames: int | None = None):
+    """Seeded store-layout rows ``[rows, t, coefs]`` (PAD_VALUE past each
+    row's end; row 1 empty, row 2 full, or every row ``live_frames`` long)
+    and ``b`` queries ``[b, f, coefs]``: noisy excerpts of stored rows and
+    random frames, with ``n_frames`` a little under ``f``."""
+    import torch
+
+    from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
+
+    g = np.random.default_rng(seed)
+    db = g.uniform(-30.0, 20.0, (rows, t, coefs)).astype(np.float32)
+    if live_frames is None:
+        n = g.integers(f, t + 1, rows)
+        n[1], n[2] = 0, t
+    else:
+        n = np.full(rows, live_frames)
+    db[np.arange(t)[None, :] >= n[:, None]] = PAD_VALUE
+    src = [r for r in g.integers(0, rows, b) if n[r] >= f + 1][: b // 2]
+    q = [db[r, 1 : 1 + f] for r in src]
+    q += [g.uniform(-30.0, 20.0, (f, coefs)) for _ in range(b - len(q))]
+    q = np.stack(q).astype(np.float32)
+    q += g.normal(0.0, 0.02, q.shape).astype(np.float32)
+    n_frames = np.array([f - (i % 3) * 5 for i in range(b)], np.int32)
+    return (torch.from_numpy(db).to(device), torch.from_numpy(q).to(device),
+            n_frames)
+
+
+def phase_match_kernels(device) -> list[dict]:
+    """K4 and K5 against their twin, int32 exact: coefs 1, 2, 4 and 8, the
+    band filter off and on (on: q0 frames dropped and q1 conditions
+    bypassed), tolerances 0.05, 1 and 2e5 (past the Pallas kernels' masking
+    limit), a 1,536-frame tier (K5 walks it in 4 time chunks) and a
+    300-frame query (over one shared-memory stage of either kernel). Then
+    both times at the [strict] shapes."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match as tm
+    from tiresias_tpu_torch.ops import match_kernels as tk
+    from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
+
+    fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
+    checked = 0
+    for coefs in (1, 2, 4, 8):
+        for rows, t, f in ((200, 256, 24), (300, 1536, 300)):
+            db, q, n_frames = match_case(device, 200 + coefs + t, rows, t,
+                                         8, 5, f)
+            for band in ((-1, -1), (1, 300)):
+                qq, act, use2 = tm.prepare_query(q, n_frames, *band,
+                                                 trunc_coef1=False)
+                for tol in (0.05, 1.0, 2e5):
+                    for aligned, fn in fns.items():
+                        got = fn(db, qq, act, use2, tol, coefs)
+                        want = tm.match_votes(
+                            db, db[..., 0] != PAD_VALUE, qq, act, use2, tol,
+                            coefs=coefs, aligned=aligned)
+                        if not torch.equal(got, want):
+                            bad = (got != want).nonzero()[0].tolist()
+                            fail(f"K{5 if aligned else 4} != twin at coefs "
+                                 f"{coefs} tier {t} F {f} band {band} tol "
+                                 f"{tol}: [{bad}] {got[bad[0], bad[1]]} vs "
+                                 f"{want[bad[0], bad[1]]}")
+                        if tol == 1.0 and band == (-1, -1) and not (
+                                got > 0).any():
+                            fail(f"K4/K5 check at coefs {coefs} has no votes")
+                        checked += 1
+    say(f"[kernels] K4 match_votes / K5 match_votes_aligned == twins (int32 "
+        f"exact) in {checked} cases: coefs 1, 2, 4, 8 x band off/on x tol "
+        f"0.05, 1, 2e5; tiers 256 and 1536 (K5: 4 time chunks), queries of "
+        f"24 and 300 frames (K4: 2 stages, K5: 3)")
+    # [strict] shapes: 10,112 rows (10,000 tracks of 938 frames, 128-row
+    # padding) x 1,024 frames x 2 coefs; 94 active frames in a 128 bucket
+    db, _, _ = match_case(device, 300, 10112, 1024, 2, 2, 128,
+                          live_frames=938)
+    db[10000:] = PAD_VALUE
+    out, times = [], {}
+    for b in (1, 64):
+        _, q, _ = match_case(device, 301 + b, 256, 256, 2, b, 128)
+        qq, act, use2 = tm.prepare_query(q, np.full(b, 94), -1, -1,
+                                         trunc_coef1=False)
+        mask = db[..., 0] != PAD_VALUE
+        for aligned, fn in fns.items():
+            name = f"K{5 if aligned else 4} {fn.__name__} B={b}"
+            times[aligned, b] = timed(
+                name, lambda: fn(db, qq, act, use2, STRICT_TOL, 2),
+                lambda: tm.match_votes(db, mask, qq, act, use2, STRICT_TOL,
+                                       coefs=2, aligned=aligned),
+                plain_reps=2,
+            )
+    for aligned, name, line in ((False, "match_votes", 58),
+                                (True, "match_votes_aligned", 171)):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "tiresias_tpu_torch/csrc/match.cu",
+            "replaces": f"tiresias_tpu/ops/match_pallas.py:{line}",
+            "max_abs_err": 0.0, "ms": times[aligned, 64]["ms"],
+            "plain_ms": times[aligned, 64]["plain_ms"],
+        })
     return out
 
 
@@ -486,6 +612,155 @@ def phase_verify(device, eng, queries, results) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def phase_strict(device, eng, queries):
+    """The strict path on the restored catalog: each STRICT_MODES entry
+    through ``search_pcm_batch`` (batch 64) and ``search_pcm`` (batch 1).
+    Every excerpt must be FOUND with >= frame_count - 1 votes."""
+    import torch
+
+    results, p50 = {}, {}
+    for mode, kw in STRICT_MODES.items():
+        eng.search_pcm_batch(None, queries[:1], SR, tolerance=STRICT_TOL,
+                             **kw)
+        torch.cuda.synchronize(device)
+        lat = {1: [], 64: []}
+        res = []
+        for lo in range(0, len(queries), 64):
+            t1 = time.perf_counter()
+            res += eng.search_pcm_batch(None, queries[lo : lo + 64], SR,
+                                        tolerance=STRICT_TOL, **kw)
+            if lo + 64 <= len(queries):
+                lat[64].append((time.perf_counter() - t1) / 64)
+        for _ in range(5):
+            t1 = time.perf_counter()
+            eng.search_pcm_batch(None, queries[:64], SR,
+                                 tolerance=STRICT_TOL, **kw)
+            lat[64].append((time.perf_counter() - t1) / 64)
+        single = []
+        for q in queries:
+            t1 = time.perf_counter()
+            single.append(eng.search_pcm(None, q, SR, tolerance=STRICT_TOL,
+                                         **kw))
+            lat[1].append(time.perf_counter() - t1)
+        if [r.to_channel_vars() for r in single] != [
+                r.to_channel_vars() for r in res]:
+            fail(f"[strict] {mode}: batch-1 and batch-64 TIR* differ")
+        found = sum(r.found and r.match_count >= r.frame_count - 1
+                    for r in res[:N_EXCERPTS])
+        if found != N_EXCERPTS:
+            fail(f"[strict] {mode}: only {found}/{N_EXCERPTS} excerpts FOUND "
+                 f"with >= frame_count - 1 votes")
+        p50[mode] = {b: 1e3 * float(np.median(v)) for b, v in lat.items()}
+        dev = {
+            1: device_ms(lambda: eng.search_pcm(
+                None, queries[0], SR, tolerance=STRICT_TOL, **kw), reps=10),
+            64: device_ms(lambda: eng.search_pcm_batch(
+                None, queries[:64], SR, tolerance=STRICT_TOL, **kw),
+                reps=3) / 64,
+        }
+        say(f"[strict] {mode} {kw} tol {STRICT_TOL}: p50 "
+            f"{p50[mode][1]:.4f} ms/query at batch 1 (device "
+            f"{dev[1]:.4f} ms, {100 * dev[1] / p50[mode][1]:.1f}%), "
+            f"{p50[mode][64]:.4f} ms/query at batch 64 (device "
+            f"{dev[64]:.4f} ms, {100 * dev[64] / p50[mode][64]:.1f}%); "
+            f"excerpts FOUND with >= frame_count - 1 votes: "
+            f"{found}/{N_EXCERPTS}; noise/silence FOUND: "
+            f"{sum(r.found for r in res[N_EXCERPTS:])}/{N_NOISE}")
+        results[mode] = res
+    return results, p50
+
+
+def phase_verify_strict(device, eng, queries, results) -> None:
+    """[strict] TIR* against the plain twin on the same tensors for every
+    query, and against an in-script numpy brute force over all stored
+    tracks for N_STRICT_BRUTE queries per mode."""
+    import torch
+
+    from tiresias_tpu_torch.api.engine import top1_by_key
+    from tiresias_tpu_torch.ops import match as tm
+    from tiresias_tpu_torch.ops.mfcc import (
+        fingerprint_padded_batch,
+        pad_frames_bucket,
+    )
+
+    (view,) = eng.store.search_views()
+    padded, n_frames = pad_frames_bucket(queries, HOP)
+    qfp = fingerprint_padded_batch(padded, SR, eng.config.dsp, device=device)
+    q, active, use2 = tm.prepare_query(qfp, n_frames, -1, -1,
+                                       trunc_coef1=False)
+    rows = torch.arange(view.db.shape[0], device=device)
+    for aligned in (False, True):
+        votes = torch.cat([
+            tm.match_votes(view.db, view.mask, q[lo : lo + 64],
+                           active[lo : lo + 64], use2[lo : lo + 64],
+                           STRICT_TOL, coefs=2, aligned=aligned)
+            for lo in range(0, len(queries), 64)
+        ])
+        m, _, best = top1_by_key(votes, rows)
+        v2 = torch.where(rows[None, :] == best[:, None], -1, votes)
+        v2 = v2.max(dim=1).values.clamp(min=0)
+        m, best, v2 = (x.cpu().numpy() for x in (m, best, v2))
+        for mode in ("aligned", "margin") if aligned else ("bag",):
+            mm = STRICT_MODES[mode].get("min_margin", 0.0)
+            for i, r in enumerate(results[mode]):
+                v1 = int(m[i])
+                want = (("FOUND", v1, view.entries[best[i]].name)
+                        if v1 > 0 and v1 - v2[i] >= mm * v1
+                        else ("NOTFOUND", 0, None))
+                if (r.status, r.match_count, r.name) != want:
+                    fail(f"[strict] {mode} query {i}: engine {r} != plain "
+                         f"twin {want}")
+    say(f"[verify] [strict] engine TIR* == plain-twin TIR* on the same "
+        f"tensors for {len(queries)} queries x {len(STRICT_MODES)} modes")
+    fps = [eng.store.get_fingerprint(e.uuid) for e in eng.store.entries]
+    db = np.full((len(fps), max(len(x) for x in fps), 2), np.nan, np.float32)
+    for a, x in enumerate(fps):
+        db[a, : len(x)] = x[:, :2]
+    qfp = qfp.cpu().numpy()
+    picks = [0, N_EXCERPTS // 2, N_EXCERPTS - 1, N_EXCERPTS + N_NOISE - 1]
+    t0 = time.perf_counter()
+    for i in picks[:N_STRICT_BRUTE]:
+        qi = qfp[i, : n_frames[i], :2]
+        for aligned in (False, True):
+            votes = brute_force_strict(db, qi, STRICT_TOL, aligned)
+            best = int(np.argmax(votes))  # lowest index among the maxima
+            v1 = int(votes[best])
+            v2 = int(np.delete(votes, best).max(initial=0))
+            for mode in ("aligned", "margin") if aligned else ("bag",):
+                mm = STRICT_MODES[mode].get("min_margin", 0.0)
+                want = ((eng.store.entries[best].name, v1)
+                        if v1 > 0 and v1 - v2 >= mm * v1 else (None, 0))
+                r = results[mode][i]
+                if (r.name, r.match_count, r.frame_count) != (*want, len(qi)):
+                    fail(f"[strict] {mode} query {i}: engine {r} != brute "
+                         f"force {want}")
+    say(f"[verify] [strict] engine TIR* == a brute-force numpy search over "
+        f"all {len(fps)} tracks for {N_STRICT_BRUTE} queries x "
+        f"{len(STRICT_MODES)} modes ({time.perf_counter() - t0:.1f} s)")
+
+
+def brute_force_strict(db: np.ndarray, q: np.ndarray, tol: float,
+                       aligned: bool) -> np.ndarray:
+    """Strict search written out over every stored frame, band filter off:
+    query frame ``f`` matches stored frame ``t`` of track ``a`` when both
+    coefficients lie within ``tol`` (float32). Bag: one vote per frame with
+    any match; aligned: the best offset ``t - f``'s match count. ``db`` is
+    ``[tracks, frames, 2]`` with NaN past each track's end."""
+    tol = np.float32(tol)
+    a, t, _ = db.shape
+    f = len(q)
+    votes = np.zeros(a, np.int64)
+    acc = np.zeros((a, t + f - 1), np.int32) if aligned else None
+    for fi in range(f):
+        ok = (np.abs(db[..., 0] - q[fi, 0]) <= tol) & (
+            np.abs(db[..., 1] - q[fi, 1]) <= tol)
+        if aligned:
+            acc[:, f - 1 - fi : f - 1 - fi + t] += ok
+        else:
+            votes += ok.any(axis=1)
+    return acc.max(axis=1).astype(np.int64) if aligned else votes
+
+
 def brute_force_votes(db0: np.ndarray, q0: np.ndarray, tol: float):
     """The dialplan search written out over every stored frame: track ``a``
     gets one vote per query frame ``f`` when some stored coefficient 0 lies
@@ -547,13 +822,26 @@ def run(device) -> dict:
                 fail(f"the main path never launched {name}")
         say(f"[launches] main path: {launches}")
         phase_verify(device, eng, queries, results)
+        torch.cuda.synchronize(device)
+        build.reset_launch_counts()  # --- the strict path starts here ---
+        strict, strict_p50 = phase_strict(device, eng, queries)
+        torch.cuda.synchronize(device)
+        strict_launches = dict(build.LAUNCHES)  # --- and ends here ---
+        for name in ("match_votes", "match_votes_aligned"):
+            if strict_launches[name] <= 0:
+                fail(f"the strict path never launched {name}")
+        say(f"[launches] strict path: {strict_launches}")
+        launches.update(match_votes=strict_launches["match_votes"],
+                        match_votes_aligned=strict_launches[
+                            "match_votes_aligned"])
+        phase_verify_strict(device, eng, queries, strict)
         eng.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     return {"kernels": kernels, "card": card["card"], "ingest_rate": rate,
-            "p50": p50}
+            "p50": p50, "strict_p50": strict_p50}
 
 
 def main() -> int:

@@ -10,7 +10,8 @@ Fingerprints are held to 1e-4 dB where the DCT coefficient has |c| >= 1
 and to the same bound scaled by 1/|c| below that (an absolute bound of
 ~2.3e-5 on c: 10*log10|c| magnifies the float32 summation-order difference
 of c near zero). Float32 kernels differ from the twins by ~4e-6 dB; TF32
-rounding of the inputs moves values by ~1e-3 dB. Votes are exact.
+rounding of the inputs moves values by ~1e-3 dB. Votes are exact: K3',
+K4 and K5 must equal their twins int32 for int32.
 """
 
 import os
@@ -21,8 +22,11 @@ import torch
 
 from tiresias_tpu.config import ContextConfig, DspConfig, TiresiasConfig
 from tiresias_tpu.utils.audio import write_wav
+from tiresias_tpu_torch.ops import match as tm
+from tiresias_tpu_torch.ops import match_kernels as tk
 from tiresias_tpu_torch.ops import match_lattice as ml
 from tiresias_tpu_torch.ops import mfcc_kernels as mk
+from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 from tiresias_tpu_torch.utils import build
 
 SR = 8000
@@ -105,8 +109,14 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     mk.mfcc_rows(torch.zeros((4, 512), device=dev), consts)
     ml.hit_votes(torch.zeros((1, ml.K_SIZE), dtype=torch.int32, device=dev),
                  torch.zeros((128, ml.K_SIZE), device=dev), 1.0)
+    db = torch.full((16, 128, 2), PAD_VALUE, device=dev)
+    q = torch.zeros((1, 8, 2), device=dev)
+    flags = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    tk.match_votes_fused(db, q, flags, flags, 0.1, 2)
+    tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2)
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
-                              "lattice_votes": 1}
+                              "lattice_votes": 1, "match_votes": 1,
+                              "match_votes_aligned": 1}
     with pytest.raises(ValueError):
         mk.mfcc_rows(torch.zeros((4, 512), device=dev, dtype=torch.float64),
                      consts)
@@ -115,6 +125,50 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         ml.hit_votes(torch.zeros((1, ml.K_SIZE), device=dev),
                      torch.zeros((128, ml.K_SIZE), device=dev), 1.0)
+    with pytest.raises(ValueError):  # a CPU query against a card db
+        tk.match_votes_fused(db, q.cpu(), flags.cpu(), flags.cpu(), 0.1, 2)
+    with pytest.raises(ValueError):
+        tk.match_votes_fused(db.double(), q, flags, flags, 0.1, 2)
+
+
+def _match_case(dev, seed, rows, t, c, b, f):
+    """Store-layout rows (PAD_VALUE past each end; row 1 empty, row 2 full)
+    and noisy excerpt / random queries, made with numpy from a seed."""
+    g = np.random.default_rng(seed)
+    db = g.uniform(-30.0, 20.0, (rows, t, c)).astype(np.float32)
+    n = g.integers(f, t + 1, rows)
+    n[1], n[2] = 0, t
+    db[np.arange(t)[None, :] >= n[:, None]] = PAD_VALUE
+    q = [db[r, 1 : 1 + f] for r in (0, 2, rows - 1)]
+    q += [g.uniform(-30.0, 20.0, (f, c)) for _ in range(b - 3)]
+    q = np.stack(q).astype(np.float32)
+    q += g.normal(0.0, 0.02, q.shape).astype(np.float32)
+    n_frames = np.array([f - (i % 3) * 5 for i in range(b)], np.int32)
+    return (torch.from_numpy(db).to(dev), torch.from_numpy(q).to(dev),
+            n_frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("coefs", [1, 2, 4, 8])
+def test_match_kernels_equal_twin_exactly(dev, coefs, aligned):
+    """K4/K5 vs the twin, int32 exact: a tier of 1,536 frames (K5 walks 4
+    time chunks), a 300-frame query (more than one shared-memory stage),
+    band filters that drop q0 frames and bypass q1 conditions, and tol 2e5
+    (past the Pallas kernels' value-encoded masks)."""
+    fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+    for rows, t, f in ((200, 256, 24), (300, 1536, 300)):
+        db, q, n_frames = _match_case(dev, coefs + t, rows, t, 8, 5, f)
+        for band in ((-1, -1), (1, 300)):
+            qq, act, use2 = tm.prepare_query(q, n_frames, *band,
+                                             trunc_coef1=False)
+            for tol in (0.05, 1.0, 2e5):
+                got = fn(db, qq, act, use2, tol, coefs)
+                want = tm.match_votes(db, db[..., 0] != PAD_VALUE, qq, act,
+                                      use2, tol, coefs=coefs,
+                                      aligned=aligned)
+                assert torch.equal(got, want), (rows, t, f, band, tol)
+                assert (got[:, 1] == 0).all()  # the empty row
 
 
 @pytest.mark.cuda
@@ -140,3 +194,22 @@ def test_engine_on_card_agrees_with_cpu(dev, tmp_path):
     assert [(r.status, r.name) for r in got] == [
         (r.status, r.name) for r in want]
     assert all(r.found and r.match_count >= r.frame_count - 1 for r in got)
+    # strict and aligned modes from the SAME query fingerprints: the match
+    # stage on the card (K4/K5) gives the CPU's TIR* exactly
+    from tiresias_tpu_torch.ops.mfcc import (
+        fingerprint_padded_batch,
+        pad_frames_bucket,
+    )
+
+    padded, n_frames = pad_frames_bucket(queries, 256)
+    qfp = fingerprint_padded_batch(padded, SR, cfg.dsp, device="cpu")
+    for kw in ({"aligned": False}, {"aligned": True},
+               {"aligned": True, "min_margin": 0.2}):
+        args = (n_frames, 0.1, -1, -1, None)
+        opts = dict(coefs=2, trunc_coef1=False, **kw)
+        on_card = gpu._match(qfp.to(dev), *args, **opts)
+        on_cpu = cpu._match(qfp, *args, **opts)
+        assert [r.to_channel_vars() for r in on_card] == [
+            r.to_channel_vars() for r in on_cpu]
+        if "min_margin" not in kw:
+            assert all(r.found for r in on_card)

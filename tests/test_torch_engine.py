@@ -15,6 +15,7 @@ All port engines here run with ``device="cpu"`` (the kernels' plain twins).
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -28,10 +29,18 @@ from tiresias_tpu.config import ContextConfig, MatchConfig, TiresiasConfig
 from tiresias_tpu.ops import match_lattice as jml
 from tiresias_tpu.ops.match_ref import search_reference
 from tiresias_tpu.ops.mfcc_jax import fingerprint_padded_batch as jax_fp
-from tiresias_tpu.utils.audio import float_to_i16, read_wav_i16, write_wav
+from tiresias_tpu.store import fingerprint_store as jfs
+from tiresias_tpu.utils.audio import (
+    float_to_i16,
+    read_wav_i16,
+    synth_chirp,
+    write_wav,
+)
 from tiresias_tpu.utils.g711 import encode
 from tiresias_tpu_torch.api import SearchResult, Tiresias, parse_dialplan_args
+from tiresias_tpu_torch.api import engine as tengine
 from tiresias_tpu_torch.ops.mfcc import pad_frames_bucket
+from tiresias_tpu_torch.store import fingerprint_store as tfs
 
 torch.set_num_threads(2)
 
@@ -256,19 +265,8 @@ def test_empty_store_is_notfound(tmp_path):
     assert (res.status, res.frame_count, res.match_count) == ("NOTFOUND", 32, 0)
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"coefs": 2},
-        {"trunc_coef1": False},
-        {"aligned": True},
-        {"min_margin": 0.2},
-    ],
-)
-def test_configurations_outside_the_slice_raise(tmp_path, kwargs):
+def test_configurations_outside_the_slice_raise(tmp_path):
     eng = Tiresias(_cfg(tmp_path / "m", tmp_path / "d"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.search_pcm(None, np.zeros(4000, np.float32), SR, **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.search_pcm_topk(None, np.zeros(4000, np.float32), SR)
     eng.close()
@@ -300,9 +298,188 @@ def test_dialplan_args_and_result_contract(args):
     assert r.confidence == j.confidence
 
 
+# ---- every search configuration against the JAX engine ---------------- #
+
+# Two contexts per corpus; "promo" repeats media's first track, so the same
+# audio lives in two contexts: a D5 tie across contexts, and an ambiguous
+# winner for margin acceptance. "multi" spans tiers 128 and 256 (two views).
+DUAL = {"single": ((2.0, 2.5, 3.0, 3.5), (3.0, 4.0)),
+        "multi": ((2.0, 3.0, 6.0), (3.5, 7.0, 8.0))}
+
+# coefs x truncation x bag/aligned x margin: every combination
+MODES = [
+    {"coefs": c, "trunc_coef1": tr, "aligned": al, "min_margin": mm}
+    for c in (1, 2) for tr in (True, False) for al in (False, True)
+    for mm in (0.0, 0.2)
+]
+# the dialplan configuration, the strict bag search (D8) and the aligned
+# search (D9)
+NAMED = {
+    "dialplan": {"coefs": 1},
+    "strict": {"coefs": 2, "trunc_coef1": False},
+    "aligned": {"coefs": 2, "trunc_coef1": False, "aligned": True},
+}
+
+
+def _mode_id(m):
+    return (f"c{m['coefs']}-{'trunc' if m['trunc_coef1'] else 'raw'}-"
+            f"{'aligned' if m['aligned'] else 'bag'}-mm{m['min_margin']}")
+
+
+def _tol(mode):
+    """Unit tolerance where q0 is truncated (a truncated value lies within
+    1 of its frame), 0.1 for raw values."""
+    return 1.0 if mode.get("trunc_coef1", True) else 0.1
+
+
+def _dual_cfg(root):
+    return TiresiasConfig(
+        contexts=(ContextConfig("media", str(root / "media")),
+                  ContextConfig("promo", str(root / "promo"))),
+        data_dir=str(root / "data"),
+    )
+
+
+@pytest.fixture(scope="module", params=sorted(DUAL))
+def dual(request, tmp_path_factory):
+    """Both engines on one two-context corpus the JAX engine synced (the
+    port restores its checkpoint: bitwise the same stored fingerprints)."""
+    root = tmp_path_factory.mktemp("dual_" + request.param)
+    media, promo = DUAL[request.param]
+    _write_corpus(root / "media", media, seed=11)
+    _write_corpus(root / "promo", promo, seed=12)
+    shutil.copy(root / "media" / "t00.wav", root / "promo" / "dup.wav")
+    jeng = JaxTiresias(_dual_cfg(root))
+    assert jeng.sync().created == len(media) + len(promo) + 1
+    jeng.close()
+    jeng = JaxTiresias(_dual_cfg(root), exclusive=False)
+    teng = Tiresias(_dual_cfg(root), exclusive=False, device="cpu")
+    return root, jeng, teng
+
+
+@pytest.fixture
+def jax_query_fp(monkeypatch):
+    """The port fingerprints its queries with the JAX function, so both
+    engines vote bitwise-equal query fingerprints against bitwise-equal
+    stored ones and their TIR* must be equal exactly. (The port's own
+    fingerprints are held to JAX's within their float32 bound in
+    test_torch_mfcc.py; at tolerances near a value's spacing that bound can
+    move a vote, which would hide what these tests check.)"""
+
+    def fp(padded, samplerate, dsp, law=None, n_valid=None, device="cpu"):
+        out = jax_fp(padded, samplerate, dsp, law=law, n_valid=n_valid)
+        return torch.from_numpy(np.array(out)).to(device)
+
+    monkeypatch.setattr(tengine, "fingerprint_padded_batch", fp)
+
+
+def _dual_queries(root, rng):
+    return (_queries(root / "media", rng)[:-2]
+            + _queries(root / "promo", rng))
+
+
+def _vars(results):
+    return [r.to_channel_vars() for r in results]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_search_modes_equal_jax_engine(dual, jax_query_fp, mode):
+    root, jeng, teng = dual
+    queries = _dual_queries(root, np.random.default_rng(8))
+    for ctx, filt in ((None, False), ("media", True), ("promo", True)):
+        kw = dict(tolerance=_tol(mode), filter_context=filt, **mode)
+        want = jeng.search_pcm_batch(ctx, queries, SR, **kw)
+        got = teng.search_pcm_batch(ctx, queries, SR, **kw)
+        assert _vars(got) == _vars(want), (ctx, filt)
+        if not filt and not mode["min_margin"]:
+            # a real comparison: the excerpts are found
+            assert sum(r.found for r in got) >= len(queries) // 2
+
+
+@pytest.mark.parametrize("name", sorted(NAMED))
+def test_margin_rejects_the_track_stored_twice(dual, jax_query_fp, name):
+    root, jeng, teng = dual
+    mode = NAMED[name]
+    dup = read_wav_i16(str(root / "promo" / "dup.wav"))[0][256:24256]
+    other = read_wav_i16(str(root / "media" / "t01.wav"))[0][256:24256]
+    kw = dict(tolerance=_tol(mode), **mode)
+    plain = teng.search_pcm_batch(None, [dup, other], SR, **kw)
+    gated = teng.search_pcm_batch(None, [dup, other], SR, min_margin=0.2,
+                                  **kw)
+    want = jeng.search_pcm_batch(None, [dup, other], SR, min_margin=0.2,
+                                 **kw)
+    assert _vars(gated) == _vars(want)
+    # D5: the media copy was inserted first; with a margin the promo copy's
+    # equal votes make the answer ambiguous
+    assert plain[0].found and plain[0].context == "media"
+    assert plain[0].name == "t00.wav" and not gated[0].found
+    if name == "aligned":  # bag votes barely discriminate this corpus
+        assert gated[1].found and gated[1].name == "t01.wav"
+
+
+@pytest.mark.parametrize("name", sorted(NAMED))
+def test_deleted_audio_is_never_found(tmp_path, jax_query_fp, name):
+    """A delete below the compaction threshold leaves a tombstoned row in
+    its view: the vote kernels read values only, so the row must hold
+    PAD_VALUE, or its stale fingerprint would still be FOUND."""
+    mode = NAMED[name]
+    media = tmp_path / "media"
+    _write_corpus(media, (2.0, 3.0, 6.0, 2.5), seed=13)
+    cfg = _cfg(media, tmp_path / "data")
+    jeng = JaxTiresias(cfg)
+    jeng.sync()
+    jeng.close()
+    jeng = JaxTiresias(cfg, exclusive=False)
+    teng = Tiresias(cfg, exclusive=False, device="cpu")
+    queries = _queries(media, np.random.default_rng(9))
+    kw = dict(tolerance=_tol(mode), **mode)
+    before = teng.search_pcm_batch(None, queries, SR, **kw)
+    assert before[0].found and before[0].name == "t00.wav"
+    (gone,) = [e for e in teng.store.entries if e.name == "t00.wav"]
+    assert jeng.store.delete_audio(gone.uuid)
+    assert teng.store.delete_audio(gone.uuid)
+    got = teng.search_pcm_batch(None, queries, SR, **kw)
+    assert _vars(got) == _vars(jeng.search_pcm_batch(None, queries, SR, **kw))
+    assert all(r.name != "t00.wav" for r in got)
+    assert any(v.dead_rows for v in teng.store.search_views())
+
+
+@pytest.mark.parametrize("name", sorted(NAMED))
+def test_autosplit_votes_equal_jax(tmp_path, monkeypatch, jax_query_fp,
+                                   name):
+    """Audios longer than the top tier (patched to 128 frames in both
+    stores) split into segment rows of one entry. The kernel path sums the
+    segments' votes into the first row (D15, additive), the lattice path
+    min-combines their map rows; both must give the JAX engine's TIR*."""
+    monkeypatch.setattr(jfs, "MAX_TIER_FRAMES", 128)
+    monkeypatch.setattr(tfs, "MAX_TIER_FRAMES", 128)
+    cfg = TiresiasConfig(data_dir=str(tmp_path))
+    jeng = JaxTiresias(cfg, restore=False)
+    jeng.create_context("c")
+    long_pcm = synth_chirp(200, 1800, 15.0, SR)
+    short_pcm = synth_chirp(900, 300, 4.0, SR)
+    e_long = jeng.add_audio_pcm("c", "long", long_pcm, SR)
+    jeng.add_audio_pcm("c", "short", short_pcm, SR)
+    jeng.close()
+    jeng = JaxTiresias(cfg, exclusive=False)
+    teng = Tiresias(cfg, exclusive=False, device="cpu")
+    (view,) = teng.store.search_views()
+    assert max(len(g) for g in view.segments) == 4
+    # excerpts across the segment boundaries at frames 128 and 256
+    queries = [long_pcm[3 * SR : 6 * SR], long_pcm[7 * SR : 10 * SR],
+               short_pcm[: 2 * SR]]
+    mode = NAMED[name]
+    kw = dict(tolerance=_tol(mode), **mode)
+    got = teng.search_pcm_batch("c", queries, SR, **kw)
+    assert _vars(got) == _vars(jeng.search_pcm_batch("c", queries, SR, **kw))
+    if name != "dialplan":  # one truncated coefficient: both chirps tie
+        assert got[0].found and got[0].uuid == e_long.uuid
+
+
 def test_port_never_imports_jax(tmp_path):
     """conftest imports jax in this process, so the check runs in a fresh
-    interpreter: sync, save, restore and search on the CPU."""
+    interpreter: sync, save, restore, and the dialplan, strict bag and
+    aligned (with margin) searches on the CPU."""
     code = f"""
 import sys, os
 import numpy as np
@@ -318,8 +495,13 @@ eng = Tiresias(cfg, device="cpu")
 assert eng.sync().created == 1
 eng.close()
 eng = Tiresias(cfg, device="cpu")
-res = eng.search_file("media", os.path.join(media, "a.wav"), tolerance=1.0)
+path = os.path.join(media, "a.wav")
+res = eng.search_file("media", path, tolerance=1.0)
 assert res.found and res.name == "a.wav", res
+for kw in ({{}}, {{"aligned": True, "min_margin": 0.2}}):
+    res = eng.search_file("media", path, coefs=2, tolerance=0.1,
+                          trunc_coef1=False, **kw)
+    assert res.found and res.name == "a.wav", (kw, res)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok")
 """

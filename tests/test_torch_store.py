@@ -121,6 +121,36 @@ def test_tombstoned_views_never_vote(tmp_path):
     assert tstore.ctx_ids_for(view)[2] == -1
 
 
+@pytest.mark.parametrize("segmented", [False, True])
+def test_dead_rows_hold_pad_value_like_jax(segmented, monkeypatch):
+    """The vote kernels read values only: a tombstoned row's db must be
+    PAD_VALUE (as the JAX view writes it) and its mask row all False; live
+    rows keep their fingerprints. ``segmented`` deletes an auto-split
+    audio (all its segment rows)."""
+    if segmented:
+        monkeypatch.setattr(tfs, "MAX_TIER_FRAMES", 128)
+    rng = np.random.default_rng(3)
+    store = FingerprintStore(n_coefs=2)
+    store.create_context("a")
+    lengths = (60, 300 if segmented else 90, 70)
+    fps = [_fp(rng, n) for n in lengths]
+    es = [store.add_audio(f"x{i}", "a", fp, f"h{i}")
+          for i, fp in enumerate(fps)]
+    store.search_views()
+    assert store.delete_audio(es[1].uuid)
+    (view,) = store.search_views()
+    dead = sorted(view.dead_rows)
+    assert dead == ([1, 2, 3] if segmented else [1])
+    db, mask = view.db.numpy(), view.mask.numpy()
+    assert (db[dead] == tfs.PAD_VALUE).all() and not mask[dead].any()
+    live = [0, view.n_audios - 1]
+    for row, fp in zip(live, (fps[0], fps[2])):
+        np.testing.assert_array_equal(db[row, : len(fp)], fp)
+        assert mask[row].sum() == len(fp)
+    followers, heads = store.segment_rows_for(view)
+    assert followers.numel() == heads.numel() == 0  # the split audio is gone
+
+
 def test_incremental_save_rewrites_only_dirty_segments(tmp_path, monkeypatch):
     monkeypatch.setattr(tfs, "SEGMENT_ROWS", 4)
     rng = np.random.default_rng(3)

@@ -1,17 +1,20 @@
 """Library API: the :class:`Tiresias` engine (port of
-``tiresias_tpu.api.engine``, dialplan main path).
+``tiresias_tpu.api.engine``).
 
     eng = Tiresias(config)                       # device="cuda" by default
     eng.sync()                                   # init_context/init_audio
     res = eng.search_file("ctx", "query.wav")    # Tiresias() dialplan app
     res.status, res.name, res.match_count, ...   # TIR* variables
 
-The search runs the reference's dialplan configuration (``coefs=1``,
-truncated max1, bag-of-frames votes — PARITY.md section 3): the query batch
-is fingerprinted (K1), voted against each tier view's lattice map (K3'),
-reduced to a top-1 on the device with the D5 tiebreak, and read back once.
-Configurations outside that slice raise ``NotImplementedError`` naming the
-ROADMAP item that ports them; nothing is approximated or rerouted.
+A search fingerprints the query batch (K1) and votes per tier view. The
+reference's dialplan configuration (``coefs=1``, truncated max1,
+bag-of-frames votes — PARITY.md section 3) votes on the view's lattice map
+(K3'); every other configuration (``coefs`` up to ``dsp.n_coefs``, no
+truncation — D8, offset-aligned votes — D9) votes over the stored
+fingerprints with K4 (bag) or K5 (aligned). Votes reduce to a top-1 on the
+device with the D5 tiebreak (and the runner-up audio's votes for margin
+acceptance) and are read back once. Ranked listings and mesh sharding raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ from tiresias_tpu_torch.engine.sync import (
     sync_all,
     sync_context_audio,
 )
+from tiresias_tpu_torch.ops.match import prepare_query
+from tiresias_tpu_torch.ops.match_kernels import (
+    match_votes_fused,
+    match_votes_fused_aligned,
+)
 from tiresias_tpu_torch.ops.match_lattice import band_thresholds, lattice_votes
 from tiresias_tpu_torch.ops.mfcc import (
     fingerprint_padded_batch,
@@ -57,8 +65,7 @@ log = get_logger(__name__)
 STATUS_FOUND = "FOUND"
 STATUS_NOTFOUND = "NOTFOUND"
 
-# ROADMAP.md items that port the configurations outside the dialplan slice
-_ROADMAP_STRICT = "ROADMAP.md 1.11 (strict and aligned modes)"
+# ROADMAP.md items that port what the engine does not serve yet
 _ROADMAP_RANKED = "ROADMAP.md 1.12 (ranked and top-k search)"
 _ROADMAP_MESH = "ROADMAP.md 1.13 (sharding over NCCL)"
 
@@ -309,14 +316,18 @@ class Tiresias:
         wire_law: str | None = None,
         min_margin: float | None = None,
     ) -> list[SearchResult]:
-        """Batched dialplan search — many queries in one device pass.
+        """Batched search — many queries in one device pass.
         ``wire_law`` ("ulaw"/"alaw") marks raw G.711 codes, expanded on the
-        device."""
+        device. ``min_margin`` > 0 (default ``MatchConfig.min_margin``)
+        accepts a winner only when ``(v1 - v2) >= min_margin * v1``, v2
+        the runner-up audio's votes (the noise operating point)."""
         if not pcms:
             return []
-        tolerance, lo, hi = self._resolve_search(
-            coefs, tolerance, freq_ignore_low, freq_ignore_high,
-            trunc_coef1, aligned, min_margin,
+        coefs, tolerance, lo, hi, trunc_coef1, aligned, mm = (
+            self._resolve_search(
+                coefs, tolerance, freq_ignore_low, freq_ignore_high,
+                trunc_coef1, aligned, min_margin,
+            )
         )
         ctx_id = self._ctx_filter_id(context, filter_context)
         pcms, samplerate, wire_law = self._resample_queries(
@@ -335,7 +346,8 @@ class Tiresias:
                 n_valid=n_valid, device=self.device,
             )
             results = self._match(
-                qfp, n_frames, tolerance, lo, hi, ctx_id
+                qfp, n_frames, tolerance, lo, hi, ctx_id, coefs=coefs,
+                trunc_coef1=trunc_coef1, aligned=aligned, min_margin=mm,
             )
         metrics.add("search.queries", len(pcms))
         return results
@@ -343,16 +355,23 @@ class Tiresias:
     def _match(
         self, qfp: torch.Tensor, n_frames: np.ndarray, tolerance: float,
         freq_ignore_low: int, freq_ignore_high: int,
-        ctx_id: int | None = None,
+        ctx_id: int | None = None, coefs: int = 1, trunc_coef1: bool = True,
+        aligned: bool = False, min_margin: float = 0.0,
     ) -> list[SearchResult]:
         """The match stage from query fingerprints ``qfp [B, F, C]`` (on the
-        engine's device) to TIR* results: lattice votes per view, device
-        top-1 with the D5 tiebreak, one readback.
+        engine's device) to TIR* results, with one readback.
 
-        A single-view store keeps the lowest ROW among the max votes (row
-        order is insertion order within a tier); a multi-view store reduces
-        each view to (votes, lowest insertion seq, row) and combines views
-        by (votes desc, seq asc)."""
+        Per view: votes — lattice votes (K3') for the dialplan
+        configuration, K4/K5 over the view's fingerprints otherwise, with
+        an auto-split audio's segment columns summed into its first column
+        (D15, additive) — then the context filter, then the top-1 with the
+        D5 tiebreak and, when ``min_margin`` > 0, the best votes outside
+        the winning column. A single-view store keeps the lowest ROW among
+        the max votes (row order is insertion order within a tier); a
+        multi-view store reduces each view to (votes, lowest insertion seq,
+        row) and combines views by (votes desc, seq asc). The runner-up
+        audio's votes are the maximum of the winning view's second best
+        and every other view's best."""
         views = self.store.search_views()
         b, f = int(qfp.shape[0]), int(qfp.shape[1])
         if not views:
@@ -360,28 +379,43 @@ class Tiresias:
                 SearchResult(STATUS_NOTFOUND, int(n_frames[i]), 0)
                 for i in range(b)
             ]
-        band_lo, band_hi = band_thresholds(freq_ignore_low, freq_ignore_high)
-        nf = torch.from_numpy(np.asarray(n_frames, np.int64)).to(self.device)
-        valid = torch.arange(f, device=self.device)[None, :] < nf[:, None]
-        q0 = qfp[..., 0].contiguous()
+        dialplan = coefs == 1 and trunc_coef1 and not aligned
+        if dialplan:
+            band_lo, band_hi = band_thresholds(
+                freq_ignore_low, freq_ignore_high
+            )
+            nf = torch.from_numpy(np.asarray(n_frames, np.int64)).to(
+                self.device)
+            valid = torch.arange(f, device=self.device)[None, :] < nf[:, None]
+            q0 = qfp[..., 0].contiguous()
+        else:
+            q, active, use2 = prepare_query(
+                qfp, n_frames, freq_ignore_low, freq_ignore_high, trunc_coef1
+            )
+            vote = match_votes_fused_aligned if aligned else match_votes_fused
+        margin = min_margin > 0.0
         per_view = []
         for view in views:
-            votes = lattice_votes(
-                self.store.value_map_for(view), q0, valid, tolerance,
-                band_lo, band_hi,
-            )
+            if dialplan:
+                votes = lattice_votes(
+                    self.store.value_map_for(view), q0, valid, tolerance,
+                    band_lo, band_hi,
+                )
+            else:
+                votes = self._merge_segments(
+                    view, vote(view.db, q, active, use2, tolerance, coefs)
+                )
             if ctx_id is not None:
                 keep = self.store.ctx_ids_for(view) == ctx_id
                 votes = torch.where(keep[None, :], votes, 0)
-            if len(views) == 1:
-                rows = torch.arange(votes.shape[1], device=self.device)
-                m, _, row = top1_by_key(votes, rows)
-                per_view.append(torch.stack([m.to(torch.int64), row]))
-            else:
-                m, seq, row = top1_by_key(
-                    votes, self.store.seq_for(view)
-                )
-                per_view.append(torch.stack([m.to(torch.int64), seq, row]))
+            cols = torch.arange(votes.shape[1], device=self.device)
+            key = cols if len(views) == 1 else self.store.seq_for(view)
+            m, k, col = top1_by_key(votes, key)
+            stats = [m.to(torch.int64), k, col]
+            if margin:
+                rest = torch.where(cols[None, :] == col[:, None], -1, votes)
+                stats.append(rest.max(dim=1).values.to(torch.int64))
+            per_view.append(torch.stack(stats))
         got = torch.stack(per_view).cpu().numpy()  # the one readback
         if len(views) == 1:
             win = np.zeros(b, np.int64)
@@ -394,12 +428,34 @@ class Tiresias:
             v = int(win[i])
             count = int(got[v, 0, i])
             fc = int(n_frames[i])
-            if count <= 0:
+            if count <= 0 or (
+                margin and count - self._runner_up(got[:, :, i], v)
+                < min_margin * count
+            ):
+                # no votes, or the runner-up audio is too close to call
                 results.append(SearchResult(STATUS_NOTFOUND, fc, 0))
             else:
-                entry = views[v].entries[int(got[v, -1, i])]
+                entry = views[v].entries[int(got[v, 2, i])]
                 results.append(self._found(entry, fc, count))
         return results
+
+    def _merge_segments(self, view, votes: torch.Tensor) -> torch.Tensor:
+        """Fold each auto-split audio's per-segment vote columns into its
+        first column and zero the rest (PARITY.md D15, additive; the
+        lattice path needs none: its map min-combines segment rows)."""
+        followers, heads = self.store.segment_rows_for(view)
+        if followers.numel() == 0:
+            return votes
+        votes = votes.index_add(1, heads, votes[:, followers])
+        votes[:, followers] = 0
+        return votes
+
+    @staticmethod
+    def _runner_up(stats: np.ndarray, win: int) -> int:
+        """The best votes of any audio but the winner, from per-view
+        ``stats [V, 4]`` = (votes, key, row, best outside that row)."""
+        others = [stats[u, 0] for u in range(len(stats)) if u != win]
+        return max(0, int(stats[win, 3]), *(int(x) for x in others))
 
     def search_pcm_topk(self, *args, **kwargs) -> list[SearchResult]:
         raise NotImplementedError(f"search_pcm_topk: {_ROADMAP_RANKED}")
@@ -444,11 +500,11 @@ class Tiresias:
         trunc_coef1: bool | None,
         aligned: bool | None,
         min_margin: float | None,
-    ) -> tuple[float, int, int]:
+    ) -> tuple[int, float, int, int, bool, bool, float]:
         """Config defaults and clamps shared by every search entry point
         (fp_handler.c:247-256; -1 band args = unspecified). Returns
-        (tolerance, freq_ignore_low, freq_ignore_high) of the dialplan
-        configuration; any other configuration raises."""
+        (coefs, tolerance, freq_ignore_low, freq_ignore_high, trunc_coef1,
+        aligned, min_margin)."""
         mc: MatchConfig = self.config.match
         coefs = mc.coefs if coefs is None else coefs
         trunc_coef1 = mc.trunc_coef1 if trunc_coef1 is None else trunc_coef1
@@ -468,15 +524,8 @@ class Tiresias:
             )
         if not 0.0 <= mm < 1.0:
             raise ValueError(f"min_margin must be in [0, 1), got {mm}")
-        if coefs != 1:
-            raise NotImplementedError(f"coefs={coefs}: {_ROADMAP_STRICT}")
-        if not trunc_coef1:
-            raise NotImplementedError(f"trunc_coef1=False: {_ROADMAP_STRICT}")
-        if aligned:
-            raise NotImplementedError(f"aligned=True: {_ROADMAP_STRICT}")
-        if mm > 0.0:
-            raise NotImplementedError(f"min_margin={mm}: {_ROADMAP_STRICT}")
-        return float(tolerance), freq_ignore_low, freq_ignore_high
+        return (int(coefs), float(tolerance), freq_ignore_low,
+                freq_ignore_high, bool(trunc_coef1), bool(aligned), mm)
 
     def _resample_queries(
         self, pcms: list[np.ndarray], samplerate: int,

@@ -248,8 +248,9 @@ class _Tier:
 @dataclasses.dataclass
 class TierView:
     """A tier's device view — what one search scans. ``entries`` includes
-    tombstoned rows; their mask rows are all-False, so their lattice-map
-    rows are +inf and they never receive a vote."""
+    tombstoned rows; their ``db`` rows hold PAD_VALUE and their mask rows
+    are all-False, so neither the lattice map (+inf rows) nor the vote
+    kernels (PAD frames) ever give them a vote."""
 
     tier_frames: int
     db: torch.Tensor  # [A_pad, T, C] float32
@@ -261,6 +262,7 @@ class TierView:
     value_map: torch.Tensor | None = None  # [A_pad, K], lazily built
     seq_dev: torch.Tensor | None = None  # [A_pad] int64, lazily built
     ctx_dev: torch.Tensor | None = None  # [A_pad] int32, lazily built
+    seg_dev: tuple | None = None  # (followers, heads) int64, lazily built
 
 
 def _combine_segment_rows(vm: torch.Tensor, groups) -> torch.Tensor:
@@ -474,6 +476,10 @@ class FingerprintStore:
                 db = torch.full((a_pad, t, self.n_coefs), PAD_VALUE,
                                 device=self.device)
                 db[:a].copy_(torch.from_numpy(tier.matrix[:a]))
+                if tier.dead:
+                    # the vote kernels read values only: PAD_VALUE is the
+                    # tombstone (a dead row's stale fingerprint would vote)
+                    db[sorted(tier.dead)] = PAD_VALUE
                 frames = torch.arange(t, device=self.device)
                 mask = frames[None, :] < torch.from_numpy(n_frames).to(
                     self.device)[:, None]
@@ -507,6 +513,18 @@ class FingerprintStore:
                 seqs[: view.n_audios] = [e.seq for e in view.entries]
                 view.seq_dev = torch.from_numpy(seqs).to(self.device)
             return view.seq_dev
+
+    def segment_rows_for(self, view: TierView) -> tuple:
+        """``(followers, heads)`` int64 row indices of the view's auto-split
+        audios: every segment row after an audio's first, and that first
+        row (the D15 merge target); both empty without over-long audios."""
+        with self._lock:
+            if view.seg_dev is None:
+                pairs = [(r, g[0]) for g in view.segments for r in g[1:]]
+                idx = torch.tensor(pairs, dtype=torch.int64).reshape(-1, 2)
+                view.seg_dev = (idx[:, 0].to(self.device),
+                                idx[:, 1].to(self.device))
+            return view.seg_dev
 
     def ctx_id_for(self, context: str) -> int:
         """Dense id of a context name; -2 (carried by no row) for a name

@@ -24,7 +24,7 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = ("mfcc.cu", "lattice.cu")
+SOURCES = ("mfcc.cu", "lattice.cu", "match.cu")
 HEADERS = ("common.cuh",)
 # No --use_fast_math / -ftz=true: the aubio log floor 2e-42 is subnormal.
 NVCC_FLAGS = (
@@ -35,7 +35,10 @@ NVCC_FLAGS = (
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that its main path went through
 # the kernels (chip_smoke.py zeroes the counts before driving the path).
-LAUNCHES: dict[str, int] = {"mfcc_rows": 0, "mfcc_framed": 0, "lattice_votes": 0}
+LAUNCHES: dict[str, int] = {
+    "mfcc_rows": 0, "mfcc_framed": 0, "lattice_votes": 0,
+    "match_votes": 0, "match_votes_aligned": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +54,12 @@ _SIGNATURES = {
     ],
     # counts, value_map, batch, rows, k_size, tol, votes, stream
     "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _P, _P],
+    # db, query_rows, batch, rows, t_len, n_coefs, coefs, f_len, tol,
+    # votes, stream
+    "tiresias_match_votes": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "tiresias_match_votes_aligned": [
+        _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P,
+    ],
 }
 
 _lock = threading.Lock()
