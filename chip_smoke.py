@@ -9,7 +9,9 @@ over a directory of WAVs, a 10,000-track catalog (30 s tracks, tier 1024)
 saved and restored, and ``search_pcm_batch``/``search_pcm`` at batch 1 and
 64, first in the dialplan configuration, then (``[strict]``) in the strict
 bag, aligned and margin configurations — and checks the TIR* results
-against the plain twins and a brute-force search.
+against the plain twins and a brute-force search. The lattice vote kernel
+is also held to its twin, and timed, on the search queries' own histograms
+against the catalog's value map.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
 the main path, its error against its twin and both times, then the card's
@@ -288,7 +290,9 @@ def phase_kernels(device, dsp) -> list[dict]:
         "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
     })
     del pcm
-    # K3': B in {1, 64} x 10,112 rows (a 10k-track map, 128-row padding)
+    # K3': B in {1, 64} x 10,112 rows (a 10k-track map, 128-row padding),
+    # dense counts in every bucket (the worst case; real query histograms
+    # are timed in phase_lattice_real)
     g = torch.Generator(device=device).manual_seed(103)
     rows = 10112
     vm = torch.rand((rows, ml.K_SIZE), generator=g, device=device) * 8.0
@@ -298,14 +302,17 @@ def phase_kernels(device, dsp) -> list[dict]:
         counts = torch.randint(0, 6, (b, ml.K_SIZE), generator=g,
                                device=device, dtype=torch.int32)
         for tol in (0.001, 1.0):
-            if not torch.equal(ml.hit_votes(counts, vm, tol),
-                               ml.lattice_votes_reference(counts, vm, tol)):
-                fail(f"K3' lattice_votes != twin at B={b} tol={tol}")
-        say(f"[kernels] K3' lattice_votes [{b}, 640] x [{rows}, 640]: "
-            f"votes exact at tol 0.001 and 1.0")
+            for bound in (5, None):  # counts < 6: one u8 plane; or four
+                if not torch.equal(ml.hit_votes(counts, vm, tol, bound),
+                                   ml.lattice_votes_reference(counts, vm,
+                                                              tol)):
+                    fail(f"K3' lattice_votes != twin at B={b} tol={tol} "
+                         f"max_count={bound}")
+        say(f"[kernels] K3' lattice_votes [{b}, 640] x [{rows}, 640] dense "
+            f"counts: votes exact at tol 0.001 and 1.0, 1 and 4 planes")
         times[b] = timed(
-            f"K3' lattice_votes B={b}",
-            lambda: ml.hit_votes(counts, vm, 1.0),
+            f"K3' lattice_votes dense B={b}",
+            lambda: ml.hit_votes(counts, vm, 1.0, 5),
             lambda: ml.lattice_votes_reference(counts, vm, 1.0),
         )
     out.append({
@@ -544,9 +551,10 @@ def phase_search(device, eng, queries):
     return results, p50
 
 
-def phase_verify(device, eng, queries, results) -> None:
+def phase_verify(device, eng, queries, results):
     """TIR* against the plain twins on the same tensors and against a
-    brute-force search over the stored fingerprints."""
+    brute-force search over the stored fingerprints. Returns the catalog's
+    value map and the queries' max1 values and valid-frame mask."""
     import torch
 
     from tiresias_tpu_torch.api.engine import top1_by_key
@@ -610,6 +618,50 @@ def phase_verify(device, eng, queries, results) -> None:
     say(f"[verify] engine TIR* == a brute-force numpy search over all "
         f"{len(db)} tracks for {len(queries)} queries x 2 tolerances "
         f"({time.perf_counter() - t0:.1f} s)")
+    return vm, qfp[..., 0].contiguous(), valid
+
+
+def phase_lattice_real(vm, q0, valid) -> None:
+    """K3' on the traffic the engine sends: the catalog's own value map and
+    the histograms of the search queries (64 excerpts + 8 silence/noise) at
+    batch 64 and 1, and one long query (every query's frames in one row,
+    counts past 255 in a bucket: two u8 planes). Int32-exact against the
+    twin, then timed."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    lo, hi = ml.band_thresholds(-1, -1)
+    f = q0.shape[1]
+    c = ml.histogram(q0, valid, lo, hi)
+    nz = (c > 0).sum(dim=1)
+    steps = torch.unique(torch.nonzero(c.any(dim=0))[:, 0] // ml.STEP)
+    say(f"[kernels] K3' real histograms: {c.shape[0]} queries x {f} frames, "
+        f"{int(nz[:N_EXCERPTS].min())}-{int(nz[:N_EXCERPTS].max())} non-zero "
+        f"buckets per excerpt, {int(nz.max())} at most; the union covers "
+        f"{len(steps)} of {ml.K_SIZE // ml.STEP} steps of {ml.STEP} buckets; "
+        f"max count {int(c.max())}")
+    long_c = ml.histogram(q0.reshape(1, -1), valid.reshape(1, -1), lo, hi)
+    cases = {
+        "B=72": (c, f), "B=64": (c[:N_EXCERPTS], f), "B=1": (c[:1], f),
+        f"long B=1 F={q0.numel()}": (long_c, q0.numel()),
+    }
+    if int(long_c.max()) <= 255:
+        fail(f"the long query's counts stay at {int(long_c.max())} <= 255")
+    for name, (counts, bound) in cases.items():
+        for tol in (0.001, 1.0):
+            got = ml.hit_votes(counts, vm, tol, bound)
+            if not torch.equal(got, ml.lattice_votes_reference(counts, vm,
+                                                               tol)):
+                fail(f"K3' lattice_votes != twin on real histograms {name} "
+                     f"tol {tol}")
+        say(f"[kernels] K3' lattice_votes real {name} ({ml.count_planes(bound)}"
+            f" plane(s)) x [{vm.shape[0]}, 640]: votes exact at tol 0.001 "
+            f"and 1.0")
+        if name != "B=72":
+            timed(f"K3' lattice_votes real {name}",
+                  lambda: ml.hit_votes(counts, vm, 1.0, bound),
+                  lambda: ml.lattice_votes_reference(counts, vm, 1.0))
 
 
 def phase_strict(device, eng, queries):
@@ -821,7 +873,7 @@ def run(device) -> dict:
             if launches[name] <= 0:
                 fail(f"the main path never launched {name}")
         say(f"[launches] main path: {launches}")
-        phase_verify(device, eng, queries, results)
+        phase_lattice_real(*phase_verify(device, eng, queries, results))
         torch.cuda.synchronize(device)
         build.reset_launch_counts()  # --- the strict path starts here ---
         strict, strict_p50 = phase_strict(device, eng, queries)

@@ -88,18 +88,55 @@ def test_mfcc_framed_matches_twin_and_rows_route(dev, frames):
     _assert_fp_close(got.reshape(-1, 2), mk.mfcc_rows(rows, consts))
 
 
+def _lattice_case(dev, case, b):
+    """Counts [b, K] int32 and a map [301, K] (rows not a multiple of 16;
+    rows 7 and 17 +inf, 11 NaN, others with +inf/NaN buckets) for K3'
+    against its twin, made with numpy from a seed."""
+    rng = np.random.default_rng(b)
+    k = {"k100": 100, "k99": 99}.get(case, ml.K_SIZE)
+    vm = rng.uniform(0.0, 4.0, (301, k)).astype(np.float32)
+    vm[7] = vm[17] = np.inf
+    vm[11] = np.nan
+    vm[13, ::3] = np.nan
+    vm[19, 1::2] = np.inf
+    if case in ("dense", "k100", "k99"):
+        counts = rng.integers(0, 5, (b, k))
+    else:  # real histograms: a query's frames in one or two buckets
+        counts = np.zeros((b, k), np.int64)
+        for i in range(1, b):  # row 0 stays all zero
+            lo = int(rng.integers(0, k - 1))
+            counts[i, lo] = rng.integers(1, 94)
+            if i % 2:
+                counts[i, lo + 1] = rng.integers(1, 94)
+        if case == "one_query":
+            counts[:] = 0
+            counts[b // 2, [200, 201]] = (60, 34)
+        if case == "big":  # past one u8 plane, and past two
+            counts[0, 300] = 300
+            counts[b - 1, k - 1] = 70000
+    return (torch.from_numpy(counts.astype(np.int32)).to(dev),
+            torch.from_numpy(vm).to(dev))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "sparse", "one_query", "big",
+                                  "k100", "k99"])
 @pytest.mark.parametrize("b", [1, 5, 64, 70])
-def test_lattice_votes_match_twin_exactly(dev, b):
-    g = torch.Generator(device=dev).manual_seed(b)
-    vm = torch.rand((300, ml.K_SIZE), generator=g, device=dev) * 4.0
-    vm[7] = torch.inf
-    counts = torch.randint(0, 5, (b, ml.K_SIZE), generator=g, device=dev,
-                           dtype=torch.int32)
+def test_lattice_votes_match_twin_exactly(dev, b, case):
+    """K3' == its twin int32 for int32: dense and sparse histograms, an
+    all-zero row, one query with counts, counts >= 256 and >= 65,536 in a
+    bucket (two and three u8 planes), K = 100 and 99 (not multiples of 32;
+    99 has unaligned rows), with the tight plane bound and without one."""
+    counts, vm = _lattice_case(dev, case, b)
+    bound = int(counts.max())
     for tol in (0.001, 0.5, 1.0, 10.0):
-        got = ml.hit_votes(counts, vm, tol)
-        assert torch.equal(got, ml.lattice_votes_reference(counts, vm, tol))
-        assert (got[:, 7] == 0).all()
+        want = ml.lattice_votes_reference(counts, vm, tol)
+        for max_count in (bound, None):
+            got = ml.hit_votes(counts, vm, tol, max_count)
+            assert torch.equal(got, want), (tol, max_count)
+        assert (got[:, [7, 11, 17]] == 0).all()
+        if case == "sparse":
+            assert (got[0] == 0).all()  # the all-zero histogram row
 
 
 @pytest.mark.cuda

@@ -93,16 +93,42 @@ def _queries(rng, b=5, f=94):
     return q0, active
 
 
+def _sparse_queries(rng, b=6, f=94):
+    """Real query histograms are sparse: every frame of a query in one or
+    two adjacent lattice buckets (a 3 s query lands in 1-3 of 640)."""
+    base = rng.uniform(-40.0, 10.0, (b, 1)).astype(np.float32)
+    q0 = base + rng.uniform(0.0, 0.9, (b, f)).astype(np.float32)
+    q0[0] = base[0, 0] + 0.5  # one bucket
+    active = np.ones((b, f), bool)
+    active[1, 30:] = False
+    active[2] = False  # an all-zero histogram row
+    return q0, active
+
+
+def _long_query(rng, f=17000):
+    """One 17,000-frame query: thousands of frames per bucket, past the
+    255 a single u8 plane of K3' holds."""
+    q0 = rng.normal(-25.0, 2.0, (1, f)).astype(np.float32)
+    return q0, np.ones((1, f), bool)
+
+
 BANDS = [(-1, -1), (100, -1), (-1, 3000), (200, 1000)]
+TOLS = [0.001, 0.5, 1.0, 3.0]
+QUERIES = {"mixed": _queries, "sparse": _sparse_queries, "long": _long_query}
+# the mixed cases keep their original ids ("0.001-band0")
+VOTE_CASES = [
+    pytest.param(kind, tol, band, id=("" if kind == "mixed" else kind + "-")
+                 + f"{tol}-band{i}")
+    for kind in QUERIES for tol in TOLS for i, band in enumerate(BANDS)
+]
 
 
-@pytest.mark.parametrize("band", BANDS)
-@pytest.mark.parametrize("tol", [0.001, 0.5, 1.0, 3.0])
-def test_lattice_votes_exact_vs_jax(band, tol):
+@pytest.mark.parametrize("kind, tol, band", VOTE_CASES)
+def test_lattice_votes_exact_vs_jax(kind, tol, band):
     rng = np.random.default_rng(11)
     db0, mask = _db(rng)
     vm = np.array(jml.build_value_map(db0, mask))
-    q0, active = _queries(rng)
+    q0, active = QUERIES[kind](rng)
     lo, hi = match_jax.band_thresholds(*band)
     ref = np.asarray(
         jml.lattice_votes(vm, q0, active, np.float32(tol), np.float32(lo),
@@ -115,6 +141,8 @@ def test_lattice_votes_exact_vs_jax(band, tol):
     )
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
+    if kind == "long" and band == (-1, -1):
+        assert got.max() > 255  # the plane split's case on the card
 
 
 @pytest.mark.parametrize("band", BANDS)
@@ -187,3 +215,44 @@ def test_reference_twin_is_hit_matmul():
     )
     np.testing.assert_array_equal(got.numpy(), ref)
 
+
+
+@pytest.mark.parametrize(
+    "max_count, planes",
+    [(None, 4), (0, 1), (94, 1), (255, 1), (256, 2), (17000, 2),
+     (65535, 2), (65536, 3), (2**24 - 1, 3), (2**24, 4), (2**31 - 1, 4)],
+)
+def test_count_planes_cover_the_bound(max_count, planes):
+    assert tml.count_planes(max_count) == planes
+    if max_count is not None:
+        assert max_count < 256**planes
+
+
+def test_count_planes_reject_a_negative_bound():
+    with pytest.raises(ValueError):
+        tml.count_planes(-1)
+
+
+@pytest.mark.parametrize("max_count", [None, 17000, 70000])
+def test_plane_split_sums_to_the_votes(max_count):
+    """K3''s arithmetic in plain torch: counts cut into u8 planes, each
+    plane's 0/1-hit products summed in int32 and recombined with wrapping
+    shifts give the twin's votes exactly (and ``hit_votes`` on the CPU
+    takes the twin whatever the bound)."""
+    rng = np.random.default_rng(15)
+    vm = torch.from_numpy(rng.uniform(0, 4, (50, 100)).astype(np.float32))
+    vm[3] = torch.inf
+    vm[4, ::2] = torch.nan
+    top = 70000 if max_count is None else max_count
+    counts = torch.from_numpy(rng.integers(0, 3, (7, 100)).astype(np.int32))
+    counts[0, 5], counts[6, 99] = top, top // 2
+    hits = (vm <= 1.0).to(torch.int32)
+    votes = torch.zeros((7, 50), dtype=torch.int64)
+    for p in range(tml.count_planes(max_count)):
+        plane = (counts >> (8 * p)) & 0xFF
+        partial = plane.to(torch.int64) @ hits.T.to(torch.int64)
+        assert partial.max() <= max(top, 255 * 100)
+        votes += partial << (8 * p)
+    want = tml.lattice_votes_reference(counts, vm, 1.0)
+    assert torch.equal(votes.to(torch.int32), want)
+    assert torch.equal(tml.hit_votes(counts, vm, 1.0, max_count), want)

@@ -10,7 +10,8 @@ vote factorizes exactly (PARITY.md section 3):
     votes[b,a] = sum_k C[b, k] * (M[a, k] <= tol)   (kernel K3')
 
 The map build is plain torch (the JAX package left it to XLA); the vote is
-the hand-written kernel ``csrc/lattice.cu`` behind :func:`hit_votes`, with
+the hand-written kernel ``csrc/lattice.cu`` behind :func:`hit_votes` (u8
+tensor-core products that skip the buckets no query of a tile uses), with
 :func:`lattice_votes_reference` as its plain twin.
 """
 
@@ -136,13 +137,40 @@ def lattice_votes_reference(
     return (counts.to(torch.float32) @ hits.T).to(torch.int32)
 
 
+# K3''s work layout (csrc/lattice.cu): buckets in steps of 32 (the depth of
+# one u8 mma), queries in tiles of 64. Its scratch holds the u8 count planes
+# [planes, B, steps * 32] and one non-empty flag per (tile, step).
+STEP = 32
+QUERY_TILE = 64
+
+
+def count_planes(max_count: int | None) -> int:
+    """u8 planes K3' splits the counts into (``count = sum_p 256^p *
+    plane_p``): the fewest that hold ``max_count``, a bound on every count
+    the caller already knows (a histogram's counts are at most its frame
+    count). Without a bound, four: any non-negative int32."""
+    if max_count is None:
+        return 4
+    if max_count < 0:
+        raise ValueError(f"max_count must be >= 0, got {max_count}")
+    for planes in (1, 2, 3):
+        if max_count < 256**planes:
+            return planes
+    return 4
+
+
 def hit_votes(
-    counts: torch.Tensor, value_map: torch.Tensor, tol: float
+    counts: torch.Tensor, value_map: torch.Tensor, tol: float,
+    max_count: int | None = None,
 ) -> torch.Tensor:
     """K3': ``votes [B, A] int32 = sum_k counts[b, k] * (M[a, k] <= tol)``
     without materializing the ``[A, K]`` hit matrix. ``tol`` is compared
-    as float32."""
+    as float32. ``max_count`` bounds every count (see :func:`count_planes`);
+    it picks the kernel's plane count and never needs a readback. The
+    kernel stages a query tile's counts in shared memory, which holds
+    ``K * planes`` up to about 3,600."""
     tol = float(np.float32(tol))
+    planes = count_planes(max_count)
     if counts.device.type == "cpu":
         return lattice_votes_reference(counts, value_map, tol)
     if counts.device.type != "cuda" or value_map.device != counts.device:
@@ -167,10 +195,17 @@ def hit_votes(
     votes = torch.empty((b, a), dtype=torch.int32, device=counts.device)
     if b == 0 or a == 0:
         return votes
+    if k == 0:
+        return votes.zero_()
+    steps = -(-k // STEP)
+    scratch = torch.empty(
+        planes * b * steps * STEP + -(-b // QUERY_TILE) * steps,
+        dtype=torch.uint8, device=counts.device,
+    )
     lib = build.kernel_library()
     rc = lib.tiresias_lattice_votes(
-        counts.data_ptr(), value_map.data_ptr(), b, a, k, tol,
-        votes.data_ptr(),
+        counts.data_ptr(), value_map.data_ptr(), b, a, k, tol, planes,
+        scratch.data_ptr(), votes.data_ptr(),
         torch.cuda.current_stream(counts.device).cuda_stream,
     )
     build.check("lattice_votes", rc)
@@ -199,4 +234,5 @@ def lattice_votes(
       band_lo / band_hi: from :func:`band_thresholds`.
     """
     c = histogram(q0, active, band_lo, band_hi, k_min, k_size)
-    return hit_votes(c, value_map, tolerance)
+    # a bucket holds at most every frame: the plane count K3' needs
+    return hit_votes(c, value_map, tolerance, max_count=q0.shape[1])

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile in one ``nvcc`` call into a shared library with a plain
-C interface, loaded with :mod:`ctypes` (no PyTorch headers: seconds to build,
-not minutes). The library lands in ``build/kernels/`` beside the package
+Each source compiles in its own ``nvcc`` process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded with :mod:`ctypes` (no PyTorch headers: seconds to build, not
+minutes). The library lands in ``build/kernels/`` beside the package
 (``TIRESIAS_KERNEL_DIR`` overrides it), named by a hash of the sources and
 flags so an edited source never loads a stale build. Nothing is built at
 import time; the first kernel launch builds.
@@ -29,7 +30,7 @@ HEADERS = ("common.cuh",)
 # No --use_fast_math / -ftz=true: the aubio log floor 2e-42 is subnormal.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
@@ -52,8 +53,9 @@ _SIGNATURES = {
     "tiresias_mfcc_framed": [
         _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P,
     ],
-    # counts, value_map, batch, rows, k_size, tol, votes, stream
-    "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _P, _P],
+    # counts, value_map, batch, rows, k_size, tol, n_planes, scratch,
+    # votes, stream
+    "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     # db, query_rows, batch, rows, t_len, n_coefs, coefs, f_len, tol,
     # votes, stream
     "tiresias_match_votes": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
@@ -117,16 +119,38 @@ def kernel_library() -> ctypes.CDLL:
         so = os.path.join(out_dir, f"libtiresias_kernels.{_digest()}.so")
         if not os.path.exists(so):
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(CSRC, s) for s in SOURCES)]
-            proc = subprocess.run(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
+            nvcc = _nvcc()
+            objs = [f"{tmp}.{name}.o" for name in SOURCES]
+            try:
+                procs = [
+                    subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                         os.path.join(CSRC, name)],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True,
+                    )
+                    for name, obj in zip(SOURCES, objs)
+                ]
+                outs = [proc.communicate()[0] for proc in procs]
+                for proc, out, name in zip(procs, outs, SOURCES):
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed on {name} ({proc.returncode}):\n"
+                            f"{out}"
+                        )
+                proc = subprocess.run(
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
                 )
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc link failed ({proc.returncode}):\n{proc.stdout}"
+                    )
+            finally:
+                for obj in objs:
+                    if os.path.exists(obj):
+                        os.remove(obj)
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
