@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``tiresias_tpu_torch/csrc``,
-checks each against its plain PyTorch twin at the main path's shapes, then
+checks each against its plain PyTorch twin at the main path's shapes (the
+MFCC kernels on both routes, FFT and DFT product, and against a float64
+numpy chain), then
 drives the port through the entry points a user calls — ``Tiresias.sync()``
 over a directory of WAVs, a 10,000-track catalog (30 s tracks, tier 1024)
 saved and restored, and ``search_pcm_batch``/``search_pcm`` at batch 1 and
@@ -14,7 +16,8 @@ is also held to its twin, and timed, on the search queries' own histograms
 against the catalog's value map.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
-the main path, its error against its twin and both times, then the card's
+the main path, its error against its twin, its time, its twin's, and its
+bound (bytes or operations over the card's published peaks), then the card's
 name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
@@ -61,6 +64,12 @@ STRICT_MODES = {
                "min_margin": 0.2},
 }
 N_STRICT_BRUTE = 4  # queries per mode held to the numpy brute force
+# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
+# FP32 outside the tensor cores, int8 on the tensor cores. Each kernel's
+# bound_ms is the larger of its bytes and its operations over these.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+INT8_OPS_S = 1979e12
 
 
 def fail(msg: str) -> None:
@@ -129,28 +138,33 @@ def call_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
     """Device time per call: the CUDA kernel and memory-op time
-    torch.profiler records over ``reps`` calls, divided by ``reps``. Fails
-    the run when the profiler records no device activity."""
+    torch.profiler records over ``reps`` calls, divided by ``reps``. A
+    profile that records no device activity at all (CUPTI occasionally
+    delivers none for a short window) is taken again; the run fails when
+    ``attempts`` profiles in a row record none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)  # per-cycle event note
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-    )
-    if total_us <= 0:
-        fail("torch.profiler recorded no CUDA device time")
-    return total_us / 1e3 / reps
+    for _ in range(attempts):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # per-cycle note
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", 0)
+                       for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / reps
+        say(f"[profiler] no CUDA device time recorded over {reps} calls; "
+            f"profiling again")
+    fail(f"torch.profiler recorded no CUDA device time in {attempts} "
+         f"profiles in a row")
 
 
 def timed(label: str, kernel, plain, plain_reps: int = 20) -> dict:
@@ -244,52 +258,222 @@ def phase_build() -> None:
         f"into {build.build_dir()}")
 
 
+def bound(n_bytes: float, n_ops: float, peak: float | None = None) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) at HBM_BYTES_S and the
+    operations at ``peak`` (default FP32_OPS_S, the non-tensor FP32 peak)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / (peak or FP32_OPS_S)
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def mfcc_ops_per_frame(n: int, n_filters: int, n_coefs: int, mel_nnz: int,
+                       route: str) -> float:
+    """FP32 operations per frame of the MFCC chain, from its shapes. FFT
+    route: window (N), 5 M log2 M for the M = N/2-point complex FFT, ~10 M
+    for the split, 3 per magnitude, 2 per mel weight, the paired DCT. DFT
+    route: the window-folded DFT product (4 N (N/2+1)), the dense mel
+    product (2 (N/2+1) n_filters) and the DCT."""
+    m = n // 2
+    dct = 2 * n_filters * n_coefs
+    if route == "fft":
+        return (n + 5 * m * np.log2(m) + 10 * m + 3 * (m + 1) + 2 * mel_nnz
+                + dct)
+    return 4 * n * (m + 1) + 2 * (m + 1) * n_filters + dct
+
+
+def float64_chain(frames: np.ndarray, dsp, consts) -> np.ndarray:
+    """The fingerprint of ``frames [R, N]`` in float64 numpy: the periodic
+    Hann window, ``np.fft.rfft``, |.|, the mel bank, aubio's safe_log10, the
+    DCT and 10*log10|.| — the same function as both kernel routes, with the
+    same float32 mel and DCT tables, rounded nowhere else."""
+    n = frames.shape[1]
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n) / n))
+
+    def safe_log10(x):
+        return np.where(x >= 1e-37, np.log10(np.maximum(x, 1e-37)),
+                        np.log10(2e-42))
+
+    mag = np.abs(np.fft.rfft(frames.astype(np.float64) * w, axis=1))
+    mel = mag @ consts.mel_t.double().cpu().numpy()
+    c = safe_log10(mel) @ consts.dct_t.double().cpu().numpy()
+    return 10.0 * safe_log10(np.abs(c))
+
+
+def check_float64(label: str, kernel, twin, ref64) -> dict:
+    """The kernel's and the twin's distance from the float64 chain: the max
+    and the RMS of |error| over the fingerprint bound. Reported, not held to
+    each other: both sit at float32 output rounding (an ulp of a 30 dB value
+    is 1.9e-6 dB), where they tie within noise; the hard check is the
+    kernel-vs-twin bound of check_fp."""
+    import torch
+
+    ref = torch.from_numpy(ref64)
+    out = {}
+    for name, got in (("kernel", kernel), ("twin", twin)):
+        got = got.double().cpu()
+        err = (got - ref).abs()
+        c = torch.pow(10.0, ref / 10.0)
+        r = err / (FP_ATOL_DB * torch.clamp(FP_ATOL_C / c, min=1.0))
+        out[name] = (float(err.max()), float(r.max()),
+                     float(torch.sqrt((r * r).mean())))
+    say(f"[kernels] {label} vs a float64 numpy rfft chain (max dB, max and "
+        f"RMS over the bound): kernel {out['kernel']}, DFT-product twin "
+        f"{out['twin']}")
+    return {"f64_err_db": out["kernel"][0], "f64_rms_ratio": out["kernel"][2],
+            "twin_f64_err_db": out["twin"][0],
+            "twin_f64_rms_ratio": out["twin"][2]}
+
+
+def timed_routes(label: str, fns: dict, reps: int = 20) -> dict:
+    """Device times of the FFT kernel, the DFT-product kernel and the twin
+    in turns (plain, dft, fft, fft, dft, plain), and the FFT kernel's
+    per-call time."""
+    times = {k: [] for k in fns}
+    for k in ("plain", "dft", "fft", "fft", "dft", "plain"):
+        times[k].append(device_ms(fns[k], reps))
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    out["call_ms"] = call_ms(fns["fft"])
+    say(f"[kernels] {label}: device FFT route {out['fft']} ms, DFT-product "
+        f"route {out['dft']} ms ({out['dft'] / out['fft']:.2f}x), plain twin "
+        f"{out['plain']} ms; FFT route per call incl. launch "
+        f"{out['call_ms']} ms")
+    return out
+
+
+def phase_mfcc_kernels(device, dsp) -> list[dict]:
+    """K1 and K2 on both routes against the twin, float64 and each other:
+    K1 at [8192, 512] (64 queries x 128-frame bucket) and [128, 512] (one
+    query), K2 at 64 x 960 frames (30 s ingest batch). The FFT stage alone
+    (torch.fft.rfft of the same windowed frames) is timed as a yardstick."""
+    import torch
+
+    from tiresias_tpu_torch.ops import mfcc_kernels as mk
+
+    consts = mk.device_constants(dsp, SR, device)
+    consts_tf32 = tuple(tf32_rounded(c) for c in consts[:4])
+    n, nf, nc = dsp.buf_size, dsp.n_filters, dsp.n_coefs
+    mel_nnz = int((consts.mel_t != 0).sum())
+    tables = sum(t.numel() * 4 for t in consts.fft)
+    dft_tables = sum(t.numel() * 4 for t in consts[:4])
+    win = consts.fft.win2.reshape(-1)
+    k1 = {}
+    for b in (64, 1):
+        q = synth_tracks(b, 128 * HOP / SR, 101, device).float() / 32768.0
+        frames = mk.frames_from_pcm(q, HOP, n).reshape(-1, n).contiguous()
+        r = frames.shape[0]
+        label = f"K1 mfcc_rows [{r}, {n}]"
+        got = mk.mfcc_rows(frames, consts)
+        want = mk.mfcc_rows_plain(frames, consts)
+        err = check_fp(label, got, want, mk.mfcc_rows_plain(
+            tf32_rounded(frames), consts_tf32))
+        dft_err = check_fp(f"{label} DFT-product route",
+                           mk.mfcc_rows_dft(frames, consts), want,
+                           mk.mfcc_rows_plain(tf32_rounded(frames),
+                                              consts_tf32))
+        f64 = check_float64(label, got, want, float64_chain(
+            frames.cpu().numpy(), dsp, consts))
+        t = timed_routes(label, {
+            "fft": lambda: mk.mfcc_rows(frames, consts),
+            "dft": lambda: mk.mfcc_rows_dft(frames, consts),
+            "plain": lambda: mk.mfcc_rows_plain(frames, consts),
+        })
+        xw = frames * win
+        t["fft_stage_ms"] = device_ms(lambda: torch.fft.rfft(xw))
+        say(f"[kernels] yardstick, FFT stage alone: torch.fft.rfft of the "
+            f"{r} windowed frames {t['fft_stage_ms']} ms (not the chain; "
+            f"not used by the port)")
+        io = r * n * 4 + r * nc * 4
+        k1[r] = dict(t, err=err, dft_err=dft_err, **f64,
+                     fft_bound=bound(io + tables, r * mfcc_ops_per_frame(
+                         n, nf, nc, mel_nnz, "fft")),
+                     dft_bound=bound(io + dft_tables, r * mfcc_ops_per_frame(
+                         n, nf, nc, mel_nnz, "dft")))
+    big, one = k1[8192], k1[128]
+    # K2: 64 x 30 s signals in the ingest frame bucket (938 -> 960 frames)
+    pcm = synth_tracks(64, 960 * HOP / SR, 102, device).float() / 32768.0
+    label = f"K2 mfcc_framed [64, {pcm.shape[1]}]"
+    got = mk.mfcc_framed(pcm, consts, HOP, n)
+    want = mk.mfcc_framed_plain(pcm, consts, HOP, n)
+    control = mk.mfcc_framed_plain(tf32_rounded(pcm), consts_tf32, HOP, n)
+    k2_err = check_fp(label, got, want, control)
+    k2_dft_err = check_fp(f"{label} DFT-product route",
+                          mk.mfcc_framed_dft(pcm, consts, HOP, n), want,
+                          control)
+    del control
+    frames = mk.frames_from_pcm(pcm, HOP, n).reshape(-1, n)
+    sub = slice(0, 8192)  # the float64 chain on the first 8192 frames
+    k2_f64 = check_float64(label + " (first 8192 frames)",
+                           got.reshape(-1, nc)[sub], want.reshape(-1, nc)[sub],
+                           float64_chain(frames[sub].cpu().numpy(), dsp,
+                                         consts))
+    k2 = timed_routes(label, {
+        "fft": lambda: mk.mfcc_framed(pcm, consts, HOP, n),
+        "dft": lambda: mk.mfcc_framed_dft(pcm, consts, HOP, n),
+        "plain": lambda: mk.mfcc_framed_plain(pcm, consts, HOP, n),
+    }, reps=10)
+    xw = frames * win
+    k2["fft_stage_ms"] = device_ms(lambda: torch.fft.rfft(xw), 10)
+    say(f"[kernels] yardstick, FFT stage alone: torch.fft.rfft of the "
+        f"{frames.shape[0]} windowed frames {k2['fft_stage_ms']} ms (not the "
+        f"chain; not used by the port)")
+    r2 = frames.shape[0]
+    io2 = pcm.numel() * 4 + r2 * nc * 4
+    k2_fft_bound = bound(io2 + tables, r2 * mfcc_ops_per_frame(
+        n, nf, nc, mel_nnz, "fft"))
+    k2_dft_bound = bound(io2 + dft_tables, r2 * mfcc_ops_per_frame(
+        n, nf, nc, mel_nnz, "dft"))
+    del pcm, frames, xw
+    for name, t, bd in (("K1 [8192, 512]", big, big["fft_bound"]),
+                        ("K1 [128, 512]", one, one["fft_bound"]),
+                        ("K2 64 x 960", k2, k2_fft_bound)):
+        say(f"[kernels] {name} FFT route: {t['fft']} ms against a bound of "
+            f"{bd['bound_ms']:.5f} ms ({bd['bound_by']}), "
+            f"{100 * bd['bound_ms'] / t['fft']:.1f}% of it")
+    none = "no single PyTorch call computes the MFCC chain"
+    return [
+        {"name": "mfcc_rows", "route": "cuda",
+         "source": "tiresias_tpu_torch/csrc/mfcc_fft.cu",
+         "replaces": "tiresias_tpu/ops/mfcc_pallas.py:171",
+         "max_abs_err": big["err"], "ms": big["fft"],
+         "plain_ms": big["plain"], **big["fft_bound"], "library_ms": None,
+         "library": none, "shape": "[8192, 512]",
+         "ms_128_rows": one["fft"], "bound_ms_128_rows":
+             one["fft_bound"]["bound_ms"],
+         "fft_stage_ms": big["fft_stage_ms"],
+         **{k: v for k, v in big.items() if "f64" in k}},
+        {"name": "mfcc_framed", "route": "cuda",
+         "source": "tiresias_tpu_torch/csrc/mfcc_fft.cu",
+         "replaces": "tiresias_tpu/ops/mfcc_pallas.py:217",
+         "max_abs_err": k2_err, "ms": k2["fft"], "plain_ms": k2["plain"],
+         **k2_fft_bound, "library_ms": None, "library": none,
+         "shape": "64 x 960 frames", "fft_stage_ms": k2["fft_stage_ms"],
+         **k2_f64},
+        {"name": "mfcc_rows_dft", "route": "cuda",
+         "source": "tiresias_tpu_torch/csrc/mfcc.cu",
+         "replaces": "tiresias_tpu/ops/mfcc_pallas.py:171",
+         "max_abs_err": big["dft_err"], "ms": big["dft"],
+         "plain_ms": big["plain"], **big["dft_bound"], "library_ms": None,
+         "library": none, "shape": "[8192, 512]",
+         "ms_128_rows": one["dft"],
+         "note": "route for windows that are no power of two in 64-4096"},
+        {"name": "mfcc_framed_dft", "route": "cuda",
+         "source": "tiresias_tpu_torch/csrc/mfcc.cu",
+         "replaces": "tiresias_tpu/ops/mfcc_pallas.py:217",
+         "max_abs_err": k2_dft_err, "ms": k2["dft"], "plain_ms": k2["plain"],
+         **k2_dft_bound, "library_ms": None, "library": none,
+         "shape": "64 x 960 frames",
+         "note": "route for windows that are no power of two in 64-4096"},
+    ]
+
+
 def phase_kernels(device, dsp) -> list[dict]:
     """Each kernel against its twin at the main path's shapes."""
     import torch
 
     from tiresias_tpu_torch.ops import match_lattice as ml
-    from tiresias_tpu_torch.ops import mfcc_kernels as mk
 
-    consts = mk.device_constants(dsp, SR, device)
-    out = []
-    # K1: 64 queries x 128-frame bucket (3 s queries)
-    q = synth_tracks(64, 128 * HOP / SR, 101, device).float() / 32768.0
-    frames = mk.frames_from_pcm(q, HOP, dsp.buf_size).reshape(-1, 512)
-    frames = frames.contiguous()
-    consts_tf32 = tuple(tf32_rounded(c) for c in consts)
-    err = check_fp(
-        f"K1 mfcc_rows [{frames.shape[0]}, 512]", mk.mfcc_rows(frames, consts),
-        mk.mfcc_rows_plain(frames, consts),
-        mk.mfcc_rows_plain(tf32_rounded(frames), consts_tf32),
-    )
-    t = timed("K1 mfcc_rows", lambda: mk.mfcc_rows(frames, consts),
-              lambda: mk.mfcc_rows_plain(frames, consts))
-    out.append({
-        "name": "mfcc_rows", "route": "cuda",
-        "source": "tiresias_tpu_torch/csrc/mfcc.cu",
-        "replaces": "tiresias_tpu/ops/mfcc_pallas.py:171",
-        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-    })
-    # K2: 64 x 30 s signals in the ingest frame bucket (938 -> 960 frames)
-    pcm = synth_tracks(64, 960 * HOP / SR, 102, device).float() / 32768.0
-    err = check_fp(
-        f"K2 mfcc_framed [64, {pcm.shape[1]}]",
-        mk.mfcc_framed(pcm, consts, HOP, dsp.buf_size),
-        mk.mfcc_framed_plain(pcm, consts, HOP, dsp.buf_size),
-        mk.mfcc_framed_plain(tf32_rounded(pcm), consts_tf32, HOP,
-                             dsp.buf_size),
-    )
-    t = timed("K2 mfcc_framed",
-              lambda: mk.mfcc_framed(pcm, consts, HOP, dsp.buf_size),
-              lambda: mk.mfcc_framed_plain(pcm, consts, HOP, dsp.buf_size))
-    out.append({
-        "name": "mfcc_framed", "route": "cuda",
-        "source": "tiresias_tpu_torch/csrc/mfcc.cu",
-        "replaces": "tiresias_tpu/ops/mfcc_pallas.py:217",
-        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-    })
-    del pcm
+    out = phase_mfcc_kernels(device, dsp)
     # K3': B in {1, 64} x 10,112 rows (a 10k-track map, 128-row padding),
     # dense counts in every bucket (the worst case; real query histograms
     # are timed in phase_lattice_real)
@@ -302,12 +486,12 @@ def phase_kernels(device, dsp) -> list[dict]:
         counts = torch.randint(0, 6, (b, ml.K_SIZE), generator=g,
                                device=device, dtype=torch.int32)
         for tol in (0.001, 1.0):
-            for bound in (5, None):  # counts < 6: one u8 plane; or four
-                if not torch.equal(ml.hit_votes(counts, vm, tol, bound),
+            for cap in (5, None):  # counts < 6: one u8 plane; or four
+                if not torch.equal(ml.hit_votes(counts, vm, tol, cap),
                                    ml.lattice_votes_reference(counts, vm,
                                                               tol)):
                     fail(f"K3' lattice_votes != twin at B={b} tol={tol} "
-                         f"max_count={bound}")
+                         f"max_count={cap}")
         say(f"[kernels] K3' lattice_votes [{b}, 640] x [{rows}, 640] dense "
             f"counts: votes exact at tol 0.001 and 1.0, 1 and 4 planes")
         times[b] = timed(
@@ -315,12 +499,19 @@ def phase_kernels(device, dsp) -> list[dict]:
             lambda: ml.hit_votes(counts, vm, 1.0, 5),
             lambda: ml.lattice_votes_reference(counts, vm, 1.0),
         )
+    # dense counts touch every bucket: the whole map is read once, and the
+    # contraction is 2 B rows K int8 tensor-core operations
+    lattice_bound = bound(4 * (64 * ml.K_SIZE + rows * ml.K_SIZE + 64 * rows),
+                          2 * 64 * rows * ml.K_SIZE, INT8_OPS_S)
     out.append({
         "name": "lattice_votes", "route": "cuda",
         "source": "tiresias_tpu_torch/csrc/lattice.cu",
         "replaces": "tiresias_tpu/ops/match_lattice.py:369",
         "max_abs_err": 0.0, "ms": times[64]["ms"],
-        "plain_ms": times[64]["plain_ms"],
+        "plain_ms": times[64]["plain_ms"], **lattice_bound,
+        "library_ms": None,
+        "library": "no single PyTorch call computes the tolerance-hit count",
+        "shape": f"dense counts, B=64 x {rows} rows x 640 buckets",
     })
     out += phase_match_kernels(device)
     return out
@@ -415,6 +606,11 @@ def phase_match_kernels(device) -> list[dict]:
                                        coefs=2, aligned=aligned),
                 plain_reps=2,
             )
+    # every live stored frame (10,000 rows x 938) against each of the 94
+    # active frames of 64 queries: a subtract and a compare per coefficient
+    pairs = 64 * 10000 * 938 * 94
+    match_bound = bound(db.numel() * 4 + 64 * 128 * 2 * 4 + 64 * 10112 * 4,
+                        pairs * 2 * 2)
     for aligned, name, line in ((False, "match_votes", 58),
                                 (True, "match_votes_aligned", 171)):
         out.append({
@@ -422,7 +618,10 @@ def phase_match_kernels(device) -> list[dict]:
             "source": "tiresias_tpu_torch/csrc/match.cu",
             "replaces": f"tiresias_tpu/ops/match_pallas.py:{line}",
             "max_abs_err": 0.0, "ms": times[aligned, 64]["ms"],
-            "plain_ms": times[aligned, 64]["plain_ms"],
+            "plain_ms": times[aligned, 64]["plain_ms"], **match_bound,
+            "library_ms": None,
+            "library": "no single PyTorch call computes tolerance votes",
+            "shape": "B=64 x 10,112 rows x 1,024 frames x 2 coefs",
         })
     return out
 

@@ -10,8 +10,10 @@ Fingerprints are held to 1e-4 dB where the DCT coefficient has |c| >= 1
 and to the same bound scaled by 1/|c| below that (an absolute bound of
 ~2.3e-5 on c: 10*log10|c| magnifies the float32 summation-order difference
 of c near zero). Float32 kernels differ from the twins by ~4e-6 dB; TF32
-rounding of the inputs moves values by ~1e-3 dB. Votes are exact: K3',
-K4 and K5 must equal their twins int32 for int32.
+rounding of the inputs moves values by ~1e-3 dB. K1 and K2 run on the FFT
+route for power-of-two windows (64 to 4096 samples) and on the DFT route for
+any other; both are held to the same twin. Votes are exact: K3', K4 and K5
+must equal their twins int32 for int32.
 """
 
 import os
@@ -20,14 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from tiresias_tpu.config import ContextConfig, DspConfig, TiresiasConfig
-from tiresias_tpu.utils.audio import write_wav
+from tiresias_tpu_torch.config import ContextConfig, DspConfig, TiresiasConfig
 from tiresias_tpu_torch.ops import match as tm
 from tiresias_tpu_torch.ops import match_kernels as tk
 from tiresias_tpu_torch.ops import match_lattice as ml
 from tiresias_tpu_torch.ops import mfcc_kernels as mk
 from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 from tiresias_tpu_torch.utils import build
+from tiresias_tpu_torch.utils.audio import write_wav
 
 SR = 8000
 
@@ -58,34 +60,101 @@ def _assert_fp_close(got, want):
     assert float((err / bound).max()) <= 1.0, float(err.max())
 
 
+FLOOR_DB = np.float32(10.0) * np.float32(mk.LOG10_FLOOR)
+
+
+def _dsp(n_fft):
+    return DspConfig(buf_size=n_fft, hop_size=n_fft // 2)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 31, 32, 300, 8192])
+@pytest.mark.parametrize("rows", [1, 31, 32, 128, 300, 8192])
 def test_mfcc_rows_matches_twin(dev, rows):
+    """K1 at N = 512 (the FFT route) against its twin; row 0 is digital
+    silence and must give the exact floor on coef 1."""
     rng = np.random.default_rng(rows)
     consts = mk.device_constants(DspConfig(), SR, dev)
     frames = rng.standard_normal((rows, 512)).astype(np.float32)
     frames[0] = 0.0  # digital silence: exact floor on coef 1
     frames = torch.from_numpy(frames).to(dev)
+    build.reset_launch_counts()
     got = mk.mfcc_rows(frames, consts)
+    assert build.LAUNCHES["mfcc_rows"] == 1
     want = mk.mfcc_rows_plain(frames, consts)
     assert got.shape == (rows, 2)
     _assert_fp_close(got, want)
-    assert got[0, 1] == want[0, 1] == np.float32(10.0) * np.float32(
-        mk.LOG10_FLOOR)
+    assert got[0, 1] == want[0, 1] == FLOOR_DB
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 31, 128])
+@pytest.mark.parametrize("n_fft", [64, 1024, 4096])
+def test_mfcc_rows_fft_window_sizes(dev, n_fft, rows):
+    """The FFT route at other power-of-two windows (one, two and three
+    radix-8 passes with radix-4 tails), speech-like rows and a silent one."""
+    rng = np.random.default_rng(n_fft + rows)
+    consts = mk.device_constants(_dsp(n_fft), SR, dev)
+    frames = np.stack([_speechlike(rng, n_fft) for _ in range(rows)])
+    frames[rows // 2] = 0.0
+    frames = torch.from_numpy(frames).to(dev)
+    got = mk.mfcc_rows(frames, consts)
+    _assert_fp_close(got, mk.mfcc_rows_plain(frames, consts))
+    assert got[rows // 2, 1] == FLOOR_DB
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("frames", [1, 33, 256, 960])
 def test_mfcc_framed_matches_twin_and_rows_route(dev, frames):
+    """K2 (FFT route) against its twin and against K1 on the same frames;
+    frame counts that are not a multiple of the 32-frame block; the third
+    signal is digital silence."""
     rng = np.random.default_rng(frames)
     consts = mk.device_constants(DspConfig(), SR, dev)
-    pcm = torch.from_numpy(
-        np.stack([_speechlike(rng, frames * 256) for _ in range(3)])
-    ).to(dev)
+    pcm = np.stack([_speechlike(rng, frames * 256) for _ in range(3)])
+    pcm[2] = 0.0
+    pcm = torch.from_numpy(pcm).to(dev)
+    build.reset_launch_counts()
     got = mk.mfcc_framed(pcm, consts, 256, 512)
+    assert build.LAUNCHES["mfcc_framed"] == 1
     _assert_fp_close(got, mk.mfcc_framed_plain(pcm, consts, 256, 512))
     rows = mk.frames_from_pcm(pcm, 256, 512).reshape(-1, 512).contiguous()
     _assert_fp_close(got.reshape(-1, 2), mk.mfcc_rows(rows, consts))
+    assert (got[2, :, 1] == FLOOR_DB).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,frames", [(64, 37), (1024, 33), (4096, 9)])
+def test_mfcc_framed_fft_window_sizes(dev, n_fft, frames):
+    rng = np.random.default_rng(n_fft)
+    hop = n_fft // 2
+    consts = mk.device_constants(_dsp(n_fft), SR, dev)
+    pcm = torch.from_numpy(
+        np.stack([_speechlike(rng, frames * hop) for _ in range(2)])
+    ).to(dev)
+    got = mk.mfcc_framed(pcm, consts, hop, n_fft)
+    _assert_fp_close(got, mk.mfcc_framed_plain(pcm, consts, hop, n_fft))
+
+
+@pytest.mark.cuda
+def test_mfcc_dft_route_for_other_windows(dev):
+    """buf 480 / hop 240 is no power of two: K1 and K2 take the DFT route,
+    counted under their own names, and agree with the twins."""
+    dsp = DspConfig(buf_size=480, hop_size=240)
+    consts = mk.device_constants(dsp, SR, dev)
+    assert consts.fft is None
+    rng = np.random.default_rng(480)
+    pcm = torch.from_numpy(
+        np.stack([_speechlike(rng, 41 * 240) for _ in range(2)])
+    ).to(dev)
+    build.reset_launch_counts()
+    got = mk.mfcc_framed(pcm, consts, 240, 480)
+    _assert_fp_close(got, mk.mfcc_framed_plain(pcm, consts, 240, 480))
+    rows = mk.frames_from_pcm(pcm, 240, 480).reshape(-1, 480).contiguous()
+    _assert_fp_close(mk.mfcc_rows(rows, consts),
+                     mk.mfcc_rows_plain(rows, consts))
+    assert build.LAUNCHES["mfcc_framed_dft"] == 1
+    assert build.LAUNCHES["mfcc_rows_dft"] == 1
+    assert build.LAUNCHES["mfcc_rows"] == build.LAUNCHES["mfcc_framed"] == 0
 
 
 def _lattice_case(dev, case, b):
@@ -152,6 +221,7 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     tk.match_votes_fused(db, q, flags, flags, 0.1, 2)
     tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2)
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
+                              "mfcc_rows_dft": 0, "mfcc_framed_dft": 0,
                               "lattice_votes": 1, "match_votes": 1,
                               "match_votes_aligned": 1}
     with pytest.raises(ValueError):
@@ -159,6 +229,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
                      consts)
     with pytest.raises(ValueError):
         mk.mfcc_rows(torch.zeros((512, 4), device=dev).T, consts)
+    with pytest.raises(ValueError):  # FFT route without its tables
+        mk.mfcc_rows(torch.zeros((4, 512), device=dev), tuple(consts[:4]))
     with pytest.raises(ValueError):
         ml.hit_votes(torch.zeros((1, ml.K_SIZE), device=dev),
                      torch.zeros((128, ml.K_SIZE), device=dev), 1.0)

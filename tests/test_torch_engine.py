@@ -479,13 +479,14 @@ def test_autosplit_votes_equal_jax(tmp_path, monkeypatch, jax_query_fp,
 def test_port_never_imports_jax(tmp_path):
     """conftest imports jax in this process, so the check runs in a fresh
     interpreter: sync, save, restore, and the dialplan, strict bag and
-    aligned (with margin) searches on the CPU."""
+    aligned (with margin) searches on the CPU. Neither jax nor any module
+    of the JAX package may be loaded after them."""
     code = f"""
 import sys, os
 import numpy as np
 from tiresias_tpu_torch.api import Tiresias
-from tiresias_tpu.config import ContextConfig, TiresiasConfig
-from tiresias_tpu.utils.audio import synth_tone, write_wav
+from tiresias_tpu_torch.config import ContextConfig, TiresiasConfig
+from tiresias_tpu_torch.utils.audio import synth_tone, write_wav
 media = {str(tmp_path / "m")!r}
 os.makedirs(media)
 write_wav(os.path.join(media, "a.wav"), synth_tone(440, 1.0, 8000), 8000)
@@ -503,6 +504,9 @@ for kw in ({{}}, {{"aligned": True, "min_margin": 0.2}}):
                           trunc_coef1=False, **kw)
     assert res.found and res.name == "a.wav", (kw, res)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+bad = sorted(m for m in sys.modules
+             if m == "tiresias_tpu" or m.startswith("tiresias_tpu."))
+assert not bad, bad
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")

@@ -21,6 +21,7 @@ from golden_corpus import MIN_COVERAGE, all_cases
 from tiresias_tpu.config import DspConfig
 from tiresias_tpu.ops import mfcc_jax
 from tiresias_tpu.ops.dct import dct_matrix
+from tiresias_tpu.ops.windows import hanningz
 from tiresias_tpu.ops.mfcc_pallas import (
     _fingerprint_framed,
     _mfcc_rows,
@@ -29,6 +30,7 @@ from tiresias_tpu.ops.mfcc_pallas import (
 )
 from tiresias_tpu.utils.g711 import encode
 from tiresias_tpu_torch.ops import mfcc
+from tiresias_tpu_torch.ops import mfcc_kernels as mk
 from tiresias_tpu_torch.ops.mfcc_kernels import (
     ROW_TILE,
     device_constants,
@@ -126,7 +128,7 @@ def test_routing_matches_pallas_batch(lengths):
     ref = np.asarray(
         fingerprint_padded_batch_pallas(padded, SR, dsp, interpret=True)
     )
-    got = mfcc.fingerprint_padded_batch(padded, SR, dsp).numpy()
+    got = mfcc.fingerprint_padded_batch(padded, SR, dsp, device="cpu").numpy()
     assert got.shape == ref.shape
     for i, nf in enumerate(n_frames):
         np.testing.assert_allclose(got[i, :nf], ref[i, :nf], atol=ATOL, rtol=0)
@@ -213,8 +215,9 @@ def test_g711_wire_matches_linear():
     from tiresias_tpu.utils.g711 import decode
 
     lin = [decode(c, "alaw") for c in codes]
-    fp_w, nf_w = mfcc.fingerprint_signals_async(codes, SR, dsp, law="alaw")
-    fp_l, nf_l = mfcc.fingerprint_signals_async(lin, SR, dsp)
+    fp_w, nf_w = mfcc.fingerprint_signals_async(codes, SR, dsp, law="alaw",
+                                                device="cpu")
+    fp_l, nf_l = mfcc.fingerprint_signals_async(lin, SR, dsp, device="cpu")
     np.testing.assert_array_equal(nf_w, nf_l)
     torch.testing.assert_close(fp_w, fp_l, atol=0, rtol=0)
 
@@ -224,7 +227,7 @@ def test_coef_weights_scale_like_jax():
     rng = np.random.default_rng(9)
     pcm = _speechlike(rng, 12000)
     ref = mfcc_jax.fingerprint_signal(pcm, SR, dsp)
-    got = mfcc.fingerprint_signal(pcm, SR, dsp)
+    got = mfcc.fingerprint_signal(pcm, SR, dsp, device="cpu")
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 
@@ -241,7 +244,8 @@ def test_coef_scale_for_bitwise_equal_jax(weights):
 
 def test_silence_hits_exact_floor():
     dsp = DspConfig()
-    got = mfcc.fingerprint_signal(np.zeros(2048, np.float32), SR, dsp)
+    got = mfcc.fingerprint_signal(np.zeros(2048, np.float32), SR, dsp,
+                                  device="cpu")
     ref = np.asarray(mfcc_jax.fingerprint_signal(np.zeros(2048, np.float32), SR))
     # coef 0 sums the same 40 floor values in another order (1 ulp); the
     # antisymmetric coef 1 cancels exactly to 0, i.e. the exact floor
@@ -276,7 +280,7 @@ def test_fingerprint_matches_frozen_goldens(name):
     g = np.load(GOLDENS)
     make_pcm, sr = all_cases()[name]
     dsp = DspConfig()
-    ours = mfcc.fingerprint_signal(make_pcm(), sr, dsp)
+    ours = mfcc.fingerprint_signal(make_pcm(), sr, dsp, device="cpu")
     golden = g[f"{name}/fp"]
     bound = _frozen_bound(g, name, dsp)
     assert ours.shape == golden.shape
@@ -284,3 +288,128 @@ def test_fingerprint_matches_frozen_goldens(name):
     assert use.mean() >= MIN_COVERAGE[name]
     assert (np.abs(ours - golden) - bound)[use].max() < 5e-3
 
+
+
+# ---------------------------------------------------------------------------
+# the FFT route's host side (csrc/mfcc_fft.cu runs only on the card)
+# ---------------------------------------------------------------------------
+
+FFT_SIZES = [64, 512, 1024, 4096]
+
+
+def _fft_tables(n, sr=SR):
+    dsp = DspConfig(buf_size=n, hop_size=n // 2)
+    return mk.FftTables(*(torch.from_numpy(np.ascontiguousarray(c))
+                          for c in mk.fft_constants(dsp, sr)))
+
+
+@pytest.mark.parametrize("n", [32, 64, 128, 480, 512, 1000, 4096, 8192])
+def test_fft_route_by_window_size(n):
+    want = n in (64, 128, 512, 4096)
+    assert mk.fft_route(n) == want
+    dsp = DspConfig(buf_size=n, hop_size=n // 2)
+    consts = _cpu_consts(dsp)
+    assert (consts.fft is not None) == want
+    if want:
+        radices = mk.fft_radices(n // 2)
+        assert int(np.prod(radices)) == n // 2 and radices[0] == 8
+        assert set(radices) <= {4, 8} and radices.count(4) <= 2
+    else:
+        with pytest.raises(ValueError):
+            mk.fft_constants(dsp, SR)
+
+
+@pytest.mark.parametrize("n", FFT_SIZES)
+def test_fft_twiddle_and_window_tables(n):
+    t = mk.fft_constants(DspConfig(buf_size=n, hop_size=n // 2), SR)
+    m = n // 2
+    np.testing.assert_array_equal(
+        t.win2.reshape(-1), hanningz(n, np.float64).astype(np.float32))
+    for table, period, size in ((t.tw, m, m), (t.tws, n, m // 2 + 1)):
+        want = np.exp(-2j * np.pi * np.arange(size) / period)
+        assert table.dtype == np.float32 and table.shape == (size, 2)
+        np.testing.assert_array_equal(table[:, 0],
+                                      want.real.astype(np.float32))
+        np.testing.assert_array_equal(table[:, 1],
+                                      want.imag.astype(np.float32))
+    assert tuple(t.tw[0]) == (1.0, 0.0) and tuple(t.tws[0]) == (1.0, 0.0)
+
+
+@pytest.mark.parametrize("sr", [8000, 16000, 44100])
+@pytest.mark.parametrize("n", FFT_SIZES)
+def test_mel_ranges_cover_exactly_the_nonzero_weights(n, sr):
+    """The ranges rebuild mel_t exactly: each filter's [first, last] holds
+    every non-zero weight, first and last are non-zero, and nothing else."""
+    dsp = DspConfig(buf_size=n, hop_size=n // 2)
+    mel_t = kernel_constants(dsp, sr)[2]
+    t = mk.fft_constants(dsp, sr)
+    assert t.mel_idx.shape == (dsp.n_filters, 3)
+    dense = np.zeros_like(mel_t)
+    for j, (lo, hi, off) in enumerate(t.mel_idx):
+        dense[lo : hi + 1, j] = t.mel_w[off : off + hi - lo + 1]
+        if hi >= lo:
+            assert mel_t[lo, j] != 0 and mel_t[hi, j] != 0
+        else:
+            assert not mel_t[:, j].any()
+    np.testing.assert_array_equal(dense, mel_t)
+    assert t.mel_w.size == int(sum(max(hi - lo + 1, 0)
+                                   for lo, hi, _ in t.mel_idx))
+    if n >= 512:  # the profiles' windows: a bin lies in at most two filters
+        assert ((mel_t != 0).sum(axis=1) <= 2).all()
+
+
+@pytest.mark.parametrize("n", FFT_SIZES)
+def test_packed_rfft_plain_matches_float64_rfft(n):
+    """The kernel's pack -> N/2-point Stockham FFT -> split, written out in
+    torch with its tables, against numpy's float64 rfft of the same
+    windowed frames, within float32 rounding (a few ulp of the frame's
+    largest bin per radix-2 stage). Zero frames give exact zeros; DC and
+    Nyquist are real."""
+    rng = np.random.default_rng(n)
+    tabs = _fft_tables(n)
+    frames = rng.standard_normal((6, n)).astype(np.float32)
+    frames[1] = 0.0
+    frames[2] = 0.25  # DC only
+    frames[3] = np.where(np.arange(n) % 2, -0.5, 0.5)  # Nyquist only
+    frames[4] = _speechlike(rng, n)
+    re, im = mk.packed_rfft_plain(torch.from_numpy(frames), tabs)
+    assert re.shape == im.shape == (6, n // 2 + 1)
+    w = tabs.win2.numpy().reshape(-1).astype(np.float64)
+    ref = np.fft.rfft(frames.astype(np.float64) * w, axis=1)
+    scale = np.abs(ref).max(axis=1, keepdims=True)
+    tol = 4 * np.finfo(np.float32).eps * np.log2(n) * scale
+    assert (np.abs(re.numpy() - ref.real) <= tol).all()
+    assert (np.abs(im.numpy() - ref.imag) <= tol).all()
+    assert (re[1] == 0).all() and (im[1] == 0).all()
+    assert (im[:, 0] == 0).all() and (im[:, -1] == 0).all()
+    np.testing.assert_allclose(re[2, 0].item(), ref[2, 0].real, rtol=1e-6)
+    np.testing.assert_allclose(re[3, -1].item(), ref[3, -1].real, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", FFT_SIZES)
+def test_fft_chain_plain_within_fingerprint_bound_of_twin(n):
+    """The FFT route's whole chain in plain torch — |packed rFFT|, the mel
+    ranges summed in ascending bin order, safe_log10, the paired DCT —
+    within the kernel-vs-twin bound (1e-4 dB, scaled by 1/|c| below
+    |c| = 1) of the DFT-product twin, silence at the exact floor."""
+    dsp = DspConfig(buf_size=n, hop_size=n // 2)
+    consts = _cpu_consts(dsp)
+    rng = np.random.default_rng(n + 1)
+    frames = np.stack([_speechlike(rng, n) for _ in range(8)])
+    frames[3] = 0.0
+    frames = torch.from_numpy(frames)
+    re, im = mk.packed_rfft_plain(frames, consts.fft)
+    mag = torch.sqrt(re * re + im * im)
+    mel = torch.zeros((frames.shape[0], dsp.n_filters))
+    for j, (lo, hi, off) in enumerate(consts.fft.mel_idx.tolist()):
+        for k in range(lo, hi + 1):
+            mel[:, j] = torch.addcmul(mel[:, j], mag[:, k],
+                                      consts.fft.mel_w[off + k - lo])
+    got = 10.0 * mk.safe_log10(torch.abs(
+        mk.dct_paired(mk.safe_log10(mel), consts.dct_t)))
+    want = mfcc_rows_plain(frames, consts)
+    err = (got - want).abs().double()
+    c = torch.pow(10.0, want.double() / 10.0)
+    assert float((err / (1e-4 * torch.clamp(1.0 / c, min=1.0))).max()) <= 1.0
+    floor = np.float32(10.0) * np.float32(mk.LOG10_FLOOR)
+    assert got[3, 1] == want[3, 1] == floor

@@ -77,7 +77,7 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
     _populate(jstore, rng)
     jstore.save(str(tmp_path))
     jstore = JaxStore.load(str(tmp_path), n_coefs=2)
-    tstore = FingerprintStore.load(str(tmp_path), n_coefs=2)
+    tstore = FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu")
     assert _entries(tstore) == _entries(jstore)
     assert tstore.contexts == jstore.contexts
     for jdb, tdb in zip(jstore.host_db(), tstore.host_db()):
@@ -87,14 +87,14 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
 
 def test_port_checkpoint_restores_in_jax(tmp_path):
     rng = np.random.default_rng(1)
-    tstore = FingerprintStore(n_coefs=2)
+    tstore = FingerprintStore(n_coefs=2, device="cpu")
     _populate(tstore, rng)
     tstore.save(str(tmp_path))
     with open(tmp_path / "catalog.json") as f:
         cat = json.load(f)
     assert cat["version"] == 4 and cat["dead"]  # tombstones persisted
     jstore = JaxStore.load(str(tmp_path), n_coefs=2)
-    tstore = FingerprintStore.load(str(tmp_path), n_coefs=2)
+    tstore = FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu")
     assert _entries(jstore) == _entries(tstore)
     for jdb, tdb in zip(jstore.host_db(), tstore.host_db()):
         np.testing.assert_array_equal(tdb, jdb)
@@ -104,7 +104,7 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
 def test_tombstoned_views_never_vote(tmp_path):
     rng = np.random.default_rng(2)
     jstore = JaxStore(n_coefs=2)
-    tstore = FingerprintStore(n_coefs=2)
+    tstore = FingerprintStore(n_coefs=2, device="cpu")
     for s in (jstore, tstore):
         s.create_context("a")
     fps = [_fp(rng, 60) for _ in range(5)]
@@ -130,7 +130,7 @@ def test_dead_rows_hold_pad_value_like_jax(segmented, monkeypatch):
     if segmented:
         monkeypatch.setattr(tfs, "MAX_TIER_FRAMES", 128)
     rng = np.random.default_rng(3)
-    store = FingerprintStore(n_coefs=2)
+    store = FingerprintStore(n_coefs=2, device="cpu")
     store.create_context("a")
     lengths = (60, 300 if segmented else 90, 70)
     fps = [_fp(rng, n) for n in lengths]
@@ -154,7 +154,7 @@ def test_dead_rows_hold_pad_value_like_jax(segmented, monkeypatch):
 def test_incremental_save_rewrites_only_dirty_segments(tmp_path, monkeypatch):
     monkeypatch.setattr(tfs, "SEGMENT_ROWS", 4)
     rng = np.random.default_rng(3)
-    store = FingerprintStore(n_coefs=2)
+    store = FingerprintStore(n_coefs=2, device="cpu")
     store.create_context("a")
     for i in range(9):
         store.add_audio(f"x{i}", "a", _fp(rng, 50), f"h{i}")
@@ -169,13 +169,13 @@ def test_incremental_save_rewrites_only_dirty_segments(tmp_path, monkeypatch):
     assert [s[1] for s in segs] == [4, 4, 2]
     assert segs[0][0] in before and segs[1][0] in before
     assert segs[2][0] in after - before
-    restored = FingerprintStore.load(str(tmp_path), n_coefs=2)
+    restored = FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu")
     assert _entries(restored) == _entries(store)
 
 
 def test_crud_dedupe_and_contexts():
     rng = np.random.default_rng(4)
-    store = FingerprintStore(n_coefs=2)
+    store = FingerprintStore(n_coefs=2, device="cpu")
     with pytest.raises(KeyError):
         store.add_audio("x", "nope", _fp(rng, 10), "h")
     store.create_context("a")
@@ -193,7 +193,7 @@ def test_crud_dedupe_and_contexts():
 
 def test_compaction_keeps_order_and_maps():
     rng = np.random.default_rng(5)
-    store = FingerprintStore(n_coefs=2)
+    store = FingerprintStore(n_coefs=2, device="cpu")
     store.create_context("a")
     added = [store.add_audio(f"x{i}", "a", _fp(rng, 30), f"h{i}")
              for i in range(200)]
@@ -205,30 +205,31 @@ def test_compaction_keeps_order_and_maps():
 
 def test_load_rejects_incompatible_and_unreadable(tmp_path):
     rng = np.random.default_rng(6)
-    store = FingerprintStore(n_coefs=2)
+    store = FingerprintStore(n_coefs=2, device="cpu")
     store.create_context("a")
     store.add_audio("x", "a", _fp(rng, 20), "h")
     store.save(str(tmp_path))
     with pytest.raises(CheckpointIncompatible):
-        FingerprintStore.load(str(tmp_path), n_coefs=3)
+        FingerprintStore.load(str(tmp_path), n_coefs=3, device="cpu")
     with pytest.raises(CheckpointIncompatible):
-        FingerprintStore.load(str(tmp_path), n_coefs=2, coef_weights=(1, 2))
+        FingerprintStore.load(str(tmp_path), n_coefs=2, coef_weights=(1, 2),
+                              device="cpu")
     (tmp_path / "catalog.json").write_text("{torn")
     assert not (tmp_path / "catalog.json.bak").exists()
     with pytest.raises(CheckpointUnreadable):
-        FingerprintStore.load(str(tmp_path), n_coefs=2)
+        FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu")
 
 
 def test_bak_generation_fallback(tmp_path):
     rng = np.random.default_rng(7)
-    store = FingerprintStore(n_coefs=2)
+    store = FingerprintStore(n_coefs=2, device="cpu")
     store.create_context("a")
     store.add_audio("x", "a", _fp(rng, 20), "h1")
     store.save(str(tmp_path))
     store.add_audio("y", "a", _fp(rng, 20), "h2")
     store.save(str(tmp_path))
     (tmp_path / "catalog.json").write_text("{torn")
-    restored = FingerprintStore.load(str(tmp_path), n_coefs=2)
+    restored = FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu")
     assert [e.name for e in restored.entries] == ["x"]
 
 

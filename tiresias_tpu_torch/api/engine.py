@@ -27,15 +27,15 @@ import threading
 import numpy as np
 import torch
 
-from tiresias_tpu.config import (
+from tiresias_tpu_torch.config import (
     DEF_SEARCH_TOLERANCE,
     MatchConfig,
     TiresiasConfig,
 )
-from tiresias_tpu.utils.audio import ensure_samplerate, read_audio
-from tiresias_tpu.utils.g711 import decode as g711_decode
-from tiresias_tpu.utils.locking import DataDirLock, DataDirLocked
-from tiresias_tpu.utils.logging import get_logger
+from tiresias_tpu_torch.utils.audio import ensure_samplerate, read_audio
+from tiresias_tpu_torch.utils.g711 import decode as g711_decode
+from tiresias_tpu_torch.utils.locking import DataDirLock, DataDirLocked
+from tiresias_tpu_torch.utils.logging import get_logger
 from tiresias_tpu_torch.engine.sync import (
     SyncReport,
     sync_all,

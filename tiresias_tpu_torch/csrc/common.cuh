@@ -1,4 +1,4 @@
-// Shared device code of the fingerprint kernels (mfcc.cu).
+// Shared device code of the fingerprint kernels (mfcc.cu, mfcc_fft.cu).
 //
 // Numerics follow tiresias_tpu/ops/mfcc_pallas.py::_mfcc_chain: float32
 // throughout, FP32 FMA only (no TF32, no bf16), and aubio's SAFE_LOG10 floor
@@ -32,7 +32,34 @@ __device__ __forceinline__ float safe_log10(float x) {
                               : kLog10Floor;
 }
 
-// The windowed-DFT -> |.| -> mel -> safe_log10 -> DCT -> 10*log10|.| chain
+// Term j of DCT coefficient c of one frame's log-mel row l, for j in
+// [0, (n_filters + 1) / 2): filters j and n_filters-1-j as a pair of
+// separately rounded products (no FMA contraction), and the middle filter
+// alone when n_filters is odd. The DCT-II rows are exactly
+// (anti)symmetric in float32, so a constant log-mel row (digital silence,
+// every filter at the floor) gives exactly 0 and the exact floor value, as
+// the JAX chain does, instead of rounding noise of ~1e-6.
+__device__ __forceinline__ float dct_term(const float* l, int n_filters,
+                                          const float* __restrict__ dct_t,
+                                          int n_coefs, int c, int j) {
+  const int jj = n_filters - 1 - j;
+  if (j == jj) return __fmul_rn(l[j], __ldg(dct_t + j * n_coefs + c));
+  return __fadd_rn(__fmul_rn(l[j], __ldg(dct_t + j * n_coefs + c)),
+                   __fmul_rn(l[jj], __ldg(dct_t + jj * n_coefs + c)));
+}
+
+// DCT coefficient c, then 10*safe_log10(|.|): the terms summed in order.
+__device__ __forceinline__ float dct_log_coef(const float* l, int n_filters,
+                                              const float* __restrict__ dct_t,
+                                              int n_coefs, int c) {
+  float s = 0.f;
+  for (int j = 0; j < (n_filters + 1) / 2; ++j) {
+    s = __fadd_rn(s, dct_term(l, n_filters, dct_t, n_coefs, c, j));
+  }
+  return 10.f * safe_log10(fabsf(s));
+}
+
+// The DFT route (mfcc.cu): the windowed-DFT -> |.| -> mel -> safe_log10 -> DCT -> 10*log10|.| chain
 // for RT frames held in shared memory. Frame r starts at fr + r*row_stride
 // and holds `win` samples (row_stride == win for pre-framed rows; == hop for
 // the overlapping frames of an in-kernel-framed signal window). `mags`
@@ -125,30 +152,20 @@ __device__ __forceinline__ void mfcc_chain(
     logm[o] = safe_log10(s);
   }
   __syncthreads();
-  // 3. DCT + 10*safe_log10(|.|), valid rows only. Filters j and
-  //    n_filters-1-j are summed as a pair of separately rounded products
-  //    (no FMA contraction): the DCT-II rows are exactly (anti)symmetric
-  //    in float32, so a constant log-mel row (digital silence, every
-  //    filter at the floor) gives exactly 0 and the exact floor value, as
-  //    the JAX chain does, instead of rounding noise of ~1e-6.
-  const int half = n_filters / 2;
+  // 3. DCT + 10*safe_log10(|.|), valid rows only
   for (int o = tid; o < n_valid * n_coefs; o += nt) {
     const int r = o / n_coefs;
     const int c = o - r * n_coefs;
-    const float* l = logm + r * n_filters;
-    float s = 0.f;
-    for (int j = 0; j < half; ++j) {
-      const int jj = n_filters - 1 - j;
-      const float pair =
-          __fadd_rn(__fmul_rn(l[j], __ldg(dct_t + j * n_coefs + c)),
-                    __fmul_rn(l[jj], __ldg(dct_t + jj * n_coefs + c)));
-      s = __fadd_rn(s, pair);
-    }
-    if (n_filters % 2) {
-      s = __fadd_rn(s, __fmul_rn(l[half], __ldg(dct_t + half * n_coefs + c)));
-    }
-    out[o] = 10.f * safe_log10(fabsf(s));
+    out[o] = dct_log_coef(logm + r * n_filters, n_filters, dct_t, n_coefs, c);
   }
+}
+
+// Opts a kernel into more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace tiresias

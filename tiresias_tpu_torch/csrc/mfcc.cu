@@ -1,4 +1,7 @@
-// Fused MFCC fingerprint kernels for Hopper (sm_90a).
+// Fused MFCC fingerprint kernels for Hopper (sm_90a), DFT route: the
+// Pallas kernels' own method, for windows the FFT route (mfcc_fft.cu) does
+// not serve — any buf_size that is not a power of two from 64 to 4096
+// (ops/mfcc_kernels.py routes by shape; the *_dft launch counters).
 //
 // K1 tiresias_mfcc_rows replaces tiresias_tpu/ops/mfcc_pallas.py::_mfcc_kernel
 // (driven by _mfcc_rows): pre-framed rows [R, win] -> fingerprint
@@ -83,13 +86,6 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocksPerSM)
 inline int block_threads(int n_bins) {
   const int t = ((n_bins + 1) / 2 * 2 + 31) / 32 * 32;
   return t < kMaxThreads ? t : kMaxThreads;
-}
-
-template <typename Kernel>
-inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace tiresias

@@ -26,21 +26,22 @@ from itertools import islice
 import numpy as np
 import torch
 
-from tiresias_tpu.config import DspConfig, TiresiasConfig
-from tiresias_tpu.utils.audio import (
+from tiresias_tpu_torch.config import DspConfig, TiresiasConfig
+from tiresias_tpu_torch.utils.audio import (
     ensure_samplerate,
     read_audio,
     read_wav_g711,
     read_wav_i16,
 )
-from tiresias_tpu.utils.g711 import decode as g711_decode
-from tiresias_tpu.utils.hashing import file_md5
-from tiresias_tpu.utils.logging import get_logger
+from tiresias_tpu_torch.utils.g711 import decode as g711_decode
+from tiresias_tpu_torch.utils.hashing import file_md5
+from tiresias_tpu_torch.utils.logging import get_logger
 from tiresias_tpu_torch.ops.mfcc import (
     fingerprint_signals_async,
     mask_fingerprints,
 )
 from tiresias_tpu_torch.store.fingerprint_store import FingerprintStore
+from tiresias_tpu_torch.utils.device import resolve_device
 from tiresias_tpu_torch.utils.tracing import phase
 
 log = get_logger(__name__)
@@ -158,13 +159,14 @@ def ingest_files(
     paths: list[str],
     dsp: DspConfig | None = None,
     known_hashes: dict[str, str] | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SyncReport:
     """Fingerprint new files in device batches and add them to the store.
 
     Dedupe is by (context, file MD5) (fp_handler.c:494-507); undecodable
     files are skipped and counted (app_tiresias.c:415-419). Paths are
     decoded in file-size order so batches pack near-uniform lengths."""
+    device = resolve_device(device)
     dsp = dsp or DspConfig()
     report = SyncReport()
     inflight = None  # at most one enqueued-but-undrained batch
@@ -258,11 +260,12 @@ def sync_context_audio(
     context: str,
     directory: str,
     dsp: DspConfig | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SyncReport:
     """delete-removed + create-new for one context (app_tiresias.c:324-358).
     A cold context skips the separate MD5 pass: ingest hashes each file on
     the decode pool instead."""
+    device = resolve_device(device)
     report = SyncReport()
     if not store.get_audios_by_context(context):
         names = scan_directory(directory)
@@ -296,10 +299,11 @@ def sync_all(
     store: FingerprintStore,
     config: TiresiasConfig,
     checkpoint_dir: str | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SyncReport:
     """Full init-time sync: contexts, then per-context audio, checkpointing
     after each context that changed (PARITY.md D2)."""
+    device = resolve_device(device)
     sync_contexts(store, config)
     total = SyncReport()
     for ctx in config.contexts:

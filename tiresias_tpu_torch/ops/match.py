@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiresias_tpu.config import DEF_SEARCH_TOLERANCE
+from tiresias_tpu_torch.config import DEF_SEARCH_TOLERANCE
 from tiresias_tpu_torch.ops.match_lattice import band_thresholds
 
 AUDIO_BLOCK = 128

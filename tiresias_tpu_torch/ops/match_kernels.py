@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiresias_tpu.config import DEF_SEARCH_TOLERANCE
+from tiresias_tpu_torch.config import DEF_SEARCH_TOLERANCE
 from tiresias_tpu_torch.ops import match
 from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 from tiresias_tpu_torch.utils import build

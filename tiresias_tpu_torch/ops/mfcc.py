@@ -15,8 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiresias_tpu.config import DspConfig
-from tiresias_tpu.ops.reference_dsp import n_frames_for
+from tiresias_tpu_torch.config import DspConfig
 from tiresias_tpu_torch.ops.mfcc_kernels import (  # noqa: F401 - re-exported
     LOG10_FLOOR,
     ROW_TILE,
@@ -26,11 +25,16 @@ from tiresias_tpu_torch.ops.mfcc_kernels import (  # noqa: F401 - re-exported
     mfcc_rows,
     safe_log10,
 )
-from tiresias_tpu_torch.utils.device import to_device
+from tiresias_tpu_torch.utils.device import resolve_device, to_device
 
 # Padding value for fingerprint frames that don't exist; far below the
 # 10*log10(2e-42) floor of real values so no tolerance band reaches it.
 PAD_VALUE = -1e6
+
+
+def n_frames_for(n_samples: int, hop_size: int) -> int:
+    """Frame count for a signal: ceil(n/hop); 0 samples -> 0 frames."""
+    return -(-n_samples // hop_size)
 
 
 def coef_scale_for(dsp: DspConfig) -> np.ndarray | None:
@@ -48,7 +52,7 @@ def to_float_pcm(pcm: torch.Tensor, law: str | None = None) -> torch.Tensor:
     if pcm.dtype == torch.uint8:
         if law is None:
             raise ValueError("uint8 PCM requires a G.711 law (pass wire_law=...)")
-        from tiresias_tpu.utils.g711 import decode_table
+        from tiresias_tpu_torch.utils.g711 import decode_table
 
         table = torch.from_numpy(
             decode_table(law).astype(np.float32) / np.float32(32768.0)
@@ -76,7 +80,7 @@ def fingerprint_padded_batch(
     dsp: DspConfig | None = None,
     law: str | None = None,
     n_valid: np.ndarray | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """Fingerprint a pre-padded batch ``[B, S]`` (S a multiple of hop) ->
     ``[B, F, n_coefs]`` float32 on ``device``.
@@ -86,7 +90,7 @@ def fingerprint_padded_batch(
     are framed here and take K1, which packs rows densely across the batch.
     """
     dsp = dsp or DspConfig()
-    device = torch.device(device)
+    device = resolve_device(device)
     if n_valid is not None:
         n_valid = to_device(np.asarray(n_valid, np.int32), device)
     consts = device_constants(dsp, int(samplerate), device)
@@ -136,7 +140,7 @@ def pad_frames_bucket(
     )
     f_bucket = bucket_frames(int(n_frames.max(initial=1)), multiple)
     if law is not None:
-        from tiresias_tpu.utils.g711 import SILENCE_BYTE, decode_table
+        from tiresias_tpu_torch.utils.g711 import SILENCE_BYTE, decode_table
 
         decode_table(law)  # validate the name early
         for i, p in enumerate(pcms):
@@ -181,7 +185,7 @@ def fingerprint_signals_async(
     dsp: DspConfig | None = None,
     bucket_multiple: int = 128,
     law: str | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[torch.Tensor, np.ndarray]:
     """Enqueue a ragged-batch fingerprint without the host readback.
 
@@ -213,7 +217,7 @@ def fingerprint_signals(
     samplerate: int,
     dsp: DspConfig | None = None,
     bucket_multiple: int = 128,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Fingerprint a ragged batch: (fp [B, F_bucket, n_coefs] float32 with
     PAD_VALUE beyond each signal's frames, n_frames [B] int32)."""
@@ -225,7 +229,7 @@ def fingerprint_signals(
 
 def fingerprint_signal(
     pcm: np.ndarray, samplerate: int, dsp: DspConfig | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> np.ndarray:
     """Single signal -> exact-length ``[n_frames, n_coefs]`` fingerprint."""
     dsp = dsp or DspConfig()

@@ -30,11 +30,12 @@ import threading
 import numpy as np
 import torch
 
-from tiresias_tpu.config import DEF_N_COEFS
-from tiresias_tpu.utils.hashing import generate_uuid
-from tiresias_tpu.utils.logging import get_logger
+from tiresias_tpu_torch.config import DEF_N_COEFS
+from tiresias_tpu_torch.utils.hashing import generate_uuid
+from tiresias_tpu_torch.utils.logging import get_logger
 from tiresias_tpu_torch.ops.match_lattice import build_value_map
 from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
+from tiresias_tpu_torch.utils.device import resolve_device
 
 log = get_logger(__name__)
 
@@ -282,14 +283,14 @@ class FingerprintStore:
     semantics. One re-entrant lock guards mutation and catalog reads."""
 
     def __init__(self, n_coefs: int = DEF_N_COEFS, coef_weights=None,
-                 device: torch.device | str = "cpu") -> None:
+                 device: torch.device | str = "cuda") -> None:
         """``coef_weights``: the DSP chain's per-coef weighting, recorded in
         the checkpoint; a restore under different weights is rejected."""
         self.n_coefs = int(n_coefs)
         self.coef_weights = (
             tuple(float(x) for x in coef_weights) if coef_weights else None
         )
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._lock = threading.RLock()
         self._save_lock = threading.Lock()
         self.entries: list[AudioEntry] = []  # global insertion order
@@ -698,11 +699,12 @@ class FingerprintStore:
     @staticmethod
     def load(
         directory: str, n_coefs: int = DEF_N_COEFS, coef_weights=None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "FingerprintStore":
         """Restore from a checkpoint; an empty store when none exists. A
         corrupt current generation falls back to ``.bak``; when generations
         exist but none is readable, raises :class:`CheckpointUnreadable`."""
+        device = resolve_device(device)
         errors: list[str] = []
         for suffix in ("", ".bak"):
             cat_path = os.path.join(directory, CATALOG_FILE + suffix)

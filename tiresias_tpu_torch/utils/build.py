@@ -25,7 +25,7 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = ("mfcc.cu", "lattice.cu", "match.cu")
+SOURCES = ("mfcc_fft.cu", "mfcc.cu", "lattice.cu", "match.cu")
 HEADERS = ("common.cuh",)
 # No --use_fast_math / -ftz=true: the aubio log floor 2e-42 is subnormal.
 NVCC_FLAGS = (
@@ -36,9 +36,11 @@ NVCC_FLAGS = (
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that its main path went through
 # the kernels (chip_smoke.py zeroes the counts before driving the path).
+# mfcc_rows / mfcc_framed count the FFT route, the *_dft names the DFT route.
 LAUNCHES: dict[str, int] = {
-    "mfcc_rows": 0, "mfcc_framed": 0, "lattice_votes": 0,
-    "match_votes": 0, "match_votes_aligned": 0,
+    "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
+    "mfcc_framed_dft": 0, "lattice_votes": 0, "match_votes": 0,
+    "match_votes_aligned": 0,
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +54,15 @@ _SIGNATURES = {
     # n_filters, dct_t, n_coefs, out, stream
     "tiresias_mfcc_framed": [
         _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P,
+    ],
+    # frames, rows, n_fft, win2, tw, tws, mel_idx, mel_w, n_filters, dct_t,
+    # n_coefs, out, stream
+    "tiresias_mfcc_rows_fft": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                               _P],
+    # pcm, batch, n_samples, hop, n_frames, win2, tw, tws, mel_idx, mel_w,
+    # n_filters, dct_t, n_coefs, out, stream
+    "tiresias_mfcc_framed_fft": [
+        _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
     ],
     # counts, value_map, batch, rows, k_size, tol, n_planes, scratch,
     # votes, stream
