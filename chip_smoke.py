@@ -13,7 +13,10 @@ saved and restored, and ``search_pcm_batch``/``search_pcm`` at batch 1 and
 bag, aligned and margin configurations — and checks the TIR* results
 against the plain twins and a brute-force search. The lattice vote kernel
 is also held to its twin, and timed, on the search queries' own histograms
-against the catalog's value map.
+against the catalog's value map; the strict vote kernels K4/K5 on their
+sorted index, on each route, on synthetic rows (tol 0.1 and 2e5) and on the
+catalog's own view and the search queries, with band statistics and each
+case's bound from its own bands.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
 the main path, its error against its twin, its time, its twin's, and its
@@ -545,85 +548,342 @@ def match_case(device, seed: int, rows: int, t: int, coefs: int, b: int,
             n_frames)
 
 
-def phase_match_kernels(device) -> list[dict]:
-    """K4 and K5 against their twin, int32 exact: coefs 1, 2, 4 and 8, the
-    band filter off and on (on: q0 frames dropped and q1 conditions
-    bypassed), tolerances 0.05, 1 and 2e5 (past the Pallas kernels' masking
-    limit), a 1,536-frame tier (K5 walks it in 4 time chunks) and a
-    300-frame query (over one shared-memory stage of either kernel). Then
-    both times at the [strict] shapes."""
+def match_edge_case(device):
+    """Stored values next to fl(q0 ± tol) for tol 0.1, ±0.0, ±inf and NaN
+    stored frames, a row whose frames share one d0, and ±inf, ±0.0, NaN and
+    huge query values: (db, prepared query)."""
     import torch
 
     from tiresias_tpu_torch.ops import match as tm
+    from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
+
+    g = np.random.default_rng(5)
+    db = g.uniform(-3, 3, (64, 256, 2)).astype(np.float32)
+    db[1] = PAD_VALUE
+    db[2, :, 0] = 0.5
+    for k, v in enumerate((np.inf, -np.inf, np.nan, -0.0, 0.0)):
+        db[3, k::7, 0] = v
+    q = g.uniform(-3, 3, (6, 40, 2)).astype(np.float32)
+    q[0, :10, 0] = [np.inf, -np.inf, 0.0, -0.0, 0.5, np.nan, 1e-8, -1e-8,
+                    3e38, -3e38]
+    q[1, :, 0] = 0.5
+    tol = np.float32(0.1)
+    for i in range(20):
+        for s, e in enumerate((np.float32(q[2, i, 0] + tol),
+                               np.float32(q[2, i, 0] - tol))):
+            for k in range(-2, 3):
+                d = e
+                for _ in range(abs(k)):
+                    d = np.nextafter(d, np.float32(np.inf * np.sign(k)))
+                db[4 + i, 50 + 5 * s + k + 2, 0] = d
+    dbt = torch.from_numpy(db).to(device)
+    return dbt, tm.prepare_query(torch.from_numpy(q).to(device), None, -1, -1,
+                                 trunc_coef1=False)
+
+
+def band_stats(index, q, active, use2, tol: float) -> dict:
+    """In-band stored frames per (active query frame, row), summed over the
+    index chunks, from the index's own binary search: mean, p99, max, the
+    total (the in-band pairs) and the active frames; and the pairs a bag
+    search must test, up to and including each band's first entry that
+    also passes coefficient 1 (``walked``)."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_index as mi
+
+    hist = torch.zeros(index.chunk * index.n_chunks + 1, dtype=torch.int64,
+                       device=q.device)
+    walked = 0
+    u = torch.arange(index.chunk, device=q.device)
+    d1 = index.entries[..., 1][None, None]
+    for lo in range(q.shape[0]):
+        s = slice(lo, lo + 1)
+        b0, b1 = mi.band_bounds_plain(index, q[s, :, 0], tol)
+        w = (b1 - b0).sum(dim=-1)[active[s]]  # [frames, rows]
+        hist += torch.bincount(w.reshape(-1), minlength=hist.shape[0])
+        hit = (u >= b0[..., None]) & (u < b1[..., None])
+        hit &= ((d1 - q[s, :, 1][:, :, None, None, None]).abs() <= tol) | (
+            ~use2[s][:, :, None, None, None])
+        first = torch.where(hit.any(dim=-1), hit.int().argmax(dim=-1) - b0 + 1,
+                            b1 - b0)
+        walked += int(first.sum(dim=-1)[active[s]].sum())
+        del hit
+    n = int(hist.sum())
+    vals = torch.arange(hist.shape[0], device=q.device)
+    pairs = int((hist * vals).sum())
+    cum = torch.cumsum(hist, 0)
+    p99 = int(torch.searchsorted(cum, torch.tensor(0.99 * n,
+                                                   device=q.device)))
+    return {"mean": pairs / max(n, 1), "p99": p99,
+            "max": int(vals[hist > 0].max()) if n else 0, "pairs": pairs,
+            "walked": walked, "active_frames": int(active.sum()),
+            "live": int(index.n_live.sum()),
+            "rows": int(index.n_live.shape[0])}
+
+
+def index_bound(index, stats: dict, b: int, f: int, aligned: bool,
+                coefs: int = 2) -> dict:
+    """The bound of one index search: the live index entries read once (10
+    bytes each), the queries and the votes; two binary searches per
+    (active query frame, row, chunk), one compare per step, plus 4
+    operations per pair tested: every in-band pair (aligned), or up to each
+    band's first hit (bag)."""
+    import torch
+
+    steps = 2 * torch.ceil(torch.log2(index.n_live.double() + 1)).sum()
+    n_bytes = (10 * stats["live"] + b * (coefs + 2) * f * 4
+               + b * index.n_live.shape[0] * 4)
+    tested = stats["pairs"] if aligned else stats["walked"]
+    return bound(n_bytes, stats["active_frames"] * float(steps) + 4 * tested)
+
+
+def routes_delta(device, fn) -> tuple:
+    """The work items of each route one call of ``fn`` adds: (K4 index, K4
+    dense, K5 index, K5 dense)."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_kernels as tk
+
+    before = tk.route_counts(device).clone()
+    fn()
+    torch.cuda.synchronize(device)
+    return tuple((tk.route_counts(device) - before).tolist())
+
+
+def timed_match(label: str, fns: dict, plain=None, plain_reps: int = 2,
+                reps: int = 10):
+    """Device times of the auto route and the forced dense route (and the
+    forced index route, when ``fns`` has it) in turns, three rounds, and of
+    the twin around them when given."""
+    order = ["dense", "auto"] + (["index"] if "index" in fns else [])
+    times = {k: [] for k in order}
+    if plain is not None:
+        times["plain"] = [device_ms(plain, plain_reps)]
+    for k in order + order[::-1] + order:
+        times[k].append(device_ms(fns[k], reps))
+    if plain is not None:
+        times["plain"].append(device_ms(plain, plain_reps))
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    say(f"[kernels] {label}: device {out['auto']} ms, dense route "
+        f"{out['dense']} ms ({out['dense'] / out['auto']:.2f}x)"
+        + (f", index route {out['index']} ms" if "index" in out else "")
+        + (f", plain twin {out['plain']} ms" if plain is not None else ""))
+    return out
+
+
+def say_bands(label: str, st: dict, routes: tuple, aligned: bool) -> None:
+    idx, dense = routes[2:] if aligned else routes[:2]
+    share = 100 * st["mean"] * st["rows"] / max(1, st["live"])
+    say(f"[kernels] {label} bands: {st['mean']:.3f} in-band frames per "
+        f"(active query frame, row) on average ({share:.2f}% of a row's "
+        f"live frames), p99 {st['p99']}, max {st['max']}; items on the "
+        f"index route {idx}, on the dense route {dense} "
+        f"({100 * dense / max(1, idx + dense):.1f}% dense)")
+
+
+def phase_match_kernels(device) -> list[dict]:
+    """K4 and K5 against their twin, int32 exact, on each route (auto,
+    forced dense, forced index): coefs 1, 2, 4 and 8, the band filter off
+    and on (on: q0 frames dropped and q1 conditions bypassed), tolerances
+    0.05, 1 and 2e5 (past the Pallas kernels' masking limit), tiers of 256,
+    1,536 and 5,000 frames (three index chunks), 24-, 300- and 40-frame
+    queries, and stored values at the edges of fl(q0 ± tol). Then, at the
+    [strict] shapes: the index build, and both kernels' times on the auto
+    and the dense route in turns, with band statistics and each case's
+    bound, at tol 0.1 (case a) and 2e5 (case c) on uniform rows, and at tol
+    0.1 on rows with a narrow coefficient 0 (cases d and e, with the index
+    route timed too), batch 64 and 1."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match as tm
+    from tiresias_tpu_torch.ops import match_index as mi
     from tiresias_tpu_torch.ops import match_kernels as tk
     from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 
     fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
     checked = 0
+
+    def check(db, qq, act, use2, tol, coefs, tag):
+        nonlocal checked
+        index = mi.build_match_index(db)
+        mask = (db[..., 0] != PAD_VALUE) & ~torch.isnan(db[..., 0])
+        for aligned, fn in fns.items():
+            want = tm.match_votes(db, mask, qq, act, use2, tol, coefs=coefs,
+                                  aligned=aligned)
+            for route in ("auto", "dense", "index"):
+                got = fn(db, qq, act, use2, tol, coefs, index=index,
+                         route=route)
+                if not torch.equal(got, want):
+                    bad = (got != want).nonzero()[0].tolist()
+                    fail(f"K{5 if aligned else 4} != twin on the {route} "
+                         f"route at {tag} tol {tol}: [{bad}] "
+                         f"{got[bad[0], bad[1]]} vs {want[bad[0], bad[1]]}")
+                checked += 1
+            if tol == 1.0 and tag[-1] == (-1, -1) and not (want > 0).any():
+                fail(f"K4/K5 check at {tag} has no votes")
+
     for coefs in (1, 2, 4, 8):
-        for rows, t, f in ((200, 256, 24), (300, 1536, 300)):
+        for rows, t, f in ((200, 256, 24), (300, 1536, 300), (40, 5000, 40)):
             db, q, n_frames = match_case(device, 200 + coefs + t, rows, t,
                                          8, 5, f)
             for band in ((-1, -1), (1, 300)):
                 qq, act, use2 = tm.prepare_query(q, n_frames, *band,
                                                  trunc_coef1=False)
                 for tol in (0.05, 1.0, 2e5):
-                    for aligned, fn in fns.items():
-                        got = fn(db, qq, act, use2, tol, coefs)
-                        want = tm.match_votes(
-                            db, db[..., 0] != PAD_VALUE, qq, act, use2, tol,
-                            coefs=coefs, aligned=aligned)
-                        if not torch.equal(got, want):
-                            bad = (got != want).nonzero()[0].tolist()
-                            fail(f"K{5 if aligned else 4} != twin at coefs "
-                                 f"{coefs} tier {t} F {f} band {band} tol "
-                                 f"{tol}: [{bad}] {got[bad[0], bad[1]]} vs "
-                                 f"{want[bad[0], bad[1]]}")
-                        if tol == 1.0 and band == (-1, -1) and not (
-                                got > 0).any():
-                            fail(f"K4/K5 check at coefs {coefs} has no votes")
-                        checked += 1
+                    check(db, qq, act, use2, tol, coefs,
+                          (coefs, t, f, band))
+    db, (qq, act, use2) = match_edge_case(device)
+    for tol in (0.0, 0.1, 1.0, float("inf")):
+        check(db, qq, act, use2, tol, 2, ("edge values",))
     say(f"[kernels] K4 match_votes / K5 match_votes_aligned == twins (int32 "
-        f"exact) in {checked} cases: coefs 1, 2, 4, 8 x band off/on x tol "
-        f"0.05, 1, 2e5; tiers 256 and 1536 (K5: 4 time chunks), queries of "
-        f"24 and 300 frames (K4: 2 stages, K5: 3)")
+        f"exact) in {checked} cases: routes auto, dense and index x coefs "
+        f"1, 2, 4, 8 x band off/on x tol 0.05, 1, 2e5; tiers 256, 1536 and "
+        f"5000 (3 index chunks), queries of 24, 300 and 40 frames; edge "
+        f"values at tol 0, 0.1, 1, inf")
     # [strict] shapes: 10,112 rows (10,000 tracks of 938 frames, 128-row
     # padding) x 1,024 frames x 2 coefs; 94 active frames in a 128 bucket
     db, _, _ = match_case(device, 300, 10112, 1024, 2, 2, 128,
                           live_frames=938)
     db[10000:] = PAD_VALUE
-    out, times = [], {}
-    for b in (1, 64):
+    index = mi.build_match_index(db)
+    build_ms = device_ms(lambda: mi.build_match_index(db), 5)
+    say(f"[kernels] build_match_index [10112, 1024, 2]: device {build_ms} ms "
+        f"({index.entries.numel() * 4 + index.pos.numel() * 2} B of index)")
+    mask = db[..., 0] != PAD_VALUE
+    # (d), (e): the same live frames with coefficient 0 drawn narrow, as in
+    # a catalog of speech-like tracks: N(-10, 0.6) dB (bands ~9% of a row)
+    # and N(-10, 0.22) dB with coefficient 1 N(-5, 0.6) dB (bands ~25%, with
+    # few coefficient-1 hits); their queries are stored frames of 100 rows
+    g = torch.Generator(device=device).manual_seed(305)
+    narrow = {}
+    for case, sd0 in (("d", 0.6), ("e", 0.22)):
+        dn = db.clone()
+        dn[..., 0] = torch.randn(dn.shape[:2], generator=g,
+                                 device=device) * sd0 - 10.0
+        if case == "e":
+            dn[..., 1] = torch.randn(dn.shape[:2], generator=g,
+                                     device=device) * 0.6 - 5.0
+        dn[~mask] = PAD_VALUE
+        narrow[case] = (dn, mi.build_match_index(dn))
+    res = {}
+    for b in (64, 1):
         _, q, _ = match_case(device, 301 + b, 256, 256, 2, b, 128)
         qq, act, use2 = tm.prepare_query(q, np.full(b, 94), -1, -1,
                                          trunc_coef1=False)
-        mask = db[..., 0] != PAD_VALUE
-        for aligned, fn in fns.items():
-            name = f"K{5 if aligned else 4} {fn.__name__} B={b}"
-            times[aligned, b] = timed(
-                name, lambda: fn(db, qq, act, use2, STRICT_TOL, 2),
-                lambda: tm.match_votes(db, mask, qq, act, use2, STRICT_TOL,
-                                       coefs=2, aligned=aligned),
-                plain_reps=2,
-            )
+        cases = [("a", db, index, qq, STRICT_TOL), ("c", db, index, qq, 2e5)]
+        for case, (dn, idn) in narrow.items():
+            qn = qq.clone()
+            qn[..., :2] = dn[torch.arange(b, device=device) % 100, 5:133, :2]
+            cases.append((case, dn, idn, qn, STRICT_TOL))
+        for case, d, idx, qc, tol in cases:
+            st = band_stats(idx, qc, act, use2, tol)
+            for aligned, fn in fns.items():
+                name = f"K{5 if aligned else 4} {fn.__name__} ({case}) B={b}"
+                routes_timed = ("auto", "dense") + (
+                    ("index",) if case in "de" else ())
+                call = {r: (lambda r=r: fn(d, qc, act, use2, tol, 2,
+                                           index=idx, route=r))
+                        for r in routes_timed}
+                plain = None
+                if case == "a":
+                    plain = (lambda al=aligned: tm.match_votes(
+                        db, mask, qq, act, use2, tol, coefs=2, aligned=al))
+                t = timed_match(name, call, plain, reps=10 if b > 1 else 50)
+                routes = routes_delta(device, call["auto"])
+                say_bands(name, st, routes, aligned)
+                res[case, aligned, b] = dict(t, routes=routes, stats=st,
+                                             bound=index_bound(idx, st, b,
+                                                               128, aligned))
+                bd = res[case, aligned, b]["bound"]
+                say(f"[kernels] {name}: bound {bd['bound_ms']:.5f} ms "
+                    f"({bd['bound_by']}) from this run's bands, "
+                    f"{100 * bd['bound_ms'] / t['auto']:.1f}% of it")
+    del narrow
     # every live stored frame (10,000 rows x 938) against each of the 94
     # active frames of 64 queries: a subtract and a compare per coefficient
     pairs = 64 * 10000 * 938 * 94
-    match_bound = bound(db.numel() * 4 + 64 * 128 * 2 * 4 + 64 * 10112 * 4,
+    dense_bound = bound(db.numel() * 4 + 64 * 128 * 2 * 4 + 64 * 10112 * 4,
                         pairs * 2 * 2)
+    out = []
+    none = "no single PyTorch call computes tolerance votes"
     for aligned, name, line in ((False, "match_votes", 58),
                                 (True, "match_votes_aligned", 171)):
+        a64, a1 = res["a", aligned, 64], res["a", aligned, 1]
+        c64 = res["c", aligned, 64]
         out.append({
             "name": name, "route": "cuda",
             "source": "tiresias_tpu_torch/csrc/match.cu",
             "replaces": f"tiresias_tpu/ops/match_pallas.py:{line}",
-            "max_abs_err": 0.0, "ms": times[aligned, 64]["ms"],
-            "plain_ms": times[aligned, 64]["plain_ms"], **match_bound,
-            "library_ms": None,
-            "library": "no single PyTorch call computes tolerance votes",
-            "shape": "B=64 x 10,112 rows x 1,024 frames x 2 coefs",
+            "max_abs_err": 0.0, "ms": a64["auto"],
+            "plain_ms": a64["plain"], **a64["bound"], "library_ms": None,
+            "library": none,
+            "shape": "B=64 x 10,112 rows x 1,024 frames x 2 coefs, tol 0.1",
+            "dense_route_ms": a64["dense"], "dense_bound_ms":
+                dense_bound["bound_ms"], "ms_b1": a1["auto"],
+            "dense_route_ms_b1": a1["dense"], "bound_ms_b1":
+                a1["bound"]["bound_ms"], "ms_tol_2e5": c64["auto"],
+            "dense_route_ms_tol_2e5": c64["dense"],
+            "bands": {k: v for k, v in a64["stats"].items()},
+            "index_build_ms": build_ms,
         })
+    out.append({
+        "name": "match_votes_aligned_dense", "route": "cuda",
+        "source": "tiresias_tpu_torch/csrc/match.cu",
+        "replaces": "tiresias_tpu/ops/match_pallas.py:171",
+        "max_abs_err": 0.0, "ms": res["a", True, 64]["dense"],
+        "plain_ms": res["a", True, 64]["plain"], **dense_bound,
+        "library_ms": None, "library": none,
+        "shape": "every (query, row) item: B=64 x 10,112 rows x 1,024 "
+                 "frames x 2 coefs (K5's forced dense route, both kernels)",
+        "ms_tol_2e5": res["c", True, 64]["dense"],
+    })
     return out
+
+
+def phase_match_real(device, eng, queries) -> None:
+    """K4 and K5 on the traffic the strict path sends (case b): the restored
+    catalog's own view and index, the 64 excerpts + 8 noise queries at tol
+    0.1, batch 64 and 1; int32-exact against the twin on every route, then
+    the auto and dense routes in turns, with band statistics, route shares
+    and this run's bound."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match as tm
+    from tiresias_tpu_torch.ops import match_kernels as tk
+    from tiresias_tpu_torch.ops.mfcc import (
+        fingerprint_padded_batch,
+        pad_frames_bucket,
+    )
+
+    (view,) = eng.store.search_views()
+    index = eng.store.match_index_for(view)
+    padded, n_frames = pad_frames_bucket(queries, HOP)
+    qfp = fingerprint_padded_batch(padded, SR, eng.config.dsp, device=device)
+    q, active, use2 = tm.prepare_query(qfp, n_frames, -1, -1,
+                                       trunc_coef1=False)
+    f = q.shape[1]
+    fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
+    for b in (64, 1):
+        qq, act, u2 = q[:b], active[:b], use2[:b]
+        st = band_stats(index, qq, act, u2, STRICT_TOL)
+        for aligned, fn in fns.items():
+            name = (f"K{5 if aligned else 4} {fn.__name__} (b) real catalog "
+                    f"B={b}")
+            want = tm.match_votes(view.db, view.mask, qq, act, u2,
+                                  STRICT_TOL, coefs=2, aligned=aligned)
+            call = {r: (lambda r=r: fn(view.db, qq, act, u2, STRICT_TOL, 2,
+                                       index=index, route=r))
+                    for r in ("auto", "dense", "index")}
+            for r, c in call.items():
+                if not torch.equal(c(), want):
+                    fail(f"{name}: the {r} route != twin")
+            t = timed_match(name, call, reps=10 if b > 1 else 50)
+            routes = routes_delta(device, call["auto"])
+            say_bands(name, st, routes, aligned)
+            bd = index_bound(index, st, b, f, aligned)
+            say(f"[kernels] {name}: bound {bd['bound_ms']:.5f} ms "
+                f"({bd['bound_by']}), {100 * bd['bound_ms'] / t['auto']:.1f}%"
+                f" of it; votes exact on the auto, dense and index routes")
 
 
 def phase_ingest(device, cfg, media: str) -> float:
@@ -1031,6 +1291,7 @@ def run(device) -> dict:
     import torch
 
     from tiresias_tpu_torch import ContextConfig, TiresiasConfig
+    from tiresias_tpu_torch.ops import match_kernels as tk
     from tiresias_tpu_torch.utils import build
 
     card = phase_card(device)
@@ -1074,18 +1335,24 @@ def run(device) -> dict:
         say(f"[launches] main path: {launches}")
         phase_lattice_real(*phase_verify(device, eng, queries, results))
         torch.cuda.synchronize(device)
+        routes0 = tk.route_counts(device).clone()
         build.reset_launch_counts()  # --- the strict path starts here ---
         strict, strict_p50 = phase_strict(device, eng, queries)
         torch.cuda.synchronize(device)
         strict_launches = dict(build.LAUNCHES)  # --- and ends here ---
-        for name in ("match_votes", "match_votes_aligned"):
+        routes = (tk.route_counts(device) - routes0).tolist()
+        match_names = ("match_votes", "match_votes_aligned",
+                       "match_votes_aligned_dense")
+        for name in match_names:
             if strict_launches[name] <= 0:
                 fail(f"the strict path never launched {name}")
-        say(f"[launches] strict path: {strict_launches}")
-        launches.update(match_votes=strict_launches["match_votes"],
-                        match_votes_aligned=strict_launches[
-                            "match_votes_aligned"])
+        if routes[0] <= 0 or routes[2] <= 0:
+            fail(f"the strict path never took the index route: {routes}")
+        say(f"[launches] strict path: {strict_launches}; work items (K4 "
+            f"index, K4 dense, K5 index, K5 dense): {routes}")
+        launches.update({k: strict_launches[k] for k in match_names})
         phase_verify_strict(device, eng, queries, strict)
+        phase_match_real(device, eng, queries)
         eng.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

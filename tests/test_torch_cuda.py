@@ -24,6 +24,7 @@ import torch
 
 from tiresias_tpu_torch.config import ContextConfig, DspConfig, TiresiasConfig
 from tiresias_tpu_torch.ops import match as tm
+from tiresias_tpu_torch.ops import match_index as mi
 from tiresias_tpu_torch.ops import match_kernels as tk
 from tiresias_tpu_torch.ops import match_lattice as ml
 from tiresias_tpu_torch.ops import mfcc_kernels as mk
@@ -223,7 +224,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
                               "mfcc_rows_dft": 0, "mfcc_framed_dft": 0,
                               "lattice_votes": 1, "match_votes": 1,
-                              "match_votes_aligned": 1}
+                              "match_votes_aligned": 1,
+                              "match_votes_aligned_dense": 1}
     with pytest.raises(ValueError):
         mk.mfcc_rows(torch.zeros((4, 512), device=dev, dtype=torch.float64),
                      consts)
@@ -261,23 +263,125 @@ def _match_case(dev, seed, rows, t, c, b, f):
 @pytest.mark.parametrize("aligned", [False, True])
 @pytest.mark.parametrize("coefs", [1, 2, 4, 8])
 def test_match_kernels_equal_twin_exactly(dev, coefs, aligned):
-    """K4/K5 vs the twin, int32 exact: a tier of 1,536 frames (K5 walks 4
-    time chunks), a 300-frame query (more than one shared-memory stage),
-    band filters that drop q0 frames and bypass q1 conditions, and tol 2e5
-    (past the Pallas kernels' value-encoded masks)."""
+    """K4/K5 vs the twin, int32 exact, on each route: a one-chunk tier, a
+    tier of 1,536 frames, one of 5,000 (three index chunks of 2,048, the
+    last ragged), a 300-frame query, band filters that drop q0 frames and
+    bypass q1 conditions, and tol 2e5 (every frame in every band)."""
     fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
-    for rows, t, f in ((200, 256, 24), (300, 1536, 300)):
+    for rows, t, f in ((200, 256, 24), (300, 1536, 300), (40, 5000, 40)):
         db, q, n_frames = _match_case(dev, coefs + t, rows, t, 8, 5, f)
+        index = mi.build_match_index(db)
         for band in ((-1, -1), (1, 300)):
             qq, act, use2 = tm.prepare_query(q, n_frames, *band,
                                              trunc_coef1=False)
             for tol in (0.05, 1.0, 2e5):
-                got = fn(db, qq, act, use2, tol, coefs)
                 want = tm.match_votes(db, db[..., 0] != PAD_VALUE, qq, act,
                                       use2, tol, coefs=coefs,
                                       aligned=aligned)
-                assert torch.equal(got, want), (rows, t, f, band, tol)
+                for route in ("auto", "dense", "index"):
+                    got = fn(db, qq, act, use2, tol, coefs, index=index,
+                             route=route)
+                    assert torch.equal(got, want), (t, f, band, tol, route)
                 assert (got[:, 1] == 0).all()  # the empty row
+                assert torch.equal(fn(db, qq, act, use2, tol, coefs), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64, 130])
+def test_match_kernel_routes_are_counted_and_exact(dev, b):
+    """Batches of 1, 64 and 130 queries; at tol 0.05 every item takes the
+    index route, at tol 2e5 every K5 item of a row with frames takes the
+    dense one (an empty row's items count as index items), and the device
+    counters see both."""
+    db, q, n_frames = _match_case(dev, 900 + b, 200, 256, 2, max(b, 3), 24)
+    q, n_frames = q[:b], n_frames[:b]
+    qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1, trunc_coef1=False)
+    index = mi.build_match_index(db)
+    empty = int((index.n_live.sum(dim=1) == 0).sum())
+    counts = tk.route_counts(dev)
+    for tol in (0.05, 2e5):
+        for aligned, fn in ((False, tk.match_votes_fused),
+                            (True, tk.match_votes_fused_aligned)):
+            before = counts.clone()
+            got = fn(db, qq, act, use2, tol, 2, index=index)
+            torch.cuda.synchronize()
+            want = tm.match_votes(db, db[..., 0] != PAD_VALUE, qq, act, use2,
+                                  tol, coefs=2, aligned=aligned)
+            assert torch.equal(got, want), (tol, aligned)
+            moved = (counts - before).tolist()
+            index_items, dense_items = moved[2:] if aligned else moved[:2]
+            assert sum(moved[:2] if aligned else moved[2:]) == 0
+            if tol == 0.05:
+                assert index_items > 0 and dense_items == 0, moved
+            elif aligned:
+                assert dense_items == b * (200 - empty), moved
+                assert index_items == b * empty, moved
+
+
+@pytest.mark.cuda
+def test_match_kernels_exact_at_edge_values(dev):
+    """Stored values next to fl(q0 ± tol), ±0.0, ±inf and NaN stored frames,
+    ±inf, ±0.0 and huge query values, a row whose frames share one d0; tol
+    0, 0.1, 1 and inf, on every route."""
+    g = np.random.default_rng(5)
+    db = g.uniform(-3, 3, (64, 256, 2)).astype(np.float32)
+    db[1] = PAD_VALUE
+    db[2, :, 0] = 0.5
+    db[3, ::7, 0] = np.inf
+    db[3, 1::7, 0] = -np.inf
+    db[3, 2::7, 0] = np.nan
+    db[3, 3::7, 0] = -0.0
+    db[3, 4::7, 0] = 0.0
+    q = g.uniform(-3, 3, (6, 40, 2)).astype(np.float32)
+    q[0, :10, 0] = [np.inf, -np.inf, 0.0, -0.0, 0.5, np.nan, 1e-8, -1e-8,
+                    3e38, -3e38]
+    q[1, :, 0] = 0.5
+    tol = np.float32(0.1)
+    for i in range(20):
+        for s, e in enumerate((np.float32(q[2, i, 0] + tol),
+                               np.float32(q[2, i, 0] - tol))):
+            for k in range(-2, 3):
+                d = e
+                for _ in range(abs(k)):
+                    d = np.nextafter(d, np.float32(np.inf * np.sign(k)))
+                db[4 + i, 50 + 5 * s + k + 2, 0] = d
+    dbt, qt = torch.from_numpy(db).to(dev), torch.from_numpy(q).to(dev)
+    qq, act, use2 = tm.prepare_query(qt, None, -1, -1, trunc_coef1=False)
+    index = mi.build_match_index(dbt)
+    mask = (dbt[..., 0] != PAD_VALUE) & ~torch.isnan(dbt[..., 0])
+    for tol in (0.0, 0.1, 1.0, float("inf")):
+        for aligned, fn in ((False, tk.match_votes_fused),
+                            (True, tk.match_votes_fused_aligned)):
+            want = tm.match_votes(dbt, mask, qq, act, use2, tol, coefs=2,
+                                  aligned=aligned)
+            for route in ("auto", "dense", "index"):
+                got = fn(dbt, qq, act, use2, tol, 2, index=index,
+                         route=route)
+                assert torch.equal(got, want), (tol, aligned, route)
+
+
+@pytest.mark.cuda
+def test_aligned_long_query_takes_the_dense_kernel(dev):
+    """A 30,000-frame query's offset histogram does not fit in shared
+    memory: K5 runs only its dense kernel, held to a numpy brute force."""
+    db, _, _ = _match_case(dev, 77, 8, 256, 2, 3, 24)
+    q = db[3:4, torch.arange(30000, device=dev) % 20].clone() + 0.01
+    qq, act, use2 = tm.prepare_query(q, None, -1, -1, trunc_coef1=False)
+    build.reset_launch_counts()
+    got = tk.match_votes_fused_aligned(db, qq, act, use2, 1.0, 2)
+    assert build.LAUNCHES["match_votes_aligned_dense"] == 1
+    assert build.LAUNCHES["match_votes_aligned"] == 0
+    d = db.cpu().numpy()
+    qn = q[0].cpu().numpy()
+    want = []
+    for a in range(d.shape[0]):
+        live = d[a, :, 0] != PAD_VALUE
+        ok = ((np.abs(d[a, None, :, 0] - qn[:, None, 0]) <= np.float32(1.0))
+              & (np.abs(d[a, None, :, 1] - qn[:, None, 1]) <= np.float32(1.0))
+              & live[None, :])
+        f, t = np.nonzero(ok)
+        want.append(np.bincount(t - f + len(qn) - 1).max(initial=0))
+    assert got[0].tolist() == want and max(want) > 0
 
 
 @pytest.mark.cuda

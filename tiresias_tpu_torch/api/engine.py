@@ -403,7 +403,8 @@ class Tiresias:
                 )
             else:
                 votes = self._merge_segments(
-                    view, vote(view.db, q, active, use2, tolerance, coefs)
+                    view, vote(view.db, q, active, use2, tolerance, coefs,
+                               index=self.store.match_index_for(view))
                 )
             if ctx_id is not None:
                 keep = self.store.ctx_ids_for(view) == ctx_id

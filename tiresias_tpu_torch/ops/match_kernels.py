@@ -6,6 +6,16 @@ consistent votes, PARITY.md D9) are hand-written CUDA in ``csrc/match.cu``;
 wrappers follow one rule: a CPU tensor takes the twin, a CUDA tensor
 launches the kernel or raises — no tolerance or shape is routed elsewhere.
 
+Both kernels search the view's sorted index (:mod:`.match_index`): each
+query frame's coefficient-0 band is found by binary search and only the
+frames inside it are tested. A work item whose bands hold more than
+``DENSE_SHARE`` of its live pairs takes the kernel's dense route instead,
+chosen on the device per item; :func:`route_counts` counts the items of
+each route. K4's dense route runs inside its kernel; K5's dense items go on
+a work list on the device that a second kernel, which tests every frame
+pair, serves in the same call (every (query, row) pair for a query whose
+offset histogram does not fit in shared memory, over ~50,000 frames).
+
 Operand convention (the store's layout): ``db [A, T, C]`` holds PAD_VALUE
 in every frame that does not exist — past an audio's end, in padding rows
 and in tombstoned rows — and the kernels treat ``d0 == PAD_VALUE`` as "no
@@ -22,13 +32,31 @@ import torch
 
 from tiresias_tpu_torch.config import DEF_SEARCH_TOLERANCE
 from tiresias_tpu_torch.ops import match
+from tiresias_tpu_torch.ops.match_index import MatchIndex, build_match_index
 from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 from tiresias_tpu_torch.utils import build
 
 INACTIVE_Q = 1.0e6  # the Pallas operand's inactive-frame value (row 0)
-_MAX_BLOCKS = 2**31 - 1  # grid.x limit of both launches
+_MAX_BLOCKS = 2**31 - 1  # grid.x limit of the launches
 _MAX_GRID_Y = 65535
 _K4_ITEMS = 512  # (query, 32-frame group) items per K4 block (kMaxItems)
+# A work item takes the dense route when its bands hold more than this share
+# of its (live stored frame, active query frame) pairs: K4 counts what is
+# left of the bands after each frame's first kProbe entries, K5 the bands of
+# its first 32 frames. K5's share is where the two routes crossed at batch
+# 64 on an H100 (the index route's time grows ~0.8 ms per % of a row in the
+# bands, the dense route takes ~25 ms; PERF.md). Below SMALL_BATCH
+# queries a block has fewer items than warps (K4) or one warp per stored
+# row (K5), and one lane walking a long band is slower than the warp
+# sweeping the chunk (K4) or the dense kernel's 128 threads per item (K5),
+# so the dense route takes over sooner there.
+DENSE_SHARE = {"bag": 0.5, "aligned": 0.35, "bag_small_batch": 0.125,
+               "aligned_small_batch": 0.125}
+SMALL_BATCH = 8
+# route: "auto" (per item, by DENSE_SHARE); "dense" and "index" force one
+# route for every item, to measure and test each.
+_FORCED = {"dense": -1.0, "index": float("inf")}
+_ROUTES: dict[torch.device, torch.Tensor] = {}
 
 
 def query_rows(q, active, use2, coefs: int) -> torch.Tensor:
@@ -42,10 +70,25 @@ def query_rows(q, active, use2, coefs: int) -> torch.Tensor:
     return torch.stack(rows, dim=1).contiguous()
 
 
-def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool):
+def route_counts(device) -> torch.Tensor:
+    """The device's route counters, int64 ``[4]``: work items that took K4's
+    index route, K4's dense route, K5's index route and K5's dense route,
+    summed over launches (each launch adds on the device; read them outside
+    a timed region). An item is a (query, 32-frame group, row) for K4 and a
+    (query, row) for K5."""
+    device = torch.device(device)
+    if device not in _ROUTES:
+        _ROUTES[device] = torch.zeros(4, dtype=torch.int64, device=device)
+    return _ROUTES[device]
+
+
+def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
+           index: MatchIndex | None = None, route: str = "auto"):
     a, t, c = db.shape
     if coefs < 1 or coefs > c:
         raise ValueError(f"coefs must be in [1, {c}]")
+    if route != "auto" and route not in _FORCED:
+        raise ValueError("route must be 'auto', 'dense' or 'index'")
     tol = float(np.float32(tolerance))
     if db.device.type == "cpu":
         return match.match_votes(
@@ -74,39 +117,73 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool):
             f"{active.dtype}, use2 {tuple(use2.shape)} {use2.dtype})"
         )
     items = b * -(-f // 32)  # K4's work items: 32-frame query groups
-    if (b * a if aligned else a) > _MAX_BLOCKS or (
+    if a > _MAX_BLOCKS or (aligned and b * a > _MAX_BLOCKS) or (
             not aligned and -(-items // _K4_ITEMS) > _MAX_GRID_Y):
         raise ValueError(f"{name}: {b} queries x {a} rows exceed one launch")
+    if index is None:
+        index = build_match_index(db)
+    if (index.t_len != t or index.entries.shape[0] != a
+            or index.entries.device != db.device):
+        raise ValueError(f"{name}: the index was built for another db")
     votes = torch.zeros((b, a), dtype=torch.int32, device=db.device)
     if b == 0 or a == 0 or f == 0:
         return votes
     rows = query_rows(q.to(torch.float32), active, use2, coefs)
     lib = build.kernel_library()
-    fn = (lib.tiresias_match_votes_aligned if aligned
-          else lib.tiresias_match_votes)
-    rc = fn(
-        db.data_ptr(), rows.data_ptr(), b, a, t, c, coefs, f, tol,
-        votes.data_ptr(), torch.cuda.current_stream(db.device).cuda_stream,
-    )
-    build.check(name, rc)
+    stream = torch.cuda.current_stream(db.device).cuda_stream
+    routes = route_counts(db.device)
+    key = ("aligned" if aligned else "bag") + (
+        "" if b >= SMALL_BATCH else "_small_batch")
+    share = _FORCED.get(route, DENSE_SHARE[key])
+    common = (index.entries.data_ptr(), index.pos.data_ptr(),
+              index.n_live.data_ptr(), b, a, t, c, coefs, f, index.chunk,
+              index.n_chunks, tol, share)
+    if not aligned:
+        rc = lib.tiresias_match_votes(
+            db.data_ptr(), rows.data_ptr(), *common, votes.data_ptr(),
+            routes.data_ptr(), stream)
+        build.check(name, rc)
+        return votes
+    # K5: the index kernel, then the dense kernel over the items it put on
+    # the work list (every pair when the offset histogram does not fit in
+    # shared memory: a query of more than ~50,000 frames)
+    warps = lib.tiresias_match_aligned_warps(index.chunk, f, b)
+    work = torch.empty(b * a if warps else 0, dtype=torch.int32,
+                       device=db.device)
+    n_work = torch.empty(2, dtype=torch.int64, device=db.device)
+    rc = lib.tiresias_match_votes_aligned(
+        db.data_ptr(), rows.data_ptr(), *common, warps, votes.data_ptr(),
+        work.data_ptr(), n_work.data_ptr(),
+        routes.data_ptr() + 2 * routes.element_size(), stream)
+    if warps:
+        build.check(name, rc)
+    build.check("match_votes_aligned_dense", rc)
     return votes
 
 
-def match_votes_fused(db, q, active, use2, tolerance, coefs: int = 1):
+def match_votes_fused(db, q, active, use2, tolerance, coefs: int = 1,
+                      index: MatchIndex | None = None, route: str = "auto"):
     """K4: bag votes ``[B, A]`` int32 (``match_pallas.match_votes_pallas``).
 
     Args:
       db: ``[A, T, C]`` store layout (PAD_VALUE where no frame exists).
       q / active / use2: from :func:`match.prepare_query`.
+      index: ``build_match_index(db)`` (built here when None; the store
+        caches one per view).
+      route: ``"auto"``; ``"dense"`` or ``"index"`` force a route (tests and
+        measurements).
     """
-    return _votes(db, q, active, use2, tolerance, coefs, aligned=False)
+    return _votes(db, q, active, use2, tolerance, coefs, False, index, route)
 
 
 def match_votes_fused_aligned(db, q, active, use2, tolerance,
-                              coefs: int = 1):
+                              coefs: int = 1,
+                              index: MatchIndex | None = None,
+                              route: str = "auto"):
     """K5: aligned votes ``[B, A]`` int32, the best single time offset's
-    hit count (``match_pallas.match_votes_pallas_aligned``)."""
-    return _votes(db, q, active, use2, tolerance, coefs, aligned=True)
+    hit count (``match_pallas.match_votes_pallas_aligned``); arguments as
+    :func:`match_votes_fused`."""
+    return _votes(db, q, active, use2, tolerance, coefs, True, index, route)
 
 
 def search_batch_fused(

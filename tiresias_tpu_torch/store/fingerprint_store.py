@@ -33,6 +33,7 @@ import torch
 from tiresias_tpu_torch.config import DEF_N_COEFS
 from tiresias_tpu_torch.utils.hashing import generate_uuid
 from tiresias_tpu_torch.utils.logging import get_logger
+from tiresias_tpu_torch.ops.match_index import MatchIndex, build_match_index
 from tiresias_tpu_torch.ops.match_lattice import build_value_map
 from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 from tiresias_tpu_torch.utils.device import resolve_device
@@ -261,6 +262,7 @@ class TierView:
     dead_rows: frozenset = frozenset()
     segments: tuple = ()  # row groups of auto-split audios
     value_map: torch.Tensor | None = None  # [A_pad, K], lazily built
+    match_index: MatchIndex | None = None  # K4/K5's sorted index, lazily
     seq_dev: torch.Tensor | None = None  # [A_pad] int64, lazily built
     ctx_dev: torch.Tensor | None = None  # [A_pad] int32, lazily built
     seg_dev: tuple | None = None  # (followers, heads) int64, lazily built
@@ -503,6 +505,16 @@ class FingerprintStore:
                 vm = build_value_map(view.db[..., 0], view.mask)
                 view.value_map = _combine_segment_rows(vm, view.segments)
             return view.value_map
+
+    def match_index_for(self, view: TierView) -> MatchIndex:
+        """K4/K5's sorted index of one view (``ops/match_index.py``), built
+        on the device from the view's own (immutable) tensors and cached on
+        it; dead and padding rows hold PAD_VALUE, so they have no live
+        frame. Any mutation rebuilds the views, and the index with them."""
+        with self._lock:
+            if view.match_index is None:
+                view.match_index = build_match_index(view.db)
+            return view.match_index
 
     def seq_for(self, view: TierView) -> torch.Tensor:
         """Per-row global insertion seqs ``[A_pad]`` int64 (padding rows

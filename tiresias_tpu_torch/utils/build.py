@@ -36,11 +36,15 @@ NVCC_FLAGS = (
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that its main path went through
 # the kernels (chip_smoke.py zeroes the counts before driving the path).
-# mfcc_rows / mfcc_framed count the FFT route, the *_dft names the DFT route.
+# mfcc_rows / mfcc_framed count the FFT route, the *_dft names the DFT route;
+# K5 is two kernels: match_votes_aligned (the index kernel) and
+# match_votes_aligned_dense (the dense kernel over its work list); the work
+# items of each route are counted on the device
+# (ops/match_kernels.py::route_counts).
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
     "mfcc_framed_dft": 0, "lattice_votes": 0, "match_votes": 0,
-    "match_votes_aligned": 0,
+    "match_votes_aligned": 0, "match_votes_aligned_dense": 0,
 }
 
 _P = ctypes.c_void_p
@@ -67,12 +71,20 @@ _SIGNATURES = {
     # counts, value_map, batch, rows, k_size, tol, n_planes, scratch,
     # votes, stream
     "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
-    # db, query_rows, batch, rows, t_len, n_coefs, coefs, f_len, tol,
-    # votes, stream
-    "tiresias_match_votes": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
-    "tiresias_match_votes_aligned": [
-        _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P,
+    # db, query_rows, entries, pos, n_live, batch, rows, t_len, n_coefs,
+    # coefs, f_len, chunk, n_chunks, tol, dense share, votes, routes, stream
+    "tiresias_match_votes": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
+        _P,
     ],
+    # the same with the warps per block before votes, and the work list
+    # and its length after them
+    "tiresias_match_votes_aligned": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+        _P, _P, _P, _P,
+    ],
+    # chunk, f_len, batch
+    "tiresias_match_aligned_warps": [_I, _I, _I],
 }
 
 _lock = threading.Lock()
