@@ -16,7 +16,16 @@ is also held to its twin, and timed, on the search queries' own histograms
 against the catalog's value map; the strict vote kernels K4/K5 on their
 sorted index, on each route, on synthetic rows (tol 0.1 and 2e5) and on the
 catalog's own view and the search queries, with band statistics and each
-case's bound from its own bands.
+case's bound from its own bands. Then the serving path (``[serve]``) on the
+same catalog: ``warmup_async``, a ``RecognitionServer`` on port 0 driven
+over real sockets — 128 int16 channels in 20 ms pcm ops (unpaced twice,
+paced in real time, and unpaced with one score pass in flight), G.711
+channels, a dialplan and an aligned group
+in one tick, a continuous channel, a hangup — each TIR* held to
+``search_pcm_batch`` on the same windows; the admin plane, with ranked
+top-5 held to ``search_pcm_topk`` and to a numpy brute-force ranking; a
+read-only replica engine following the owner's checkpoint by one
+generation; and (``[cli]``) the command line in subprocesses.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
 the main path, its error against its twin, its time, its twin's, and its
@@ -66,7 +75,13 @@ STRICT_MODES = {
     "margin": {"coefs": 2, "trunc_coef1": False, "aligned": True,
                "min_margin": 0.2},
 }
-N_STRICT_BRUTE = 4  # queries per mode held to the numpy brute force
+N_STRICT_BRUTE = 2  # queries per mode held to the numpy brute force
+# The [serve] path (BASELINE.json config #5: 128 simultaneous 8 kHz streams)
+N_CHANNELS = 128
+WINDOW = 3 * SR  # the dialplan's default duration, 3000 ms
+PCM_OP = SR // 50  # one 20 ms frame per pcm op, as a PBX delivers them
+SERVE_ALIGNED = {"coefs": 2, "trunc_coef1": False, "aligned": True,
+                 "tolerance": STRICT_TOL}
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
 # FP32 outside the tensor cores, int8 on the tensor cores. Each kernel's
 # bound_ms is the larger of its bytes and its operations over these.
@@ -653,13 +668,13 @@ def routes_delta(device, fn) -> tuple:
 def timed_match(label: str, fns: dict, plain=None, plain_reps: int = 2,
                 reps: int = 10):
     """Device times of the auto route and the forced dense route (and the
-    forced index route, when ``fns`` has it) in turns, three rounds, and of
+    forced index route, when ``fns`` has it) in turns, two rounds, and of
     the twin around them when given."""
     order = ["dense", "auto"] + (["index"] if "index" in fns else [])
     times = {k: [] for k in order}
     if plain is not None:
         times["plain"] = [device_ms(plain, plain_reps)]
-    for k in order + order[::-1] + order:
+    for k in order + order[::-1]:
         times[k].append(device_ms(fns[k], reps))
     if plain is not None:
         times["plain"].append(device_ms(plain, plain_reps))
@@ -1250,6 +1265,515 @@ def phase_verify_strict(device, eng, queries, results) -> None:
         f"{len(STRICT_MODES)} modes ({time.perf_counter() - t0:.1f} s)")
 
 
+class ServeClient:
+    """A blocking JSON-lines client of the recognition server: one socket,
+    lines out, lines in."""
+
+    def __init__(self, port: int) -> None:
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        self.f = self.sock.makefile("rw")
+
+    def send(self, *messages: dict) -> None:
+        for m in messages:
+            self.f.write(json.dumps(m) + "\n")
+
+    def flush(self) -> None:
+        self.f.flush()
+
+    def read(self) -> dict:
+        line = self.f.readline()
+        if not line:
+            fail("[serve] the server closed the connection")
+        msg = json.loads(line)
+        if "error" in msg:
+            fail(f"[serve] the server answered an error: {msg}")
+        return msg
+
+    def admin(self, cmd: str, **fields) -> dict:
+        self.send({"op": "admin", "cmd": cmd, **fields})
+        self.flush()
+        return self.read()["admin"]
+
+    def close(self) -> None:
+        self.f.close()
+        self.sock.close()
+
+
+def b64(arr: np.ndarray) -> str:
+    import base64
+
+    return base64.b64encode(np.ascontiguousarray(arr).tobytes()).decode()
+
+
+def start_server(eng):
+    """A RecognitionServer for ``eng`` on port 0, its event loop on a
+    daemon thread. Returns (server, stop)."""
+    import asyncio
+    import threading
+
+    from tiresias_tpu_torch.serve.server import RecognitionServer
+
+    started, holder = threading.Event(), {}
+
+    def runner():
+        async def main():
+            srv = RecognitionServer(eng, port=0, samplerate=SR,
+                                    max_channels=N_CHANNELS)
+            await srv.start()
+            holder["srv"], holder["loop"] = srv, asyncio.get_running_loop()
+            started.set()
+            try:
+                await srv.serve_forever()
+            except asyncio.CancelledError:
+                pass
+
+        asyncio.run(main())
+
+    thread = threading.Thread(target=runner, daemon=True)
+    thread.start()
+    if not started.wait(60):
+        fail("[serve] the server did not start")
+
+    def stop():
+        asyncio.run_coroutine_threadsafe(
+            holder["srv"].stop(), holder["loop"]).result(60)
+
+    return holder["srv"], stop
+
+
+def stream_channels(port: int, groups: list, n_conns: int = 8,
+                    paced: bool = False):
+    """Open every channel of ``groups`` (``(name, open fields, windows)``,
+    one window per channel), spread over ``n_conns`` connections, and feed
+    each its window in PCM_OP-sample pcm ops, all channels interleaved
+    frame by frame as a PBX delivers them: as fast as the sockets take
+    them, or ``paced`` in real time (one round of ops every 20 ms).
+    Returns ({channel: result message}, seconds from the last pcm op to
+    the last result)."""
+    chans = [(f"{name}{i}", fields, w) for name, fields, ws in groups
+             for i, w in enumerate(ws)]
+    conns = [ServeClient(port) for _ in range(n_conns)]
+    owner = {cid: conns[j % n_conns] for j, (cid, _, _) in enumerate(chans)}
+    for cid, fields, _ in chans:
+        owner[cid].send({"op": "open", "channel": cid, "duration_ms": 3000,
+                         **fields})
+    for c in conns:
+        c.flush()
+    for cid, _, _ in chans:
+        if owner[cid].read().get("opened") is not True:
+            fail(f"[serve] channel {cid} did not open")
+    longest = max(len(w) for _, _, w in chans)
+    t_start = time.perf_counter()
+    for off in range(0, longest, PCM_OP):
+        for cid, _, w in chans:
+            if off < len(w):
+                owner[cid].send({"op": "pcm", "channel": cid,
+                                 "pcm": b64(w[off : off + PCM_OP])})
+        for c in conns:
+            c.flush()
+        if paced:
+            due = t_start + (off // PCM_OP + 1) * PCM_OP / SR
+            time.sleep(max(0.0, due - time.perf_counter()))
+    t_last = time.perf_counter()
+    results = {}
+    for cid, _, _ in chans:
+        msg = owner[cid].read()
+        results[msg["channel"]] = msg
+    wall = time.perf_counter() - t_last
+    for c in conns:
+        c.close()
+    if set(results) != {cid for cid, _, _ in chans}:
+        fail(f"[serve] {len(results)} of {len(chans)} channels answered")
+    return results, wall
+
+
+def hold_channels(label: str, results: dict, name: str, direct) -> int:
+    """Every channel ``name<i>``'s TIR* must equal ``direct[i]``, the
+    engine's own answer for the same window. Returns the FOUND count."""
+    for i, want in enumerate(direct):
+        got = dict(results[f"{name}{i}"]["result"])
+        got.pop("CONFIDENCE")
+        if got != want.to_channel_vars():
+            fail(f"[serve] {label} channel {name}{i}: server {got} != "
+                 f"search_pcm_batch {want.to_channel_vars()}")
+    return sum(r.found for r in direct)
+
+
+def ranked_vars(ranked) -> list:
+    return [(r["TIRFILENAME"], int(r["TIRMATCHCOUNT"]), int(r["TIRFRAMECOUNT"]))
+            for r in ranked]
+
+
+def phase_serve(device, eng, cfg, queries) -> dict:
+    """The serving path on the restored catalog: warm-up, a
+    RecognitionServer driven over real sockets (128 int16 channels, G.711
+    channels, a dialplan and an aligned group in one tick, a continuous
+    channel, a hangup), the admin plane with ranked top-k held to the
+    direct call and to a numpy brute force, and a read-only replica
+    following the owner by one generation. Returns the launch counts."""
+    import torch
+
+    from tiresias_tpu_torch.api import Tiresias
+    from tiresias_tpu_torch.ops.mfcc import (
+        fingerprint_padded_batch,
+        pad_frames_bucket,
+    )
+    from tiresias_tpu_torch.serve.server import warmup_batch_sizes
+    from tiresias_tpu_torch.utils import build
+    from tiresias_tpu_torch.utils.g711 import decode as g711_decode
+    from tiresias_tpu_torch.utils.g711 import encode
+    from tiresias_tpu_torch.utils.tracing import metrics
+
+    def timings(name):
+        return metrics.snapshot()["timings"].get(name, [])
+
+    def counter(name):
+        return metrics.snapshot()["counters"].get(name, 0)
+
+    # launches the SERVER made: counted around each socket-driven section
+    # only, never around the direct calls its answers are compared with
+    served = dict.fromkeys(build.LAUNCHES, 0)
+
+    def through_server(fn, *args):
+        torch.cuda.synchronize(device)
+        build.reset_launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize(device)
+        for name, n in build.LAUNCHES.items():
+            served[name] += n
+        return out
+
+    # -- warm-up: the kernel library is already loaded (its build is the
+    # [build] line); a freshly restored replica engine pays the map build
+    rep = Tiresias(cfg, exclusive=False)
+    n_maps = len(timings("engine.warmup.maps"))
+    t0 = time.perf_counter()
+    rep.warmup_async(samplerate=SR, batch_sizes=warmup_batch_sizes(N_CHANNELS),
+                     laws=("ulaw",)).join()
+    rep_warm_s = time.perf_counter() - t0
+    maps_s = timings("engine.warmup.maps")[n_maps]
+    if any(v.value_map is None or v.seq_dev is None
+           for v in rep.store.search_views()):
+        fail("[serve] warmup_async left the dialplan maps unbuilt")
+    t0 = time.perf_counter()
+    thread = eng.warmup_async(
+        samplerate=SR, batch_sizes=warmup_batch_sizes(N_CHANNELS),
+        laws=("ulaw",))
+    ready_s = time.perf_counter() - t0
+    thread.join()
+    say(f"[serve] warmup_async on a freshly restored engine: "
+        f"{rep_warm_s:.3f} s to full warmth, of it {maps_s:.3f} s the search "
+        f"maps (value map, seq and context rows of {len(rep.store)} tracks); "
+        f"kernel library build + load {build.build_seconds():.3f} s (the "
+        f"[build] line, once per checkout); on the warm owner engine "
+        f"{ready_s:.3f} s to READY")
+
+    errors0 = {k: counter(k) for k in (
+        "serve.search_errors", "serve.score_pass_errors",
+        "serve.watch_errors", "serve.follow_errors", "engine.follow_errors")}
+    srv, stop = start_server(eng)
+    port = srv.port
+    windows = [queries[i % len(queries)][:WINDOW] for i in range(N_CHANNELS)]
+    dial = {"tolerance": 1.0}  # the dialplan configuration, unit tolerance
+
+    # -- 128 int16 channels (config #5), five times. Unpaced, the client
+    # outruns the server's JSON parsing, so the score passes share the
+    # interpreter with the event loop; the first drive also pays first-use
+    # costs at its pass sizes (pinned staging buffers, allocator blocks).
+    # The third is paced in real time, 20 ms a round, as live trunks are:
+    # every window completes in the last round. The fourth, unpaced, lets
+    # the scorer keep ONE pass in flight instead of MAX_SCORES_IN_FLIGHT:
+    # a reading for the question of how passes should coalesce, not a
+    # setting the server offers. The fifth, unpaced with the server's own
+    # limit, runs with the interpreter's thread switch interval at 0.5 ms
+    # instead of its 5 ms: every torch call and kernel launch gives the
+    # interpreter lock up, and a pass that must wait a whole interval for
+    # the event loop to hand it back at each of them would show here.
+    from tiresias_tpu_torch.serve import server as server_mod
+
+    in_flight = server_mod.MAX_SCORES_IN_FLIGHT
+    direct = eng.search_pcm_batch(None, windows, SR, **dial)
+    drives = []
+    switch_s = sys.getswitchinterval()
+    for name in ("c", "r", "p", "s", "g"):
+        server_mod.MAX_SCORES_IN_FLIGHT = 1 if name == "s" else in_flight
+        sys.setswitchinterval(0.0005 if name == "g" else switch_s)
+        n_match = len(timings("search.match"))
+        n_pass = len(timings("serve.batch_search"))
+        scored0 = counter("serve.windows_scored")
+        results, wall = through_server(
+            stream_channels, port, [(name, dial, windows)], 8, name == "p")
+        passes = len(timings("serve.batch_search")) - n_pass
+        scored = counter("serve.windows_scored") - scored0
+        match_ms = 1e3 * np.asarray(timings("search.match")[n_match:])
+        found = hold_channels("int16", results, name, direct)
+        drives.append(
+            f"last pcm op to last result {1e3 * wall:.3f} ms, "
+            f"{int(scored)} windows in {passes} device passes "
+            f"({scored / max(1, passes):.1f} channels per pass), "
+            f"search.match p50 {float(np.median(match_ms)):.3f} ms per pass "
+            f"(max {float(match_ms.max()):.3f} ms)")
+    server_mod.MAX_SCORES_IN_FLIGHT = in_flight
+    sys.setswitchinterval(switch_s)
+    n_excerpt_chans = sum(i % len(queries) < N_EXCERPTS
+                          for i in range(N_CHANNELS))
+    if sum(r.found for i, r in enumerate(direct)
+           if i % len(queries) < N_EXCERPTS) != n_excerpt_chans:
+        fail("[serve] an excerpt channel was not FOUND")
+    t_direct = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        eng.search_pcm_batch(None, windows, SR, **dial)
+        t_direct.append(time.perf_counter() - t1)
+    say(f"[serve] {N_CHANNELS} int16 channels x {WINDOW // PCM_OP} pcm ops of "
+        f"20 ms over 8 connections: every TIR* == search_pcm_batch on the "
+        f"same windows, {found} FOUND ({n_excerpt_chans} excerpt channels, "
+        f"all FOUND); first drive, unpaced: {drives[0]}; second, unpaced: "
+        f"{drives[1]}; third, paced in real time: {drives[2]}; fourth, "
+        f"unpaced with one pass in flight (the server allows {in_flight}): "
+        f"{drives[3]}; fifth, unpaced with {in_flight} in flight and a "
+        f"thread switch interval of 0.5 ms instead of {1e3 * switch_s:g} ms: "
+        f"{drives[4]}; "
+        f"one direct search_pcm_batch of the {N_CHANNELS} windows p50 "
+        f"{1e3 * float(np.median(t_direct)):.3f} ms")
+
+    # -- G.711 on the wire: 32 u-law channels, codes expanded on the device
+    codes = [encode(w.astype(np.float32) / 32768.0, "ulaw")
+             for w in windows[:32]]
+    results, wall_u = through_server(
+        stream_channels, port, [("u", {**dial, "format": "ulaw"}, codes)])
+    direct_u = eng.search_pcm_batch(None, codes, SR, wire_law="ulaw", **dial)
+    found_u = hold_channels("ulaw", results, "u", direct_u)
+    # the device's table gather is the host expansion bit for bit: the
+    # same codes expanded on the host must give the same TIR*
+    host_u = eng.search_pcm_batch(
+        None, [g711_decode(c, "ulaw") for c in codes], SR, **dial)
+    if [r.to_channel_vars() for r in host_u] != [
+            r.to_channel_vars() for r in direct_u]:
+        fail("[serve] u-law codes expanded on the device and on the host "
+             "give different TIR*")
+
+    # -- two groups in one tick: 32 aligned channels (K5) beside 32 dialplan
+    results, wall_m = through_server(
+        stream_channels, port,
+        [("a", SERVE_ALIGNED, windows[:32]), ("d", dial, windows[32:64])])
+    direct_a = eng.search_pcm_batch(None, windows[:32], SR, **SERVE_ALIGNED)
+    found_a = hold_channels("aligned", results, "a", direct_a)
+    found_d = hold_channels(
+        "dialplan beside aligned", results, "d",
+        eng.search_pcm_batch(None, windows[32:64], SR, **dial))
+    if found_a != 32:
+        fail(f"[serve] aligned group: {found_a}/32 excerpts FOUND")
+    say(f"[serve] 32 u-law channels: TIR* == search_pcm_batch(wire_law="
+        f"'ulaw') == the same codes expanded on the host, {found_u} FOUND "
+        f"(the catalog holds linear-PCM tracks; G.711 noise moves "
+        f"coefficient 0 past the tolerance), last op to last result "
+        f"{1e3 * wall_u:.3f} ms; 32 aligned {SERVE_ALIGNED} + 32 dialplan "
+        f"channels in one tick: both groups == search_pcm_batch, "
+        f"{found_a} + {found_d} FOUND, {1e3 * wall_m:.3f} ms")
+
+    # -- a continuous channel, and a hangup before the duration
+    c = ServeClient(port)
+    c.send({"op": "open", "channel": "cont", "duration_ms": 1000,
+            "continuous": True, **dial})
+    c.flush()
+    c.read()
+    track = queries[0]
+    for off in range(0, 3 * SR + PCM_OP, PCM_OP):
+        c.send({"op": "pcm", "channel": "cont",
+                "pcm": b64(track[off : off + PCM_OP])})
+    c.flush()
+    got = sorted(through_server(lambda: [c.read() for _ in range(3)]),
+                 key=lambda m: m["window"])
+    if [m["window"] for m in got] != [0, 1, 2]:
+        fail(f"[serve] continuous windows {[m['window'] for m in got]}")
+    for k, m in enumerate(got):
+        want = eng.search_pcm(None, track[k * SR : (k + 1) * SR], SR, **dial)
+        m["result"].pop("CONFIDENCE")
+        if m["result"] != want.to_channel_vars():
+            fail(f"[serve] continuous window {k}: {m['result']} != {want}")
+    searched = counter("search.queries")
+    c.send({"op": "hangup", "channel": "cont"},
+           {"op": "open", "channel": "early", "duration_ms": 3000},
+           {"op": "pcm", "channel": "early", "pcm": b64(track[:PCM_OP * 10])},
+           {"op": "hangup", "channel": "early"})
+    c.flush()
+    hung = [c.read() for _ in range(3)]
+    if [m["result"]["TIRSTATUS"] for m in (hung[0], hung[2])] != [
+            "HANGUP", "HANGUP"] or counter("search.queries") != searched:
+        fail(f"[serve] hangup before the duration: {hung}")
+    say("[serve] continuous channel: windows 0, 1, 2 == search_pcm of each "
+        "second; hangup before the duration -> HANGUP, no search")
+
+    # -- admin plane
+    contexts = c.admin("show_contexts")["contexts"]
+    audios = c.admin("show_audios", context="media")["audios"]
+    if [x["name"] for x in contexts] != ["media"] or len(audios) != len(
+            eng.store):
+        fail(f"[serve] admin listings: {contexts}, {len(audios)} audios")
+    one = c.admin("search", pcm=b64(windows[0]), **dial)["result"]
+    one.pop("CONFIDENCE")
+    if one != direct[0].to_channel_vars():
+        fail(f"[serve] admin search: {one}")
+    batch = c.admin("search", queries=[{"pcm": b64(w)} for w in windows[:8]],
+                    **dial)["results"]
+    for got_r, want in zip(batch, direct[:8]):
+        got_r.pop("CONFIDENCE")
+        if got_r != want.to_channel_vars():
+            fail(f"[serve] admin batch search: {got_r} != {want}")
+    # ranked top-5, dialplan and aligned: the server, the direct call, and
+    # (2 queries per mode) a numpy brute force over every stored track
+    (view,) = eng.store.search_views()
+    padded, n_frames = pad_frames_bucket(windows[:2], HOP)
+    qfp = fingerprint_padded_batch(padded, SR, cfg.dsp,
+                                   device=device).cpu().numpy()
+    names = [e.name for e in eng.store.entries]
+    fps = [eng.store.get_fingerprint(e.uuid) for e in eng.store.entries]
+    db = np.full((len(fps), max(len(x) for x in fps), 2), np.nan, np.float32)
+    for a, x in enumerate(fps):
+        db[a, : len(x)] = x[:, :2]
+    t0 = time.perf_counter()
+    for mode, kw in (("dialplan", dial), ("aligned", SERVE_ALIGNED)):
+        for i in range(2):
+            ranked = c.admin("search", pcm=b64(windows[i]), top=5,
+                             **kw)["ranked"]
+            want = eng.search_pcm_topk(None, windows[i], SR, k=5, **kw)
+            if ranked_vars(ranked) != [
+                    (r.name, r.match_count, r.frame_count) for r in want]:
+                fail(f"[serve] top-5 {mode} query {i}: server "
+                     f"{ranked_vars(ranked)} != search_pcm_topk {want}")
+            qi = qfp[i, : n_frames[i], :2]
+            votes = (brute_force_votes(db[..., 0], qi[:, 0], kw["tolerance"])
+                     if mode == "dialplan"
+                     else brute_force_strict(db, qi, STRICT_TOL, True))
+            # D5: votes descending, then insertion order (a stable sort)
+            order = np.argsort(-votes, kind="stable")[:5]
+            brute = [(names[a], int(votes[a]), len(qi)) for a in order
+                     if votes[a] > 0]
+            if ranked_vars(ranked) != brute:
+                fail(f"[serve] top-5 {mode} query {i}: {ranked_vars(ranked)} "
+                     f"!= brute force {brute}")
+    brute_s = time.perf_counter() - t0
+    victim = one["TIRFILEUUID"]
+    if c.admin("remove_audio", uuid=victim) != {"removed": True}:
+        fail("[serve] remove_audio")
+    after = c.admin("search", pcm=b64(windows[0]), **SERVE_ALIGNED)["result"]
+    if after.get("TIRFILEUUID") == victim or eng.get_audio(victim):
+        fail(f"[serve] the removed audio is still found: {after}")
+    if c.admin("compact") != {"compacted": True}:
+        fail("[serve] compact")
+    (view,) = eng.store.search_views()
+    if view.dead_rows or view.n_audios != N_TRACKS - 1:
+        fail(f"[serve] compact left {len(view.dead_rows)} dead rows")
+    if c.admin("save") != {"saved": True}:
+        fail("[serve] save")
+    c.send({"op": "stats"})
+    c.flush()
+    stats = c.read()["stats"]
+    if stats["audios"] != N_TRACKS - 1 or not stats["owner"]:
+        fail(f"[serve] stats: {stats}")
+    say(f"[serve] admin: show_contexts, show_audios ({len(audios)} rows), "
+        f"search (single, a batch of 8), top=5 in dialplan and aligned mode "
+        f"== search_pcm_topk == a numpy brute-force ranking over "
+        f"{len(names)} tracks with the D5 tiebreak (2 queries per mode, "
+        f"{brute_s:.1f} s), remove_audio (no longer found), compact, save, "
+        f"stats (generation {stats['generation']}, search_p50_ms "
+        f"{stats['search_p50_ms']})")
+
+    # -- the replica follows the owner by one generation
+    if not rep.refresh_from_checkpoint():  # the admin plane's saves
+        fail("[serve] the replica did not see the admin plane's save")
+    if rep.refresh_from_checkpoint():
+        fail("[serve] the replica refreshed twice for one generation")
+    fresh = synth_tracks(1, TRACK_S, 999, device).cpu().numpy()[0]
+    entry = eng.add_audio_pcm("media", "fresh.wav", fresh, SR)
+    if rep.refresh_from_checkpoint():
+        fail("[serve] the replica refreshed before the owner saved")
+    eng.save()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    if not rep.refresh_from_checkpoint():
+        fail("[serve] the replica did not follow the owner's new generation")
+    swap_s = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    after_b = torch.cuda.memory_allocated(device)
+    res = rep.search_pcm(None, fresh[HOP * 100 : HOP * 100 + EXCERPT], SR,
+                         **SERVE_ALIGNED)
+    if res.uuid != entry.uuid:
+        fail(f"[serve] the replica does not find the new track: {res}")
+    say(f"[serve] replica (exclusive=False): refresh_from_checkpoint False "
+        f"until the owner saved, True after ({swap_s:.3f} s: load, swap, "
+        f"maps), then finds the track added in between; memory_allocated "
+        f"{before} B before, max_memory_allocated {peak} B across the swap, "
+        f"{after_b} B after")
+    c.close()
+    stop()
+    rep.close()
+    fired = {k: counter(k) - v for k, v in errors0.items()}
+    if any(fired.values()):
+        fail(f"[serve] error paths fired: {fired}")
+    say(f"[serve] serve.search_errors and the score-pass, watch and follow "
+        f"error counters: {fired}")
+    return served
+
+
+def phase_cli(device, tmp: str) -> None:
+    """``python3 -m tiresias_tpu_torch.cli`` in subprocesses against a
+    small data directory: create, show contexts, search (one file, and
+    --top 3), fsck; every exit code 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    media = os.path.join(tmp, "cli_media")
+    os.makedirs(media)
+    pcm = synth_tracks(4, 10, 105, device).cpu().numpy()
+    for i, p in enumerate(pcm):
+        write_wav_i16(os.path.join(media, f"cli{i}.wav"), p)
+    conf = os.path.join(tmp, "cli.conf")
+    with open(conf, "w") as f:
+        f.write(f"[global]\ndata_dir={os.path.join(tmp, 'cli_data')}\n"
+                f"coefs=2\ntrunc_coef1=no\naligned=yes\n"
+                f"tolerance={STRICT_TOL}\n\n[media]\ndirectory={media}\n")
+    query = os.path.join(tmp, "cli_query.wav")
+    write_wav_i16(query, pcm[2][HOP * 40 : HOP * 40 + EXCERPT])
+    env = dict(os.environ, PYTHONPATH=here)
+    outs = {}
+    t0 = time.perf_counter()
+    for name, argv in (
+        ("create", ["create"]),
+        ("show contexts", ["show", "contexts"]),
+        ("search", ["search", "media", query]),
+        ("search --top 3", ["search", "media", query, "--top", "3"]),
+        ("fsck", ["fsck", "--deep"]),
+    ):
+        proc = subprocess.run(
+            [sys.executable, "-m", "tiresias_tpu_torch.cli", "-c", conf,
+             *argv],
+            env=env, capture_output=True, text=True, timeout=300,
+        )
+        if proc.returncode != 0:
+            fail(f"[cli] {name} exited {proc.returncode}: {proc.stdout}"
+                 f"{proc.stderr}")
+        outs[name] = proc.stdout
+    if "created[4]" not in outs["create"] or "media" not in outs[
+            "show contexts"]:
+        fail(f"[cli] create/show: {outs}")
+    if "TIRFILENAME=cli2.wav" not in outs["search"]:
+        fail(f"[cli] search: {outs['search']}")
+    ranked = outs["search --top 3"].splitlines()
+    if (not ranked[0].startswith("Rank") or len(ranked) < 2
+            or "cli2.wav" not in ranked[1]):
+        fail(f"[cli] search --top 3: {ranked}")
+    if "checkpoint OK" not in outs["fsck"]:
+        fail(f"[cli] fsck: {outs['fsck']}")
+    say(f"[cli] create (4 WAVs), show contexts, search (FOUND cli2.wav), "
+        f"search --top 3 ({len(ranked) - 1} rows, cli2.wav first), fsck --deep (checkpoint OK): exit codes 0 "
+        f"on the card, {time.perf_counter() - t0:.1f} s in 5 processes")
+
+
 def brute_force_strict(db: np.ndarray, q: np.ndarray, tol: float,
                        aligned: bool) -> np.ndarray:
     """Strict search written out over every stored frame, band filter off:
@@ -1353,11 +1877,20 @@ def run(device) -> dict:
         launches.update({k: strict_launches[k] for k in match_names})
         phase_verify_strict(device, eng, queries, strict)
         phase_match_real(device, eng, queries)
+        torch.cuda.synchronize(device)
+        build.reset_launch_counts()  # --- the serve path starts here ---
+        serve_launches = phase_serve(device, eng, cfg, queries)
+        for name in ("mfcc_rows", "lattice_votes", "match_votes_aligned"):
+            if serve_launches[name] <= 0:
+                fail(f"the serve path never launched {name}")
+        say(f"[launches] serve path: {serve_launches}")
         eng.close()
+        phase_cli(device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_serve"] = serve_launches[k["name"]]
     return {"kernels": kernels, "card": card["card"], "ingest_rate": rate,
             "p50": p50, "strict_p50": strict_p50}
 

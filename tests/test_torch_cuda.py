@@ -426,3 +426,139 @@ def test_engine_on_card_agrees_with_cpu(dev, tmp_path):
             r.to_channel_vars() for r in on_cpu]
         if "min_margin" not in kw:
             assert all(r.found for r in on_card)
+
+
+def _corpus_engines(dev, tmp_path, lengths=(3.0, 5.0, 8.0, 8.0, 4.0, 3.0)):
+    """An engine on the card and one on the CPU over one checkpoint; the
+    third and fourth tracks are the same audio under two names (a tie)."""
+    from tiresias_tpu_torch.api import Tiresias
+
+    rng = np.random.default_rng(1)
+    cfg = TiresiasConfig(data_dir=str(tmp_path / "data"))
+    eng = Tiresias(cfg, device=dev)
+    eng.create_context("m")
+    sigs = [_speechlike(rng, int(s * SR)) for s in lengths]
+    sigs[3] = sigs[2]
+    for i, s in enumerate(sigs):
+        q = np.clip(np.round(s * 32768.0), -32768, 32767).astype(np.int16)
+        sigs[i] = q
+        assert eng.add_audio_pcm("m", f"t{i}", q, SR, file_hash=f"h{i}")
+    eng.close()
+    return (Tiresias(cfg, device=dev, exclusive=False),
+            Tiresias(cfg, device="cpu", exclusive=False), sigs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [
+    {"coefs": 1, "tolerance": 1.0},
+    {"coefs": 2, "trunc_coef1": False, "tolerance": 0.1},
+    {"coefs": 2, "trunc_coef1": False, "aligned": True, "tolerance": 0.1},
+], ids=["dialplan", "strict", "aligned"])
+def test_topk_on_card_equals_cpu(dev, tmp_path, monkeypatch, mode):
+    """Ranked top-k from the SAME query fingerprints: votes (K3', K4, K5),
+    order and names on the card equal the CPU twins', ties included, in a
+    two-view store."""
+    from tiresias_tpu_torch.api import engine as tengine
+    from tiresias_tpu_torch.ops.mfcc import fingerprint_padded_batch
+
+    gpu, cpu, sigs = _corpus_engines(dev, tmp_path)
+    assert len(gpu.store.search_views()) == 2
+
+    def shared_fp(padded, samplerate, dsp, law=None, n_valid=None,
+                  device="cpu"):
+        out = fingerprint_padded_batch(padded, samplerate, dsp, law=law,
+                                       n_valid=n_valid, device="cpu")
+        return out.to(device)
+
+    monkeypatch.setattr(tengine, "fingerprint_padded_batch", shared_fp)
+    build.reset_launch_counts()
+    for s in sigs:
+        q = s[256 * 3 : 256 * 3 + 24000]
+        for k in (1, 3, 64):
+            got = gpu.search_pcm_topk("m", q, SR, k=k, **mode)
+            want = cpu.search_pcm_topk("m", q, SR, k=k, **mode)
+            assert [(r.name, r.match_count, r.frame_count) for r in got] == [
+                (r.name, r.match_count, r.frame_count) for r in want]
+            assert got and len(got) <= k
+    # t2 and t3 hold the same audio: equal votes, listed in insertion order
+    # (one truncated coefficient ties every track; bag votes most of them)
+    listing = gpu.search_pcm_topk("m", sigs[2][768:24768], SR, k=6, **mode)
+    names = [r.name for r in listing]
+    votes = {r.name: r.match_count for r in listing}
+    assert votes["t2"] == votes["t3"] and names.index("t2") < names.index("t3")
+    for r1, r2 in zip(listing, listing[1:]):
+        assert r1.match_count > r2.match_count or (
+            r1.match_count == r2.match_count and r1.name < r2.name)
+    name = ("lattice_votes" if mode["coefs"] == 1 else
+            "match_votes_aligned" if mode.get("aligned") else "match_votes")
+    assert build.LAUNCHES[name] > 0
+
+
+@pytest.mark.cuda
+def test_server_round_trip_on_card(dev, tmp_path):
+    """Eight channels over a real socket against an engine on the card:
+    every TIR* equals the direct batch search, through K1 and K3'."""
+    import asyncio
+    import base64
+    import json
+    import socket
+    import threading
+
+    from tiresias_tpu_torch.serve.server import RecognitionServer
+    from tiresias_tpu_torch.utils.tracing import metrics
+
+    gpu, _, sigs = _corpus_engines(dev, tmp_path)
+    gpu.warmup_async(laws=("ulaw",)).join()
+    started, holder = threading.Event(), {}
+
+    def runner():
+        async def main():
+            srv = RecognitionServer(gpu, port=0, samplerate=SR)
+            await srv.start()
+            holder["srv"], holder["loop"] = srv, asyncio.get_running_loop()
+            started.set()
+            try:
+                await srv.serve_forever()
+            except asyncio.CancelledError:
+                pass
+
+        asyncio.run(main())
+
+    threading.Thread(target=runner, daemon=True).start()
+    assert started.wait(30)
+    windows = [sigs[i % len(sigs)][512 : 512 + 16000] for i in range(8)]
+    errors0 = metrics.snapshot()["counters"].get("serve.search_errors", 0)
+    build.reset_launch_counts()
+    results = {}
+    try:
+        with socket.create_connection(("127.0.0.1", holder["srv"].port),
+                                      timeout=120) as s:
+            f = s.makefile("rw")
+            for i in range(8):
+                f.write(json.dumps({"op": "open", "channel": f"c{i}",
+                                    "duration_ms": 2000,
+                                    "tolerance": 1.0}) + "\n")
+            for off in range(0, 16000, 160):
+                for i, w in enumerate(windows):
+                    f.write(json.dumps({
+                        "op": "pcm", "channel": f"c{i}",
+                        "pcm": base64.b64encode(
+                            w[off : off + 160].astype("<i2").tobytes()
+                        ).decode()}) + "\n")
+            f.flush()
+            while len(results) < 8:
+                msg = json.loads(f.readline())
+                if "result" in msg:
+                    msg["result"].pop("CONFIDENCE")
+                    results[msg["channel"]] = msg["result"]
+    finally:
+        asyncio.run_coroutine_threadsafe(
+            holder["srv"].stop(), holder["loop"]).result(60)
+    served = dict(build.LAUNCHES)
+    direct = gpu.search_pcm_batch(None, windows, SR, tolerance=1.0)
+    for i, want in enumerate(direct):
+        assert results[f"c{i}"] == want.to_channel_vars()
+        assert want.found
+    assert served["mfcc_rows"] > 0 and served["lattice_votes"] > 0
+    assert metrics.snapshot()["counters"].get(
+        "serve.search_errors", 0) == errors0

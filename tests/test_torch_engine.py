@@ -266,13 +266,19 @@ def test_empty_store_is_notfound(tmp_path):
 
 
 def test_configurations_outside_the_slice_raise(tmp_path):
-    eng = Tiresias(_cfg(tmp_path / "m", tmp_path / "d"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.search_pcm_topk(None, np.zeros(4000, np.float32), SR)
-    eng.close()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Tiresias(_cfg(tmp_path / "m", tmp_path / "d"), device="cpu",
                  mesh=object())
+    # the failed construction released the data-dir lock
+    eng = Tiresias(_cfg(tmp_path / "m", tmp_path / "d"), device="cpu",
+                   exclusive=True)
+    # ranked listings are served (the parity cases are below): an empty
+    # store lists nothing, and margin acceptance does not apply to a table
+    assert eng.search_pcm_topk(None, np.zeros(4000, np.float32), SR) == []
+    with pytest.raises(ValueError, match="min_margin"):
+        eng.search_pcm_topk(None, np.zeros(4000, np.float32), SR,
+                            min_margin=0.2)
+    eng.close()
 
 
 def test_cuda_device_raises_without_a_card(tmp_path):
@@ -516,3 +522,334 @@ print("ok")
         text=True, timeout=300,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+# ---- ranked top-k against the JAX engine ------------------------------- #
+
+
+def _ranked(results):
+    return [(r.name, r.context, r.uuid, r.match_count, r.frame_count)
+            for r in results]
+
+
+@pytest.mark.parametrize("k", [1, 5, 64])
+@pytest.mark.parametrize("name", sorted(NAMED))
+def test_topk_equals_jax_engine(dual, jax_query_fp, name, k):
+    """Votes, order and names of the ranked listing, exactly: one and two
+    views, with and without the context filter, k below and above the
+    number of audios. "promo" repeats media's first track, so every
+    listing that holds it has a tie the insertion order must break."""
+    root, jeng, teng = dual
+    mode = NAMED[name]
+    queries = _dual_queries(root, np.random.default_rng(10))
+    listed = 0
+    for q in queries:
+        for ctx, filt in ((None, False), ("media", True), ("promo", True)):
+            kw = dict(k=k, tolerance=_tol(mode), filter_context=filt, **mode)
+            want = jeng.search_pcm_topk(ctx, q, SR, **kw)
+            got = teng.search_pcm_topk(ctx, q, SR, **kw)
+            assert _ranked(got) == _ranked(want), (ctx, filt)
+            assert all(r.found and r.match_count > 0 for r in got)
+            assert len(got) <= k
+            listed += len(got)
+            if filt:
+                assert {r.context for r in got} <= {ctx}
+    assert listed >= len(queries)  # a real comparison
+
+
+@pytest.mark.parametrize("name", sorted(NAMED))
+def test_topk_head_is_the_top1_search(dual, jax_query_fp, name):
+    root, _, teng = dual
+    mode = NAMED[name]
+    kw = dict(tolerance=_tol(mode), **mode)
+    for q in _dual_queries(root, np.random.default_rng(11)):
+        top1 = teng.search_pcm(None, q, SR, **kw)
+        ranked = teng.search_pcm_topk(None, q, SR, k=3, **kw)
+        if top1.found:
+            assert ranked[0].to_channel_vars() == top1.to_channel_vars()
+        else:
+            assert ranked == []
+
+
+@pytest.mark.parametrize("name", sorted(NAMED))
+def test_topk_ties_rank_in_insertion_order(tmp_path, jax_query_fp, name):
+    """Ten audios hold the same track under different names, between and
+    after other tracks, in two tiers' worth of company: their votes tie,
+    and the listing must hold them in insertion order whatever order
+    ``torch.topk`` gives equal values."""
+    mode = NAMED[name]
+    rng = np.random.default_rng(12)
+    cfg = TiresiasConfig(data_dir=str(tmp_path))
+    jeng = JaxTiresias(cfg, restore=False)
+    jeng.create_context("c")
+    track = _speechlike(rng, 3.5)
+    order = []
+    for i in range(14):
+        if i % 4 == 3:
+            nm, pcm = f"other{i}", _speechlike(rng, (3.0, 7.0)[i % 8 == 3])
+        else:
+            nm, pcm = f"copy{i:02d}", track
+        assert jeng.add_audio_pcm("c", nm, pcm, SR, file_hash=f"h{i}")
+        order.append(nm)
+    jeng.close()
+    jeng = JaxTiresias(cfg, exclusive=False)
+    teng = Tiresias(cfg, exclusive=False, device="cpu")
+    copies = [n for n in order if n.startswith("copy")]
+    assert len(copies) >= 8
+    q = float_to_i16(track)[256 : 256 + 24000]
+    kw = dict(tolerance=_tol(mode), **mode)
+    for k in (1, 5, 8, len(order), 100):
+        want = jeng.search_pcm_topk("c", q, SR, k=k, **kw)
+        got = teng.search_pcm_topk("c", q, SR, k=k, **kw)
+        assert _ranked(got) == _ranked(want)
+        tied = [r for r in got if r.match_count == got[0].match_count]
+        ranks = [order.index(r.name) for r in tied]
+        assert ranks == sorted(ranks) and len(tied) >= min(k, len(copies))
+        if name == "aligned":  # bag votes barely tell these tracks apart
+            assert [r.name for r in tied] == copies[: len(tied)]
+    assert teng.search_pcm("c", q, SR, **kw).name == copies[0]
+    views = teng.store.search_views()
+    assert len(views) == 2 and views[0].n_audios >= 8
+
+
+@pytest.mark.parametrize("name", sorted(NAMED))
+def test_topk_autosplit_equals_jax(tmp_path, monkeypatch, jax_query_fp, name):
+    """With auto-split audios the JAX engine ranks full votes on the host;
+    the port keeps its one device-ranked path (segment columns merged
+    before the ranking). Both listings must be equal."""
+    monkeypatch.setattr(jfs, "MAX_TIER_FRAMES", 128)
+    monkeypatch.setattr(tfs, "MAX_TIER_FRAMES", 128)
+    cfg = TiresiasConfig(data_dir=str(tmp_path))
+    jeng = JaxTiresias(cfg, restore=False)
+    jeng.create_context("c")
+    long_pcm = synth_chirp(200, 1800, 15.0, SR)
+    jeng.add_audio_pcm("c", "short0", synth_chirp(900, 300, 4.0, SR), SR)
+    jeng.add_audio_pcm("c", "long", long_pcm, SR)
+    jeng.add_audio_pcm("c", "long-again", long_pcm, SR, file_hash="again")
+    jeng.add_audio_pcm("c", "short1", synth_chirp(400, 1200, 3.0, SR), SR)
+    jeng.close()
+    jeng = JaxTiresias(cfg, exclusive=False)
+    teng = Tiresias(cfg, exclusive=False, device="cpu")
+    assert any(v.segments for v in teng.store.search_views())
+    mode = NAMED[name]
+    kw = dict(tolerance=_tol(mode), **mode)
+    for q in (long_pcm[3 * SR : 6 * SR], long_pcm[7 * SR : 10 * SR]):
+        for k in (1, 2, 10):
+            want = jeng.search_pcm_topk("c", q, SR, k=k, **kw)
+            got = teng.search_pcm_topk("c", q, SR, k=k, **kw)
+            assert _ranked(got) == _ranked(want) and got
+    if name != "dialplan":
+        assert [r.name for r in got[:2]] == ["long", "long-again"]
+
+
+def test_topk_by_row_does_not_rest_on_topk_tie_order():
+    votes = torch.tensor([3, 7, 7, 0, 7, 3, 7, 7, 7, 7, 7, 1], dtype=torch.int32)
+    seq = torch.arange(100, 112)
+    got = tengine.topk_by_row(votes, seq, 5)
+    assert got[0].tolist() == [7, 7, 7, 7, 7]
+    assert got[2].tolist() == [1, 2, 4, 6, 7] and got[1].tolist() == [
+        101, 102, 104, 106, 107]
+    wide = tengine.topk_by_row(votes, seq, 20)  # k above the rows: padded
+    assert wide.shape == (3, 20) and wide[0, 12:].sum() == 0
+    assert wide[2, :12].tolist() == [1, 2, 4, 6, 7, 8, 9, 10, 0, 5, 11, 3]
+
+
+# ---- admin, reload and follow against the JAX engine ------------------- #
+
+
+def _catalog(eng):
+    return sorted(
+        (c["name"], c["directory"]) for c in eng.get_contexts()
+    ), sorted(
+        (e.name, e.context, e.hash, e.n_frames)
+        for c in eng.get_contexts() for e in eng.get_audios(c["name"])
+    )
+
+
+def _report(r):
+    return (r.created, r.deduped, r.deleted, r.failed)
+
+
+def test_crud_reload_follow_sequence_equals_jax(tmp_path, jax_query_fp):
+    """The same admin sequence through both engines, each on its own data
+    directory over the same media: equal reports and catalogs at every
+    step, checkpoints the other package loads, and equal TIR* from them."""
+    _write_corpus(tmp_path / "media", (2.0, 3.0, 6.0), seed=21)
+    _write_corpus(tmp_path / "promo", (2.5, 4.0), seed=22)
+    _write_corpus(tmp_path / "extra", (3.5,), seed=23)
+    _write_corpus(tmp_path / "loose", (3.0,), seed=24)
+
+    def cfg(data, contexts=("media", "promo"), **dsp):
+        from tiresias_tpu.config import DspConfig
+
+        return TiresiasConfig(
+            contexts=tuple(ContextConfig(c, str(tmp_path / c))
+                           for c in contexts),
+            data_dir=str(tmp_path / data), dsp=DspConfig(**dsp),
+        )
+
+    jeng = JaxTiresias(cfg("j"))
+    teng = Tiresias(cfg("t"), device="cpu")
+    engines = (jeng, teng)
+
+    def both(step):
+        want, got = (step(e) for e in engines)
+        assert _catalog(teng) == _catalog(jeng)
+        return want, got
+
+    want, got = both(lambda e: _report(e.sync()))
+    assert got == want == (5, 0, 0, 0)
+    loose = str(tmp_path / "loose" / "t00.wav")
+    want, got = both(lambda e: _report(e.add_audio_file("media", loose)))
+    assert got == want == (1, 0, 0, 0)
+    want, got = both(lambda e: _report(e.add_audio_file("media", loose)))
+    assert got == want == (0, 1, 0, 0)  # md5 dedupe
+    assert teng.generate_hash(loose) == jeng.generate_hash(loose)
+    assert len(teng.generate_uuid()) == len(jeng.generate_uuid()) == 36
+
+    def drop(e):
+        (victim,) = [a for a in e.get_audios("media") if a.name == "t01.wav"]
+        assert e.get_audio(victim.uuid) is victim
+        return e.delete_audio(victim.uuid), e.delete_audio(victim.uuid)
+
+    assert both(drop) == ((True, False), (True, False))
+    assert both(lambda e: (e.delete_context("promo"),
+                           e.delete_context("ghost"))) == (
+        (True, False), (True, False))
+    assert [c["name"] for c in teng.get_contexts()] == ["media"]
+
+    # reload under a changed context list: promo stays gone, extra arrives,
+    # t01.wav comes back from disk and the loose file (no longer on disk in
+    # media's directory) goes
+    want, got = both(lambda e: _report(e.reload(cfg(
+        "j" if e is jeng else "t", ("media", "extra")))))
+    assert got == want and got[0] == 2 and got[2] == 1
+    assert [c.name for c in teng.config.contexts] == ["media", "extra"]
+
+    # a changed DSP chain, or another data_dir, is refused and the old
+    # config keeps serving
+    for bad in (lambda d: cfg(d, ("media",), n_filters=32),
+                lambda d: cfg(d + "-elsewhere", ("media",))):
+        for e, d in ((jeng, "j"), (teng, "t")):
+            before = e.config
+            with pytest.raises(ValueError, match="reload cannot change"):
+                e.reload(bad(d))
+            assert e.config is before
+    both(lambda e: None)
+
+    # a sync that fails restores the old config too
+    def failing_reload(e, monkeypatch_target):
+        before = e.config
+        orig = e.sync
+        e.sync = lambda: (_ for _ in ()).throw(OSError("disk"))
+        try:
+            with pytest.raises(OSError):
+                e.reload(cfg("j" if e is jeng else "t", ("media",)))
+        finally:
+            e.sync = orig
+        assert e.config is before
+
+    for e in engines:
+        failing_reload(e, None)
+
+    # follow: the owner never swaps; a replica swaps once per generation
+    for e in engines:
+        e.save()
+        assert e.refresh_from_checkpoint() is False
+    jrep = JaxTiresias(cfg("j", ("media", "extra")), exclusive=False)
+    trep = Tiresias(cfg("t", ("media", "extra")), exclusive=False,
+                    device="cpu")
+    for rep in (jrep, trep):
+        assert rep.refresh_from_checkpoint() is False  # nothing new yet
+    both(lambda e: _report(e.add_audio_file("extra", loose)))
+    for rep in (jrep, trep):
+        assert rep.refresh_from_checkpoint() is False  # not saved yet
+    for e in engines:
+        e.save()
+    for rep, e in ((jrep, jeng), (trep, teng)):
+        old_store = rep.store
+        assert rep.refresh_from_checkpoint() is True
+        assert rep.store is not old_store
+        assert rep.refresh_from_checkpoint() is False
+        assert _catalog(rep) == _catalog(e)
+    assert _catalog(trep) == _catalog(jrep)
+    with pytest.raises(Exception, match="owned|locked|lock"):
+        trep.save()  # a replica never writes
+    for e in engines:
+        e.close()
+
+    # each package loads the other's checkpoint, and from bitwise-equal
+    # stored fingerprints the TIR* are equal exactly
+    jx = JaxTiresias(cfg("t", ("media", "extra")), exclusive=False)
+    tx = Tiresias(cfg("j", ("media", "extra")), exclusive=False, device="cpu")
+    assert _catalog(jx) == _catalog(trep) and _catalog(tx) == _catalog(jrep)
+    queries = _queries(tmp_path / "media", np.random.default_rng(25))
+    for mode in NAMED.values():
+        kw = dict(tolerance=_tol(mode), **mode)
+        for j, t in ((jx, trep), (jrep, tx)):
+            assert _vars(t.search_pcm_batch(None, queries, SR, **kw)) == _vars(
+                j.search_pcm_batch(None, queries, SR, **kw))
+    assert trep.search_pcm(None, queries[0], SR, tolerance=1.0).found
+
+
+def test_replica_refresh_survives_a_torn_checkpoint(tmp_path):
+    """An unreadable checkpoint keeps the replica on its current store,
+    and a .bak fallback is not re-read on every poll."""
+    rng = np.random.default_rng(26)
+    cfg = _cfg(tmp_path / "m", tmp_path / "d")
+    owner = Tiresias(cfg, device="cpu")
+    owner.add_audio_pcm("media", "one", _speechlike(rng, 3.0), SR)
+    owner.save()
+    rep = Tiresias(cfg, exclusive=False, device="cpu")
+    owner.add_audio_pcm("media", "two", _speechlike(rng, 3.0), SR)
+    owner.save()
+    cat = tmp_path / "d" / "checkpoint" / "catalog.json"
+    good = cat.read_text()
+    cat.write_text("{torn")
+    store = rep.store
+    assert rep.refresh_from_checkpoint() is False and rep.store is store
+    cat.write_text(good)
+    assert rep.refresh_from_checkpoint() is True
+    assert [e.name for e in rep.get_audios("media")] == ["one", "two"]
+    # a replica started on the .bak generation has SEEN the damaged current
+    # one (its JSON parses, its segment is gone)
+    import json
+
+    current = json.loads(good)
+    for segs in current["tiers"].values():
+        for fname, _ in segs:
+            os.unlink(tmp_path / "d" / "checkpoint" / fname)
+    late = Tiresias(cfg, exclusive=False, device="cpu")
+    assert [e.name for e in late.get_audios("media")] == ["one"]
+    assert late.store._seen_gen == current["gen"]
+    store = late.store
+    assert late.refresh_from_checkpoint() is False and late.store is store
+    owner.lock.release()
+
+
+def test_warmup_builds_the_configured_maps(tmp_path):
+    rng = np.random.default_rng(27)
+    for match, built, absent in (
+        (MatchConfig(), "value_map", "match_index"),
+        (MatchConfig(coefs=2, trunc_coef1=False, aligned=True, tolerance=0.1),
+         "match_index", "value_map"),
+    ):
+        cfg = TiresiasConfig(data_dir=str(tmp_path / built), match=match)
+        eng = Tiresias(cfg, device="cpu")
+        eng.create_context("c")
+        eng.add_audio_pcm("c", "short", _speechlike(rng, 3.0), SR)
+        eng.add_audio_pcm("c", "long", _speechlike(rng, 7.0), SR)
+        thread = eng.warmup_async(laws=("ulaw", "alaw"))
+        views = eng.store.search_views()
+        assert len(views) == 2
+        for v in views:
+            assert getattr(v, built) is not None and getattr(v, absent) is None
+            assert v.seq_dev is not None and v.ctx_dev is not None
+        assert all(eng.law_device_ready(law) for law in ("ulaw", "alaw"))
+        eng.close()  # joins the background warm thread
+        assert not thread.is_alive()
+        eng = Tiresias(cfg, device="cpu")
+        eng.warmup(batch_sizes=(1, 3), laws=("ulaw",))
+        assert all(getattr(v, built) is not None
+                   for v in eng.store.search_views())
+        eng.close()

@@ -194,7 +194,29 @@ def _entry_points(tmp_path):
     store.create_context("media", str(media))
     pcm = np.zeros(2048, np.float32)
     padded, _ = tmfcc.pad_frames_bucket([pcm], 256)
+    from tiresias_tpu_torch import cli
+    from tiresias_tpu_torch.serve.server import run_server
+    from tiresias_tpu_torch.utils.audio import write_wav
+
+    conf = tmp_path / "t.conf"
+    conf.write_text(f"[global]\ndata_dir={tmp_path / 'd'}\n\n[media]\n"
+                    f"directory={media}\n")
+    wav = str(tmp_path / "q.wav")
+    write_wav(wav, pcm, 8000)
+
+    def run_cli(*argv):
+        return lambda: cli.main(["-c", str(conf), *argv])
+
     return {
+        "Tiresias.warmup": lambda: Tiresias(cfg).warmup(),
+        "run_server": lambda: run_server(Tiresias(cfg), port=0),
+        "cli create": run_cli("create"),
+        "cli search": run_cli("search", "media", wav),
+        "cli search --top": run_cli("search", "media", wav, "--top", "3"),
+        "cli remove audio": run_cli("remove", "audio", "no-such-uuid"),
+        "cli warmup": run_cli("warmup"),
+        "cli serve": run_cli("serve", "--port", "0"),
+        "cli serve --replica": run_cli("serve", "--port", "0", "--replica"),
         "Tiresias": lambda: Tiresias(cfg),
         "FingerprintStore": lambda: FingerprintStore(),
         "FingerprintStore.load": lambda: FingerprintStore.load(
@@ -216,6 +238,9 @@ def _entry_points(tmp_path):
     "Tiresias", "FingerprintStore", "FingerprintStore.load", "ingest_files",
     "sync_context_audio", "sync_all", "fingerprint_padded_batch",
     "fingerprint_signals_async", "fingerprint_signals", "fingerprint_signal",
+    "Tiresias.warmup", "run_server", "cli create", "cli search",
+    "cli search --top", "cli remove audio", "cli warmup", "cli serve",
+    "cli serve --replica",
 ])
 def test_entry_point_defaults_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, an entry point called without ``device`` raises:
@@ -224,3 +249,58 @@ def test_entry_point_defaults_to_cuda(name, tmp_path, monkeypatch):
     call = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="device='cuda'"):
         call()
+
+
+def test_host_only_cli_commands_need_no_card(tmp_path, monkeypatch, capsys):
+    """Listings, stats and fsck read the catalog on the host and build no
+    engine: they answer whatever ``--device`` says."""
+    from tiresias_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = tmp_path / "t.conf"
+    conf.write_text(f"[global]\ndata_dir={tmp_path / 'd'}\n\n[media]\n"
+                    f"directory={tmp_path}\n")
+    assert cli.main(["-c", str(conf), "show", "contexts"]) == 0
+    assert cli.main(["-c", str(conf), "show", "audios", "media"]) == 0
+    assert cli.main(["-c", str(conf), "stats"]) == 0
+    assert cli.main(["-c", str(conf), "fsck"]) == 1  # no checkpoint yet
+    assert cli.main(["-c", str(conf), "bench"]) == 1  # not ported: says so
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_profiles_equal_jax():
+    from tiresias_tpu import profiles as jprof
+    from tiresias_tpu_torch import profiles as tprof
+
+    names = [n for n in dir(jprof) if n.isupper()]
+    assert names and names == [n for n in dir(tprof) if n.isupper()]
+    for n in names:
+        ours, ref = getattr(tprof, n), getattr(jprof, n)
+        if dataclasses.is_dataclass(ref):
+            assert dataclasses.asdict(ours) == dataclasses.asdict(ref), n
+        elif isinstance(ref, dict):
+            assert {k: repr(v) for k, v in ours.items()} == {
+                k: repr(v) for k, v in ref.items()}, n
+        else:
+            assert repr(ours) == repr(ref), n
+
+
+def test_serve_and_cli_import_neither_jax_nor_the_jax_package():
+    """conftest imports jax in this process, so the check runs in a fresh
+    interpreter."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import tiresias_tpu_torch.serve.server, tiresias_tpu_torch.cli\n"
+        "import tiresias_tpu_torch.serve.admin, tiresias_tpu_torch.profiles\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'tiresias_tpu' or "
+        "m.startswith('tiresias_tpu.'))\n"
+        "assert not bad, bad\nprint('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -240,3 +240,200 @@ def test_tiers_match_jax(n):
     assert tier_for(n) == jfs.tier_for(n)
     assert split_frames(n) == jfs.split_frames(n)
     assert split_frames(2**21 + 5) == jfs.split_frames(2**21 + 5)
+
+
+# ---- checkpoint fallback, metadata, compaction, fsck ------------------- #
+
+
+def _two_generations(directory, seed=8, cls=None):
+    """A store saved twice: generation 1 holds "x", generation 2 "x" and
+    "y". Returns the segment files only the current catalog references."""
+    rng = np.random.default_rng(seed)
+    store = (cls(n_coefs=2) if cls is not None
+             else FingerprintStore(n_coefs=2, device="cpu"))
+    store.create_context("a", "/dir/a")
+    store.add_audio("x", "a", _fp(rng, 20), "h1", uuid="ux")
+    store.save(str(directory))
+    store.add_audio("y", "a", _fp(rng, 20), "h2", uuid="uy")
+    store.save(str(directory))
+
+    def segs(name):
+        with open(directory / name) as f:
+            return {s[0] for t in json.load(f)["tiers"].values() for s in t}
+
+    return sorted(segs("catalog.json") - segs("catalog.json.bak"))
+
+
+def _load_both(directory):
+    return (JaxStore.load(str(directory), n_coefs=2),
+            FingerprintStore.load(str(directory), n_coefs=2, device="cpu"))
+
+
+@pytest.mark.parametrize("damage", ["zero_bytes", "missing", "truncated"])
+def test_damaged_segment_falls_back_to_bak_like_jax(tmp_path, damage):
+    """A segment file that only the current catalog references is empty
+    (np.load raises EOFError), gone or cut short: both packages restore
+    generation 1 from ``.bak``."""
+    current_only = _two_generations(tmp_path)
+    assert current_only
+    for name in current_only:
+        path = tmp_path / name
+        if damage == "missing":
+            os.unlink(path)
+        else:
+            keep = 0 if damage == "zero_bytes" else os.path.getsize(path) // 2
+            with open(path, "r+b") as f:
+                f.truncate(keep)
+    jstore, tstore = _load_both(tmp_path)
+    assert [e.name for e in tstore.entries] == ["x"]
+    assert _entries(tstore) == _entries(jstore)
+    # the damaged current generation was observed: a follower does not
+    # take it for news on every poll
+    assert (tstore._restored_gen, tstore._seen_gen, tstore._save_gen) == (
+        jstore._restored_gen, jstore._seen_gen, jstore._save_gen) == (1, 2, 0)
+
+
+@pytest.mark.parametrize("text", ["[1, 2]", "null", '"tiers"', "{torn", "7"])
+def test_non_dict_catalog_is_unreadable_not_a_crash(tmp_path, text):
+    path = tmp_path / "catalog.json"
+    path.write_text(text)
+    assert FingerprintStore._referenced_segments(str(path)) == set()
+    assert FingerprintStore._referenced_segments(
+        str(tmp_path / "absent.json")) == set()
+    assert tfs._read_catalog_gen(str(path)) == 0
+    # the rotation guard asks only whether the JSON parses
+    from tiresias_tpu.store import fingerprint_store as jfs
+
+    assert tfs._readable_catalog(str(path)) == jfs._readable_catalog(str(path))
+    assert tfs._readable_catalog(str(tmp_path)) is False  # a directory
+
+
+def test_save_over_a_non_dict_bak_keeps_every_live_segment(tmp_path):
+    """_gc_segments after a committed save must survive a ``.bak`` that
+    parses to a list."""
+    _two_generations(tmp_path)
+    (tmp_path / "catalog.json.bak").write_text("[1, 2]")
+    store = FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu")
+    store.add_audio("z", "a", _fp(np.random.default_rng(0), 20), "h3")
+    store.save(str(tmp_path))
+    again = FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu")
+    assert [e.name for e in again.entries] == ["x", "y", "z"]
+
+
+def test_read_catalog_metadata_equals_jax(tmp_path):
+    assert FingerprintStore.read_catalog_metadata(str(tmp_path)) is None
+    _two_generations(tmp_path)
+    want = JaxStore.read_catalog_metadata(str(tmp_path))
+    got = FingerprintStore.read_catalog_metadata(str(tmp_path))
+    assert got == want and got["gen"] == 2
+    assert [e["name"] for e in got["entries"]] == ["x", "y"]
+    (tmp_path / "catalog.json").write_text("{torn")
+    got = FingerprintStore.read_catalog_metadata(str(tmp_path))
+    assert got == JaxStore.read_catalog_metadata(str(tmp_path))
+    assert got["gen"] == 1
+    (tmp_path / "catalog.json.bak").write_text("[]")
+    with pytest.raises(CheckpointUnreadable):
+        FingerprintStore.read_catalog_metadata(str(tmp_path))
+
+
+@pytest.mark.parametrize("version", [1, 2, 5, None])
+def test_other_checkpoint_versions_are_named_not_read(tmp_path, version):
+    """The loader reads versions 3 and 4; metadata and fsck report any
+    other the same way, naming it."""
+    _two_generations(tmp_path)
+    with open(tmp_path / "catalog.json") as f:
+        cat = json.load(f)
+    cat["version"] = version
+    (tmp_path / "catalog.json").write_text(json.dumps(cat))
+    for read in (
+        lambda: FingerprintStore.load(str(tmp_path), n_coefs=2, device="cpu"),
+        lambda: FingerprintStore.read_catalog_metadata(str(tmp_path)),
+    ):
+        with pytest.raises(CheckpointIncompatible, match=f"version {version}"):
+            read()
+    report = tfs.fsck_checkpoint(str(tmp_path), deep=True, n_coefs=2)
+    assert not report["ok"] and not report["deep"]["ok"]
+    assert f"version {version}" in report["generations"]["current"]["errors"][0]
+    assert f"version {version}" in report["deep"]["error"]
+
+
+def test_store_compact_equals_jax():
+    rng = np.random.default_rng(9)
+    jstore = JaxStore(n_coefs=2)
+    tstore = FingerprintStore(n_coefs=2, device="cpu")
+    for s in (jstore, tstore):
+        s.create_context("a")
+    for i in range(12):
+        fp = _fp(rng, (40, 200)[i % 2])
+        for s in (jstore, tstore):
+            s.add_audio(f"x{i}", "a", fp, f"h{i}", uuid=f"u{i}")
+    for s in (jstore, tstore):
+        s.search_views()
+        s.delete_audios(["u1", "u4", "u5"])  # below the automatic threshold
+    assert any(v.dead_rows for v in tstore.search_views())
+    for s in (jstore, tstore):
+        s.compact()
+    views = tstore.search_views()
+    assert not any(v.dead_rows for v in views)
+    assert [v.n_audios for v in views] == [5, 4]
+    _maps_equal(jstore, tstore)
+    assert [e.uuid for e in tstore.iter_entries()] == [
+        e.uuid for e in jstore.iter_entries()]
+    got = tstore.iter_entries()
+    got.clear()  # a snapshot, not the catalog
+    assert len(tstore) == 9
+    tstore.compact()  # nothing dead: views stay cached
+    assert tstore.search_views() is views
+
+
+def _fsck_both(directory, **kw):
+    from tiresias_tpu.store.fingerprint_store import fsck_checkpoint as jfsck
+
+    want = jfsck(str(directory), **kw)
+    got = tfs.fsck_checkpoint(str(directory), **kw)
+    assert got == want
+    return got
+
+
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize(
+    "case", ["clean", "torn_catalog", "zero_segment", "orphans", "bad_dead",
+             "tiers_scalar", "wrong_n_coefs"])
+def test_fsck_report_equals_jax(tmp_path, case, deep):
+    current_only = _two_generations(tmp_path)
+    cat_path = tmp_path / "catalog.json"
+    with open(cat_path) as f:
+        cat = json.load(f)
+    kw = {"deep": deep, "n_coefs": 2}
+    if case == "torn_catalog":
+        cat_path.write_text('{"version": 4, "entr')
+    elif case == "zero_segment":
+        (tmp_path / current_only[0]).write_bytes(b"")
+    elif case == "orphans":
+        np.save(tmp_path / "tier128_seg7.g9.npy", np.zeros((1, 128, 2), "f4"))
+    elif case == "bad_dead":
+        cat["dead"] = {"128": [99]}
+        cat_path.write_text(json.dumps(cat))
+    elif case == "tiers_scalar":
+        cat["tiers"] = 3
+        cat_path.write_text(json.dumps(cat))
+    elif case == "wrong_n_coefs":
+        kw["n_coefs"] = 3
+    report = _fsck_both(tmp_path, **kw)
+    assert report["ok"] == (case in ("clean", "orphans"))
+    # an unreadable current catalog references nothing: its own segment
+    # counts as debris too
+    assert report["orphans"]["count"] == (
+        1 if case in ("orphans", "torn_catalog", "tiers_scalar") else 0)
+    if deep and case in ("torn_catalog", "zero_segment", "tiers_scalar"):
+        # the restore a server would run falls back to generation 1
+        assert report["deep"]["ok"] and report["deep"]["gen"] == 1
+
+
+def test_fsck_without_configured_n_coefs(tmp_path):
+    _two_generations(tmp_path)
+    report = _fsck_both(tmp_path, deep=True)
+    assert report["ok"] and report["deep"]["entries"] == 2
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    assert not _fsck_both(empty, deep=True)["ok"]

@@ -3,6 +3,7 @@
 from tiresias_tpu_torch.api.engine import (
     NOT_FOUND,
     STATUS_FOUND,
+    STATUS_HANGUP,
     STATUS_NOTFOUND,
     SearchResult,
     Tiresias,
@@ -12,6 +13,7 @@ from tiresias_tpu_torch.api.engine import (
 __all__ = [
     "NOT_FOUND",
     "STATUS_FOUND",
+    "STATUS_HANGUP",
     "STATUS_NOTFOUND",
     "SearchResult",
     "Tiresias",

@@ -13,12 +13,19 @@ bag-of-frames votes — PARITY.md section 3) votes on the view's lattice map
 truncation — D8, offset-aligned votes — D9) votes over the stored
 fingerprints with K4 (bag) or K5 (aligned). Votes reduce to a top-1 on the
 device with the D5 tiebreak (and the runner-up audio's votes for margin
-acceptance) and are read back once. Ranked listings and mesh sharding raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+acceptance) and are read back once; :meth:`Tiresias.search_pcm_topk` ranks
+the same votes into each view's exact top-k on the device. Mesh sharding
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+The engine is driven from several threads at once by the serve layer
+(score passes, admin searches, watch syncs, follow swaps): a search reads
+``self.store`` and its views once and keeps that snapshot to its end, and
+every thread launches on the device's default stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -28,16 +35,21 @@ import numpy as np
 import torch
 
 from tiresias_tpu_torch.config import (
+    DEF_DURATION_MS,
     DEF_SEARCH_TOLERANCE,
     MatchConfig,
     TiresiasConfig,
 )
+from tiresias_tpu_torch.utils import build
 from tiresias_tpu_torch.utils.audio import ensure_samplerate, read_audio
+from tiresias_tpu_torch.utils.g711 import SILENCE_BYTE
 from tiresias_tpu_torch.utils.g711 import decode as g711_decode
+from tiresias_tpu_torch.utils.hashing import file_md5, generate_uuid
 from tiresias_tpu_torch.utils.locking import DataDirLock, DataDirLocked
 from tiresias_tpu_torch.utils.logging import get_logger
 from tiresias_tpu_torch.engine.sync import (
     SyncReport,
+    ingest_files,
     sync_all,
     sync_context_audio,
 )
@@ -64,9 +76,9 @@ log = get_logger(__name__)
 # TIRSTATUS values (reference application_handler.c:168-193)
 STATUS_FOUND = "FOUND"
 STATUS_NOTFOUND = "NOTFOUND"
+STATUS_HANGUP = "HANGUP"
 
-# ROADMAP.md items that port what the engine does not serve yet
-_ROADMAP_RANKED = "ROADMAP.md 1.12 (ranked and top-k search)"
+# ROADMAP.md item that ports what the engine does not serve yet
 _ROADMAP_MESH = "ROADMAP.md 1.13 (sharding over NCCL)"
 
 
@@ -81,6 +93,10 @@ class SearchResult:
     name: str | None = None  # TIRFILENAME
     context: str | None = None  # TIRCONTEXT
     hash: str | None = None  # TIRFILEHASH
+    # per-channel window index (continuous streaming): the serve layer
+    # pipelines score passes, so results MAY arrive out of order — this
+    # monotone counter lets clients reorder (not part of the TIR* contract)
+    window: int = 0
 
     @property
     def found(self) -> bool:
@@ -143,6 +159,24 @@ def top1_by_key(values: torch.Tensor, key: torch.Tensor):
     return m, k, col
 
 
+def topk_by_row(votes: torch.Tensor, seq: torch.Tensor, k: int) -> torch.Tensor:
+    """One view's exact top-``k`` of ``votes [A]`` by (votes desc, row asc)
+    as ``[3, k]`` int64: votes, ``seq`` of the row, row; short views pad
+    with zero votes. Row order is insertion order within a tier, so this
+    is the view's D5 order. The ranking key ``votes * 2^32 - row`` is
+    unique per row: nothing rests on how ``torch.topk`` orders equal
+    values (it promises no order)."""
+    a = votes.shape[0]
+    rows = torch.arange(a, device=votes.device)
+    score = votes.to(torch.int64) * (1 << 32) - rows
+    top = torch.topk(score, min(k, a)).indices
+    out = torch.zeros((3, k), dtype=torch.int64, device=votes.device)
+    out[0, : top.shape[0]] = votes[top]
+    out[1, : top.shape[0]] = seq[top]
+    out[2, : top.shape[0]] = top
+    return out
+
+
 class Tiresias:
     """Audio fingerprinting engine on PyTorch (the port's front door)."""
 
@@ -165,7 +199,13 @@ class Tiresias:
             raise NotImplementedError(f"mesh sharding: {_ROADMAP_MESH}")
         self.device = resolve_device(device)
         self.config = config or TiresiasConfig()
+        # serializes sync/reload against each other (a serve watcher tick
+        # racing an admin-plane sync): both walk the same directories and
+        # the reconcile is only idempotent when runs don't interleave
         self._sync_mutex = threading.Lock()
+        self._warm_lock = threading.Lock()
+        self._warm_stop = threading.Event()
+        self._warm_threads: list[threading.Thread] = []
         self.lock = DataDirLock(self.config.expanded_data_dir)
         if exclusive is not False:
             try:
@@ -203,11 +243,19 @@ class Tiresias:
                 self.config.expanded_data_dir, self.lock.owner_info()
             )
 
+    def _on_device(self):
+        """Make the engine's card the calling thread's current CUDA device
+        (the kernels launch on the current device, and executor threads
+        start on device 0); nothing to do on the CPU."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def sync(self) -> SyncReport:
         """Reconcile store with config + filesystem (app_tiresias.c:230-358),
         checkpointing after each changed context."""
         self._require_owner()
-        with self._sync_mutex, phase("engine.sync"):
+        with self._sync_mutex, phase("engine.sync"), self._on_device():
             return sync_all(
                 self.store, self.config, self.checkpoint_dir, self.device
             )
@@ -218,7 +266,7 @@ class Tiresias:
         ctx = self.store.get_context(context)
         if ctx is None or not ctx["directory"]:
             raise ValueError(f"unknown context {context!r}")
-        with self._sync_mutex, phase("engine.sync"):
+        with self._sync_mutex, phase("engine.sync"), self._on_device():
             report = sync_context_audio(
                 self.store, context, ctx["directory"], self.config.dsp,
                 self.device,
@@ -226,12 +274,230 @@ class Tiresias:
             self.save()
             return report
 
+    def refresh_from_checkpoint(self) -> bool:
+        """Re-read the checkpoint and swap in the new store when the OWNER
+        committed a newer generation — the read-only REPLICA's follow path
+        (``serve --replica --follow N``).
+
+        The owner checkpoints after every mutation; replicas poll this.
+        The generation comparison is a catalog-metadata read (no
+        fingerprint is deserialized when nothing changed). The new store is
+        loaded onto the engine's device BESIDE the old one; in-flight
+        searches keep the store they started with, the swap is one
+        attribute assignment, and the old store's tensors are released
+        when the last search drops it. Returns True when a newer generation
+        was loaded. Owners return False (their store IS the source of
+        truth), and an unreadable checkpoint keeps serving the current
+        store (counted in ``engine.follow_errors``)."""
+        if self.lock.held:
+            return False
+        try:
+            meta = FingerprintStore.read_catalog_metadata(self.checkpoint_dir)
+        except Exception:  # noqa: BLE001 - transient fault: keep serving
+            log.warning("follow: checkpoint metadata unreadable; keeping "
+                        "the current store")
+            metrics.add("engine.follow_errors", 1)
+            return False
+        # _seen_gen, not only _save_gen: after a .bak fallback the store's
+        # save generation is deliberately 0, but the newest generation
+        # OBSERVED at load time was recorded — without it every poll would
+        # re-deserialize the same fallback checkpoint forever
+        have = max(self.store._save_gen, self.store._seen_gen)
+        if meta is None or int(meta.get("gen", 0)) <= have:
+            return False
+        dsp = self.config.dsp
+        try:
+            store = FingerprintStore.load(
+                self.checkpoint_dir, n_coefs=dsp.n_coefs,
+                coef_weights=dsp.coef_weights, device=self.device,
+            )
+        except Exception:  # noqa: BLE001 - torn mid-rotation read etc.
+            log.warning("follow: checkpoint reload failed; keeping the "
+                        "current store", exc_info=True)
+            metrics.add("engine.follow_errors", 1)
+            return False
+        for ctx in self.config.contexts:
+            store.create_context(ctx.name, ctx.directory)
+        self.store = store
+        self.warm_search_maps()
+        log.info(
+            "follow: refreshed store from checkpoint (gen %d, %d audios)",
+            store._restored_gen, len(store),
+        )
+        return True
+
+    def reload(self, config: TiresiasConfig | None = None) -> SyncReport:
+        """Live config reload — adopt a new config and re-sync.
+
+        The reference declines reload outright (unload/load required,
+        app_tiresias.c:608-614); here it is a config swap + sync, since the
+        store reconciles declaratively. DSP parameters are the exception:
+        fingerprints already in the store were computed under the old
+        chain, so changing them requires a fresh engine (ValueError)."""
+        if config is not None:
+            if config.dsp != self.config.dsp:
+                raise ValueError(
+                    "reload cannot change DSP parameters — stored "
+                    "fingerprints were computed under the old chain; "
+                    "rebuild with a fresh data_dir"
+                )
+            if config.expanded_data_dir != self.config.expanded_data_dir:
+                # the restored store and checkpoint_dir are bound to the
+                # old directory; keeping them while self.config says
+                # otherwise would checkpoint to the wrong place
+                raise ValueError(
+                    "reload cannot change data_dir — the store is bound "
+                    "to the old checkpoint directory; construct a new "
+                    "Tiresias for a different data_dir"
+                )
+        old_config = self.config
+        if config is not None:
+            self.config = config
+        try:
+            return self.sync()
+        except Exception:
+            # a failed sync must not leave the NEW config active: later
+            # watch ticks would keep reconciling under a config the caller
+            # was told failed (contexts the new conf dropped would be
+            # deleted). Partial sync work is self-healing — the next tick
+            # under the restored config re-ingests from disk.
+            self.config = old_config
+            raise
+
+    def _warm_window(self, samplerate: int, duration_ms: int) -> int:
+        """Samples of one warm-up query: the window, cut to whole hops."""
+        hop = self.config.dsp.hop_size
+        n = int(samplerate * duration_ms / 1000)
+        return max(n - n % hop, hop)
+
+    def _warm_search(self, silence: np.ndarray, samplerate: int,
+                     batch_sizes, law: str | None = None) -> bool:
+        """One silent search per batch size; False when close() cut in."""
+        for b in batch_sizes:
+            if self._warm_stop.is_set():
+                return False
+            with phase("engine.warmup"):
+                self.search_pcm_batch(
+                    None, [silence] * b, samplerate, wire_law=law
+                )
+        return True
+
+    def _warm_kernels(self) -> None:
+        """Build (first use in a checkout) and load the kernel library."""
+        if self.device.type == "cuda":
+            with phase("engine.warmup.kernels"):
+                build.kernel_library()
+
+    def warmup(
+        self,
+        samplerate: int = 8000,
+        duration_ms: int = DEF_DURATION_MS,
+        batch_sizes: tuple[int, ...] = (1,),
+        laws: tuple[str, ...] = (),
+    ) -> None:
+        """Take every first-use cost before the first real request: build
+        and load the CUDA kernel library, run one silent search per wire
+        dtype the serve layer ships — int16 (the TCP format, kept
+        unconverted to the device), float32 (library callers) and each
+        G.711 law in ``laws`` — so the lazily uploaded constants (MFCC
+        tables per samplerate, the G.711 expansion) are on the device, and
+        build the per-view search maps (:meth:`warm_search_maps`). There
+        are no per-shape programs to compile: ``batch_sizes`` only sizes
+        the silent searches."""
+        self._warm_kernels()
+        with phase("engine.warmup.maps"):
+            self.warm_search_maps()
+        n = self._warm_window(samplerate, duration_ms)
+        for dtype in (np.int16, np.float32):
+            self._warm_search(np.zeros(n, dtype), samplerate, batch_sizes)
+        for law in laws:
+            self._warm_search(
+                np.full(n, SILENCE_BYTE[law], np.uint8), samplerate,
+                batch_sizes, law,
+            )
+
+    def warmup_async(
+        self,
+        samplerate: int = 8000,
+        duration_ms: int = DEF_DURATION_MS,
+        batch_sizes: tuple[int, ...] = (1,),
+        laws: tuple[str, ...] = (),
+    ) -> threading.Thread:
+        """Readiness-tiered :meth:`warmup`: the serving-critical part — the
+        kernel library, the search maps and the int16 search, in that
+        order — runs before this returns; the float32 and G.711 searches
+        run on a daemon thread, which is returned (join it to wait for
+        full warmth; :meth:`close` does)."""
+        self._warm_kernels()
+        with phase("engine.warmup.maps"):
+            self.warm_search_maps()
+        n = self._warm_window(samplerate, duration_ms)
+        self._warm_search(np.zeros(n, np.int16), samplerate, batch_sizes)
+
+        def _background():
+            if not self._warm_search(
+                np.zeros(n, np.float32), samplerate, batch_sizes
+            ):
+                return
+            for law in laws:
+                if not self._warm_search(
+                    np.full(n, SILENCE_BYTE[law], np.uint8), samplerate,
+                    batch_sizes, law,
+                ):
+                    return
+
+        t = threading.Thread(
+            target=_background, name="tiresias-warmup", daemon=True
+        )
+        with self._warm_lock:
+            self._warm_threads = [
+                x for x in self._warm_threads if x.is_alive()
+            ]
+            self._warm_threads.append(t)
+        t.start()
+        return t
+
+    def law_device_ready(self, law: str) -> bool:
+        """Whether ``law``'s windows can expand on the device: always, here
+        (the expansion is a table gather in plain torch, nothing compiles).
+        Kept for the streaming scorer's callers."""
+        return True
+
+    def warm_search_maps(self) -> None:
+        """Eagerly build the derived per-view device data that searches
+        otherwise build lazily on first use: the insertion-seq and
+        context-id rows, and — by the configured :class:`MatchConfig` — the
+        lattice value map (dialplan configuration) or K4/K5's sorted index
+        (every other). A restored or just-mutated serving store otherwise
+        pays the build on the next request. Already-built maps cost
+        nothing."""
+        mc = self.config.match
+        lattice_mode = mc.coefs == 1 and mc.trunc_coef1 and not mc.aligned
+        store = self.store
+        with self._on_device():
+            for view in store.search_views():
+                store.seq_for(view)
+                store.ctx_ids_for(view)
+                if lattice_mode:
+                    store.value_map_for(view)
+                else:
+                    store.match_index_for(view)
+
     def save(self) -> None:
         self._require_owner()
         self.store.save(self.checkpoint_dir)
 
     def close(self) -> None:
         """fp_term equivalent (fp_handler.c:92-108): checkpoint and unlock."""
+        # stop and drain any background warm-up first: a daemon thread in
+        # the middle of a device call during interpreter teardown can
+        # abort the process
+        self._warm_stop.set()
+        with self._warm_lock:
+            threads = list(self._warm_threads)
+        for t in threads:
+            if t.is_alive():
+                t.join(timeout=30)
         try:
             if self.lock.held:
                 self.save()
@@ -248,6 +514,30 @@ class Tiresias:
 
     def create_context(self, name: str, directory: str = "") -> None:
         self.store.create_context(name, directory)
+
+    def delete_context(self, name: str) -> bool:
+        return self.store.delete_context(name)
+
+    def get_contexts(self) -> list[dict]:
+        return self.store.get_contexts_all()
+
+    def get_audios(self, context: str) -> list[AudioEntry]:
+        return self.store.get_audios_by_context(context)
+
+    def get_audio(self, uuid: str) -> AudioEntry | None:
+        return self.store.get_audio(uuid)
+
+    def delete_audio(self, uuid: str) -> bool:
+        return self.store.delete_audio(uuid)
+
+    def add_audio_file(self, context: str, path: str) -> SyncReport:
+        """Fingerprint + store one file (fp_craete_audio_list_info [sic],
+        fp_handler.h:25, fp_handler.c:161-197)."""
+        with self._on_device():
+            return ingest_files(
+                self.store, context, [path], self.config.dsp,
+                device=self.device,
+            )
 
     def add_audio_pcm(
         self,
@@ -272,6 +562,9 @@ class Tiresias:
                 np.ascontiguousarray(pcm, dtype=np.float32).tobytes()
             ).hexdigest()
         return self.store.add_audio(name, context, fp, file_hash)
+
+    # compat alias preserving the reference's misspelled symbol (PARITY.md D6)
+    fp_craete_audio_list_info = add_audio_file
 
     # ---- search (fp_search_fingerprint_info, fp_handler.c:207-408) ---- #
 
@@ -329,56 +622,56 @@ class Tiresias:
                 trunc_coef1, aligned, min_margin,
             )
         )
-        ctx_id = self._ctx_filter_id(context, filter_context)
-        pcms, samplerate, wire_law = self._resample_queries(
-            [np.asarray(p) for p in pcms], samplerate, wire_law
-        )
-        with phase("search.match"):
-            padded, n_frames = pad_frames_bucket(
-                pcms, self.config.dsp.hop_size, law=wire_law
-            )
-            n_valid = (
-                np.array([len(p) for p in pcms], np.int32)
-                if wire_law is not None else None
-            )
-            qfp = fingerprint_padded_batch(
-                padded, samplerate, self.config.dsp, law=wire_law,
-                n_valid=n_valid, device=self.device,
+        store = self.store  # one snapshot: a follow swap must not split it
+        ctx_id = self._ctx_filter_id(store, context, filter_context)
+        with phase("search.match"), self._on_device():
+            qfp, n_frames = self._query_fingerprints(
+                pcms, samplerate, wire_law
             )
             results = self._match(
                 qfp, n_frames, tolerance, lo, hi, ctx_id, coefs=coefs,
                 trunc_coef1=trunc_coef1, aligned=aligned, min_margin=mm,
+                store=store,
             )
         metrics.add("search.queries", len(pcms))
         return results
 
-    def _match(
-        self, qfp: torch.Tensor, n_frames: np.ndarray, tolerance: float,
-        freq_ignore_low: int, freq_ignore_high: int,
-        ctx_id: int | None = None, coefs: int = 1, trunc_coef1: bool = True,
-        aligned: bool = False, min_margin: float = 0.0,
-    ) -> list[SearchResult]:
-        """The match stage from query fingerprints ``qfp [B, F, C]`` (on the
-        engine's device) to TIR* results, with one readback.
+    def _query_fingerprints(
+        self, pcms: list[np.ndarray], samplerate: int, wire_law: str | None
+    ) -> tuple[torch.Tensor, np.ndarray]:
+        """Query batch -> (``qfp [B, F, C]`` on the engine's device, frame
+        counts): int16, float32 and G.711 codes ship as they are and
+        expand on the device (K1/K2 by the routing rule of
+        ``fingerprint_padded_batch``)."""
+        pcms, samplerate, wire_law = self._resample_queries(
+            [np.asarray(p) for p in pcms], samplerate, wire_law
+        )
+        padded, n_frames = pad_frames_bucket(
+            pcms, self.config.dsp.hop_size, law=wire_law
+        )
+        n_valid = (
+            np.array([len(p) for p in pcms], np.int32)
+            if wire_law is not None else None
+        )
+        qfp = fingerprint_padded_batch(
+            padded, samplerate, self.config.dsp, law=wire_law,
+            n_valid=n_valid, device=self.device,
+        )
+        return qfp, n_frames
 
-        Per view: votes — lattice votes (K3') for the dialplan
-        configuration, K4/K5 over the view's fingerprints otherwise, with
-        an auto-split audio's segment columns summed into its first column
-        (D15, additive) — then the context filter, then the top-1 with the
-        D5 tiebreak and, when ``min_margin`` > 0, the best votes outside
-        the winning column. A single-view store keeps the lowest ROW among
-        the max votes (row order is insertion order within a tier); a
-        multi-view store reduces each view to (votes, lowest insertion seq,
-        row) and combines views by (votes desc, seq asc). The runner-up
-        audio's votes are the maximum of the winning view's second best
-        and every other view's best."""
-        views = self.store.search_views()
-        b, f = int(qfp.shape[0]), int(qfp.shape[1])
-        if not views:
-            return [
-                SearchResult(STATUS_NOTFOUND, int(n_frames[i]), 0)
-                for i in range(b)
-            ]
+    def _view_votes(
+        self, store: FingerprintStore, qfp: torch.Tensor,
+        n_frames: np.ndarray, tolerance: float, freq_ignore_low: int,
+        freq_ignore_high: int, ctx_id: int | None, coefs: int,
+        trunc_coef1: bool, aligned: bool,
+    ):
+        """The per-view vote computation every search entry point shares:
+        returns ``votes_of(view) -> [B, A_pad] int32``. Lattice votes (K3')
+        for the dialplan configuration, K4/K5 over the view's fingerprints
+        otherwise, with an auto-split audio's segment columns summed into
+        its first column (D15, additive), then the context filter (votes of
+        rows outside ``ctx_id`` become 0)."""
+        f = int(qfp.shape[1])
         dialplan = coefs == 1 and trunc_coef1 and not aligned
         if dialplan:
             band_lo, band_hi = band_thresholds(
@@ -393,24 +686,63 @@ class Tiresias:
                 qfp, n_frames, freq_ignore_low, freq_ignore_high, trunc_coef1
             )
             vote = match_votes_fused_aligned if aligned else match_votes_fused
-        margin = min_margin > 0.0
-        per_view = []
-        for view in views:
+
+        def votes_of(view) -> torch.Tensor:
             if dialplan:
                 votes = lattice_votes(
-                    self.store.value_map_for(view), q0, valid, tolerance,
+                    store.value_map_for(view), q0, valid, tolerance,
                     band_lo, band_hi,
                 )
             else:
                 votes = self._merge_segments(
-                    view, vote(view.db, q, active, use2, tolerance, coefs,
-                               index=self.store.match_index_for(view))
+                    store, view,
+                    vote(view.db, q, active, use2, tolerance, coefs,
+                         index=store.match_index_for(view)),
                 )
             if ctx_id is not None:
-                keep = self.store.ctx_ids_for(view) == ctx_id
+                keep = store.ctx_ids_for(view) == ctx_id
                 votes = torch.where(keep[None, :], votes, 0)
+            return votes
+
+        return votes_of
+
+    def _match(
+        self, qfp: torch.Tensor, n_frames: np.ndarray, tolerance: float,
+        freq_ignore_low: int, freq_ignore_high: int,
+        ctx_id: int | None = None, coefs: int = 1, trunc_coef1: bool = True,
+        aligned: bool = False, min_margin: float = 0.0,
+        store: FingerprintStore | None = None,
+    ) -> list[SearchResult]:
+        """The match stage from query fingerprints ``qfp [B, F, C]`` (on the
+        engine's device) to TIR* results, with one readback.
+
+        Per view: :meth:`_view_votes`, then the top-1 with the D5 tiebreak
+        and, when ``min_margin`` > 0, the best votes outside the winning
+        column. A single-view store keeps the lowest ROW among the max
+        votes (row order is insertion order within a tier); a multi-view
+        store reduces each view to (votes, lowest insertion seq, row) and
+        combines views by (votes desc, seq asc). The runner-up audio's
+        votes are the maximum of the winning view's second best and every
+        other view's best. ``store`` is the caller's snapshot (default: the
+        current store); its views are read once."""
+        store = self.store if store is None else store
+        views = store.search_views()
+        b = int(qfp.shape[0])
+        if not views:
+            return [
+                SearchResult(STATUS_NOTFOUND, int(n_frames[i]), 0)
+                for i in range(b)
+            ]
+        votes_of = self._view_votes(
+            store, qfp, n_frames, tolerance, freq_ignore_low,
+            freq_ignore_high, ctx_id, coefs, trunc_coef1, aligned,
+        )
+        margin = min_margin > 0.0
+        per_view = []
+        for view in views:
+            votes = votes_of(view)
             cols = torch.arange(votes.shape[1], device=self.device)
-            key = cols if len(views) == 1 else self.store.seq_for(view)
+            key = cols if len(views) == 1 else store.seq_for(view)
             m, k, col = top1_by_key(votes, key)
             stats = [m.to(torch.int64), k, col]
             if margin:
@@ -440,11 +772,12 @@ class Tiresias:
                 results.append(self._found(entry, fc, count))
         return results
 
-    def _merge_segments(self, view, votes: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _merge_segments(store, view, votes: torch.Tensor) -> torch.Tensor:
         """Fold each auto-split audio's per-segment vote columns into its
         first column and zero the rest (PARITY.md D15, additive; the
         lattice path needs none: its map min-combines segment rows)."""
-        followers, heads = self.store.segment_rows_for(view)
+        followers, heads = store.segment_rows_for(view)
         if followers.numel() == 0:
             return votes
         votes = votes.index_add(1, heads, votes[:, followers])
@@ -458,8 +791,75 @@ class Tiresias:
         others = [stats[u, 0] for u in range(len(stats)) if u != win]
         return max(0, int(stats[win, 3]), *(int(x) for x in others))
 
-    def search_pcm_topk(self, *args, **kwargs) -> list[SearchResult]:
-        raise NotImplementedError(f"search_pcm_topk: {_ROADMAP_RANKED}")
+    def search_pcm_topk(
+        self,
+        context: str | None,
+        pcm: np.ndarray,
+        samplerate: int,
+        k: int = 5,
+        coefs: int | None = None,
+        tolerance: float | None = None,
+        freq_ignore_low: int = -1,
+        freq_ignore_high: int = -1,
+        filter_context: bool = False,
+        trunc_coef1: bool | None = None,
+        aligned: bool | None = None,
+        wire_law: str | None = None,
+        min_margin: float | None = None,
+    ) -> list[SearchResult]:
+        """Ranked top-k candidates for one query (documented extension —
+        the reference returns only the top-1 row, fp_handler.c:367-373),
+        by (votes desc, insertion order asc — D5). Only audios with at
+        least one vote appear. ``min_margin`` does not apply — a ranked
+        listing SHOWS the margins; rejecting it here keeps a
+        gate-configured caller from assuming the table was filtered.
+
+        Each view's exact top-k is taken on the device and one ``[V, 3,
+        k]`` tensor (votes, insertion seq, row) is read back; the k*V
+        candidates merge on the host."""
+        if min_margin:
+            raise ValueError(
+                "min_margin does not apply to ranked listings (the table "
+                "shows every candidate; apply acceptance to the top-1 "
+                "search instead)"
+            )
+        k = int(k)
+        coefs, tolerance, lo, hi, trunc_coef1, aligned, _ = (
+            self._resolve_search(
+                coefs, tolerance, freq_ignore_low, freq_ignore_high,
+                trunc_coef1, aligned, 0.0,
+            )
+        )
+        store = self.store
+        ctx_id = self._ctx_filter_id(store, context, filter_context)
+        views = store.search_views()
+        if not views or k < 1:
+            return []
+        with phase("search.match"), self._on_device():
+            qfp, n_frames = self._query_fingerprints(
+                [np.asarray(pcm)], samplerate, wire_law
+            )
+            votes_of = self._view_votes(
+                store, qfp, n_frames, tolerance, lo, hi, ctx_id, coefs,
+                trunc_coef1, aligned,
+            )
+            got = torch.stack([
+                topk_by_row(votes_of(view)[0], store.seq_for(view), k)
+                for view in views
+            ]).cpu().numpy()  # the one readback, [V, 3, k]
+        metrics.add("search.queries", 1)
+        fc = int(n_frames[0])
+        # (-votes, seq, view, row): sorting IS the D5 order, seqs are unique
+        cands = sorted(
+            (-int(got[v, 0, j]), int(got[v, 1, j]), v, int(got[v, 2, j]))
+            for v in range(len(views))
+            for j in range(got.shape[2])
+            if got[v, 0, j] > 0
+        )
+        return [
+            self._found(views[v].entries[row], fc, -negv)
+            for negv, _seq, v, row in cands[:k]
+        ]
 
     def search_file(
         self,
@@ -483,14 +883,15 @@ class Tiresias:
             trunc_coef1=trunc_coef1, aligned=aligned, min_margin=min_margin,
         )
 
+    @staticmethod
     def _ctx_filter_id(
-        self, context: str | None, filter_context: bool
+        store: FingerprintStore, context: str | None, filter_context: bool
     ) -> int | None:
         """Device keep key of a filtered search, or None for the reference's
         scan-everything behavior (context=None keeps D7 even when asked)."""
         if not filter_context or context is None:
             return None
-        return self.store.ctx_id_for(context)
+        return store.ctx_id_for(context)
 
     def _resolve_search(
         self,
@@ -543,6 +944,16 @@ class Tiresias:
             pcms = [ensure_samplerate(p, samplerate, target)[0] for p in pcms]
             samplerate = target
         return pcms, int(samplerate), law
+
+    # ---- hashing helpers (fp_generate_hash / fp_generate_uuid) --------- #
+
+    @staticmethod
+    def generate_hash(path: str) -> str:
+        return file_md5(path)
+
+    @staticmethod
+    def generate_uuid() -> str:
+        return generate_uuid()
 
     @staticmethod
     def _found(e: AudioEntry, frame_count: int, match_count: int) -> SearchResult:

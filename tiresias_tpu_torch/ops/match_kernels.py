@@ -27,6 +27,8 @@ masks stopped at ``PALLAS_TOL_MAX`` = 1e5).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -57,6 +59,7 @@ SMALL_BATCH = 8
 # route for every item, to measure and test each.
 _FORCED = {"dense": -1.0, "index": float("inf")}
 _ROUTES: dict[torch.device, torch.Tensor] = {}
+_ROUTES_LOCK = threading.Lock()  # searches run on several threads at once
 
 
 def query_rows(q, active, use2, coefs: int) -> torch.Tensor:
@@ -77,9 +80,10 @@ def route_counts(device) -> torch.Tensor:
     a timed region). An item is a (query, 32-frame group, row) for K4 and a
     (query, row) for K5."""
     device = torch.device(device)
-    if device not in _ROUTES:
-        _ROUTES[device] = torch.zeros(4, dtype=torch.int64, device=device)
-    return _ROUTES[device]
+    with _ROUTES_LOCK:
+        if device not in _ROUTES:
+            _ROUTES[device] = torch.zeros(4, dtype=torch.int64, device=device)
+        return _ROUTES[device]
 
 
 def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,

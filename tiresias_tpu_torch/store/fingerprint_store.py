@@ -128,12 +128,30 @@ def _fsync_dir(directory: str) -> None:
 
 
 def _readable_catalog(path: str) -> bool:
+    """Whether a catalog generation parses — the rotation guard: a corrupt
+    current catalog must never be rotated over a good ``.bak``."""
     try:
         with open(path) as f:
             json.load(f)
         return True
-    except (OSError, ValueError):
+    except Exception:  # noqa: BLE001 - any unreadable generation
         return False
+
+
+def _read_catalog_gen(path: str) -> int:
+    """A catalog generation's ``gen`` field, 0 when unreadable/absent."""
+    try:
+        with open(path) as f:
+            return int(json.load(f).get("gen", 0))
+    except Exception:  # noqa: BLE001 - any unreadable generation
+        return 0
+
+
+def _unreadable_version(version) -> str:
+    return (
+        f"checkpoint version {version} is not readable here (3 and 4 are); "
+        "load and save it once with tiresias_tpu to upgrade"
+    )
 
 
 def _max_seg_gen(directory: str) -> int:
@@ -311,6 +329,9 @@ class FingerprintStore:
         self._save_gen = 0
         self._seg_manifest: dict[int, list[list]] = {}
         self._restored_gen = 0
+        # newest generation observed at load time (>= _restored_gen after a
+        # .bak fallback): what a follower compares the owner's catalog to
+        self._seen_gen = 0
 
     # ---- contexts (fp_handler.c:912-1095) ----------------------------- #
 
@@ -431,6 +452,16 @@ class FingerprintStore:
                     self._forget_hash(entry)
                 self._dirty = True
             return len(removed)
+
+    def compact(self) -> None:
+        """Force tombstone reclamation in every tier (admin maintenance
+        op; normally automatic past the waste threshold). The device views
+        and their derived maps are rebuilt on the next search."""
+        with self._lock:
+            for tier in self._tiers.values():
+                if tier.dead:
+                    tier.compact()
+                    self._dirty = True
 
     def _forget_hash(self, entry: AudioEntry) -> None:
         # duplicate-hash entries exist with dedupe=False: keep the index on
@@ -687,9 +718,13 @@ class FingerprintStore:
         try:
             with open(cat_path) as f:
                 cat = json.load(f)
-        except (OSError, ValueError):
+            return {
+                seg[0]
+                for segs in cat.get("tiers", {}).values()
+                for seg in segs
+            }
+        except Exception:  # noqa: BLE001 - unreadable generation
             return set()
-        return {seg[0] for segs in cat.get("tiers", {}).values() for seg in segs}
 
     def _gc_segments(self, directory: str) -> None:
         """Unlink segment files referenced by neither catalog generation."""
@@ -723,13 +758,24 @@ class FingerprintStore:
             if not os.path.exists(cat_path):
                 continue
             try:
-                return FingerprintStore._load_catalog(
+                loaded = FingerprintStore._load_catalog(
                     directory, cat_path, suffix, n_coefs, coef_weights, device
                 )
+                loaded._seen_gen = loaded._restored_gen
+                if suffix:
+                    # .bak fallback: record the damaged CURRENT catalog's
+                    # generation (when its JSON at least parses) so a
+                    # follower doesn't mistake it for news on every poll
+                    loaded._seen_gen = max(
+                        loaded._seen_gen,
+                        _read_catalog_gen(
+                            os.path.join(directory, CATALOG_FILE)
+                        ),
+                    )
+                return loaded
             except CheckpointIncompatible:
-                raise
-            except (OSError, ValueError, KeyError, TypeError,
-                    AttributeError) as exc:
+                raise  # incompatible checkpoint: fail loudly, don't mask
+            except Exception as exc:  # noqa: BLE001 - corrupt generation
                 errors.append(f"{suffix or 'current'}: {exc}")
                 log.warning(
                     "checkpoint generation %r unreadable, trying previous",
@@ -743,6 +789,41 @@ class FingerprintStore:
         return FingerprintStore(n_coefs, coef_weights, device)
 
     @staticmethod
+    def read_catalog_metadata(directory: str) -> dict | None:
+        """Catalog metadata (contexts, audio-entry dicts, generation)
+        WITHOUT loading any segment data — the cheap path for read-only
+        listings and the follower's poll. Returns None when no checkpoint
+        exists; same generation fallback, version rule and
+        :class:`CheckpointUnreadable` semantics as :meth:`load`."""
+        errors: list[str] = []
+        for suffix in ("", ".bak"):
+            cat_path = os.path.join(directory, CATALOG_FILE + suffix)
+            if not os.path.exists(cat_path):
+                continue
+            try:
+                with open(cat_path) as f:
+                    catalog = json.load(f)
+                if catalog.get("version") not in (3, 4):
+                    raise CheckpointIncompatible(
+                        _unreadable_version(catalog.get("version"))
+                    )
+                return {
+                    "contexts": dict(catalog["contexts"]),
+                    "entries": list(catalog["entries"]),
+                    "gen": int(catalog.get("gen", 0)),
+                }
+            except CheckpointIncompatible:
+                raise
+            except Exception as exc:  # noqa: BLE001 - corrupt generation
+                errors.append(f"{suffix or 'current'}: {exc}")
+        if errors:
+            raise CheckpointUnreadable(
+                f"checkpoint in {directory!r} exists but no generation is "
+                f"readable ({'; '.join(errors)})"
+            )
+        return None
+
+    @staticmethod
     def _load_catalog(
         directory, cat_path, suffix, n_coefs, coef_weights, device
     ) -> "FingerprintStore":
@@ -751,10 +832,7 @@ class FingerprintStore:
             catalog = json.load(f)
         version = catalog.get("version")
         if version not in (3, 4):
-            raise CheckpointIncompatible(
-                f"checkpoint version {version} is not readable here (3 and "
-                "4 are); load and save it once with tiresias_tpu to upgrade"
-            )
+            raise CheckpointIncompatible(_unreadable_version(version))
         if int(catalog["n_coefs"]) != store.n_coefs:
             raise CheckpointIncompatible(
                 f"checkpoint has n_coefs={catalog['n_coefs']}, store wants "
@@ -841,3 +919,189 @@ class FingerprintStore:
         self._hash_count[key] = self._hash_count.get(key, 0) + 1
         self._uuid_tier[entry.uuid] = t
         self._by_uuid[entry.uuid] = entry
+
+    def iter_entries(self) -> list[AudioEntry]:
+        """A snapshot of the catalog in insertion order."""
+        with self._lock:
+            return list(self.entries)
+
+
+def _fsck_walk_tiers(
+    directory: str, catalog: dict, n_coefs: int,
+    tiers_report: dict, referenced: set,
+) -> None:
+    """Structural walk of one v3/v4 catalog's tier manifest (fsck); any
+    malformed shape raises and the caller reports the generation BAD."""
+    tiers = catalog.get("tiers", {})
+    if not isinstance(tiers, dict):
+        raise ValueError(f"'tiers' is {type(tiers).__name__}, expected object")
+    dead_map = catalog.get("dead", {})
+    if not isinstance(dead_map, dict):
+        raise ValueError(f"'dead' is {type(dead_map).__name__}, expected object")
+    for t_key, segs in tiers.items():
+        t = int(t_key)
+        rows_total = 0
+        t_errors: list[str] = []
+        for fname, n_rows in segs:
+            referenced.add(str(fname))
+            path = os.path.join(directory, str(fname))
+            n_rows = int(n_rows)
+            if not os.path.exists(path):
+                t_errors.append(f"{fname}: missing")
+                continue
+            try:
+                arr = np.load(path, mmap_mode="r")
+                shape, dtype = arr.shape, arr.dtype
+                del arr
+            except Exception as exc:  # noqa: BLE001 - torn/short file
+                t_errors.append(f"{fname}: unreadable ({exc})")
+                continue
+            if shape != (n_rows, t, n_coefs):
+                t_errors.append(
+                    f"{fname}: shape {shape} != catalog "
+                    f"({n_rows}, {t}, {n_coefs})"
+                )
+            elif dtype != np.float32:
+                t_errors.append(f"{fname}: dtype {dtype} != float32")
+            rows_total += n_rows
+        dead = dead_map.get(t_key, [])
+        bad_dead = [d for d in dead if not 0 <= int(d) < rows_total]
+        if bad_dead:
+            t_errors.append(
+                f"dead rows out of range {bad_dead[:5]} (rows={rows_total})"
+            )
+        tiers_report[t] = {
+            "segments": len(segs),
+            "rows": rows_total,
+            "dead": len(dead),
+            "errors": t_errors,
+        }
+
+
+def fsck_checkpoint(
+    directory: str, deep: bool = False, n_coefs: int | None = None
+) -> dict:
+    """Offline checkpoint integrity check (the ``tiresias fsck`` command).
+
+    The checkpoint is a catalog JSON + immutable segment files per
+    generation, so a broken disk/partial copy is verifiable OFFLINE without
+    touching a serving process.
+
+    Per generation ("current" and ".bak"): catalog parses, version is one
+    the loader reads (3 or 4), every manifest segment file exists with the exact shape/dtype
+    the catalog claims (header-only ``np.load(mmap_mode="r")`` — no data
+    read), dead-row indices in range. Plus orphan detection: ``.npy``
+    files no generation references (GC debris from a crash between
+    segment write and catalog commit — harmless, reclaimable). ``deep``
+    additionally performs a full :meth:`FingerprintStore.load` of the
+    directory (the exact restore a server would run, incl. the
+    generation-fallback rules) on the host: the restore fills numpy tiers
+    only, no tensor is made, so it needs no card.
+
+    ``n_coefs`` is the deployment's configured coefficient count (what a
+    real server startup passes to :meth:`FingerprintStore.load`); the
+    deep restore uses it so a config/checkpoint mismatch reports BAD here
+    exactly as the startup would fail. None falls back to each catalog's
+    own value (structure-only checking).
+
+    Returns a report dict; ``report["ok"]`` is True when the newest
+    readable generation is structurally sound (a server restart would
+    serve it) — a damaged current with a clean ``.bak`` is ok=False:
+    data SINCE the .bak would be lost silently on restart.
+    """
+    report: dict = {"directory": directory, "generations": {}, "ok": False}
+    referenced: set = set()
+    for suffix, label in (("", "current"), (".bak", "bak")):
+        cat_path = os.path.join(directory, CATALOG_FILE + suffix)
+        if not os.path.exists(cat_path):
+            report["generations"][label] = None
+            continue
+        gen_report: dict = {"ok": False, "errors": []}
+        report["generations"][label] = gen_report
+        try:
+            with open(cat_path) as f:
+                catalog = json.load(f)
+            if not isinstance(catalog, dict):
+                raise ValueError(
+                    f"top-level {type(catalog).__name__}, expected object"
+                )
+        except Exception as exc:  # noqa: BLE001 - corrupt generation
+            gen_report["errors"].append(f"catalog unreadable: {exc}")
+            continue
+        version = catalog.get("version")
+        gen_report.update(
+            version=version,
+            gen=int(catalog.get("gen", 0) or 0),
+            entries=len(catalog.get("entries", [])),
+            contexts=len(catalog.get("contexts", {})),
+        )
+        if version not in (3, 4):
+            gen_report["errors"].append(_unreadable_version(version))
+            continue
+        cat_coefs = int(catalog.get("n_coefs", DEF_N_COEFS) or DEF_N_COEFS)
+        n_coefs_gen = cat_coefs if n_coefs is None else int(n_coefs)
+        if n_coefs is not None and cat_coefs != n_coefs_gen:
+            gen_report["errors"].append(
+                f"checkpoint has n_coefs={cat_coefs}, deployment config "
+                f"wants {n_coefs_gen} (a server startup would refuse)"
+            )
+        tiers_report: dict = {}
+        gen_report["tiers"] = tiers_report
+        try:
+            _fsck_walk_tiers(
+                directory, catalog, n_coefs_gen, tiers_report, referenced
+            )
+        except Exception as exc:  # noqa: BLE001 - malformed catalog shape
+            # the tool exists to DIAGNOSE corrupt checkpoints: any
+            # unexpected structure (tiers as a scalar, non-numeric keys,
+            # garbage row counts) is a finding, not a crash
+            gen_report["errors"].append(f"catalog malformed: {exc}")
+        for t in tiers_report.values():
+            gen_report["errors"].extend(t["errors"])
+        gen_report["ok"] = not gen_report["errors"]
+    # orphans: segment files neither generation references (crash debris
+    # between a segment write and its catalog commit; or a GC'd lineage)
+    orphans = [
+        f
+        for f in os.listdir(directory)
+        if f.endswith(".npy") and f not in referenced
+    ] if os.path.isdir(directory) else []
+    report["orphans"] = {
+        "count": len(orphans),
+        "bytes": sum(
+            os.path.getsize(os.path.join(directory, f)) for f in orphans
+        ),
+    }
+    cur = report["generations"].get("current")
+    report["ok"] = bool(cur and cur["ok"])
+    if deep:
+        deep_report: dict = {"ok": False}
+        report["deep"] = deep_report
+        try:
+            deep_coefs = n_coefs
+            if deep_coefs is None:
+                # structure-only mode: take the newest readable catalog's
+                # own value so a default-less run still restores
+                for label in ("current", "bak"):
+                    g = report["generations"].get(label)
+                    if g and "version" in g and g.get("version"):
+                        suffix = "" if label == "current" else ".bak"
+                        with open(
+                            os.path.join(directory, CATALOG_FILE + suffix)
+                        ) as f:
+                            deep_coefs = int(
+                                json.load(f).get("n_coefs", DEF_N_COEFS)
+                            )
+                        break
+                deep_coefs = deep_coefs or DEF_N_COEFS
+            store = FingerprintStore.load(
+                directory, n_coefs=deep_coefs, device="cpu"
+            )
+            deep_report.update(
+                ok=True, entries=len(store), gen=store._restored_gen,
+                contexts=len(store.contexts),
+            )
+        except Exception as exc:  # noqa: BLE001 - any restore failure
+            deep_report["error"] = str(exc)
+        report["ok"] = report["ok"] and deep_report["ok"]
+    return report

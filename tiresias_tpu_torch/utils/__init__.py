@@ -1,1 +1,1 @@
-"""Host utilities of the PyTorch port: device resolution, tracing, kernel build."""
+"""Host utilities: audio I/O, hashing, logging, tracing, the kernel build."""

@@ -88,13 +88,17 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+# the serve layer launches from several executor threads at once: an
+# unguarded ``+= 1`` would lose counts
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _build_seconds: float | None = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def build_dir() -> str:
@@ -195,4 +199,5 @@ def check(name: str, rc: int) -> None:
     otherwise count the launch."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
