@@ -38,6 +38,7 @@ fails. Everything it writes goes to temporary directories it removes.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -76,6 +77,11 @@ STRICT_MODES = {
                "min_margin": 0.2},
 }
 N_STRICT_BRUTE = 2  # queries per mode held to the numpy brute force
+# The [prefilter] phase: the certified prefilters against the full scans on
+# a catalog grown to 100,000 tracks (102,400 rows at tier 1,024), where the
+# JAX package expects them to pay off
+N_PF_TRACKS = 100_000
+N_PF_QUERIES = 64
 # The [serve] path (BASELINE.json config #5: 128 simultaneous 8 kHz streams)
 N_CHANNELS = 128
 WINDOW = 3 * SR  # the dialplan's default duration, 3000 ms
@@ -185,6 +191,26 @@ def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
          f"profiles in a row")
 
 
+def stream_ms(fn, reps: int = 10) -> float:
+    """Time per call of ``reps`` back-to-back calls on the stream, from CUDA
+    events around them (after two warm-ups): device time plus whatever gaps
+    the host leaves between launches. A yardstick beside ``device_ms`` that
+    needs no profiler."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def timed(label: str, kernel, plain, plain_reps: int = 20) -> dict:
     """Device and per-call times of a kernel wrapper and its twin, taken in
     turns (plain, kernel, kernel, plain) so drift hits both alike; a slow
@@ -202,6 +228,63 @@ def timed(label: str, kernel, plain, plain_reps: int = 20) -> dict:
         f"ms); per call incl. launch {out['call_ms']} ms (plain "
         f"{out['plain_call_ms']} ms)")
     return out
+
+
+def topk_ms(bound) -> dict:
+    """Device time of the prefilters' candidate selection (``torch.topk``
+    of each query's bounds, a library call) at both candidate budgets."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_kernels as tk
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    out = {}
+    for k in (ml.LATTICE_PREFILTER_K, tk.PREFILTER_K):
+        k = min(k, bound.shape[1])
+        out[f"torch.topk {list(bound.shape)} int32, k={k}"] = device_ms(
+            lambda: torch.topk(bound, k, dim=1))
+    return out
+
+
+def pf_notes(eng) -> dict:
+    """Counts of the certificates the engine notes, per prefilter mode:
+    ``{mode: [certified, fell back]}`` (the engine counts the fallbacks in
+    ``search.prefilter_fallbacks`` too)."""
+    notes: dict = {}
+    note = eng._pf_note
+
+    def counted(view, mode, certified):
+        notes.setdefault(mode, [0, 0])[0 if certified else 1] += 1
+        note(view, mode, certified)
+
+    eng._pf_note = counted
+    return notes
+
+
+class gates_closed:
+    """Within the block every prefilter gate refuses (candidate budgets past
+    any view), so the engine full-scans: the control the prefiltered path
+    is held and timed against."""
+
+    def __enter__(self):
+        from tiresias_tpu_torch.ops import match_kernels as tk
+        from tiresias_tpu_torch.ops import match_lattice as ml
+
+        self.saved = (ml.LATTICE_PREFILTER_K, tk.PREFILTER_K)
+        ml.LATTICE_PREFILTER_K = tk.PREFILTER_K = 10**9
+
+    def __exit__(self, *exc):
+        from tiresias_tpu_torch.ops import match_kernels as tk
+        from tiresias_tpu_torch.ops import match_lattice as ml
+
+        ml.LATTICE_PREFILTER_K, tk.PREFILTER_K = self.saved
+
+
+def fallbacks() -> float:
+    from tiresias_tpu_torch.utils.tracing import metrics
+
+    return metrics.snapshot()["counters"].get("search.prefilter_fallbacks",
+                                              0.0)
 
 
 def synth_tracks(n: int, seconds: float, seed: int, device):
@@ -531,6 +614,46 @@ def phase_kernels(device, dsp) -> list[dict]:
         "library": "no single PyTorch call computes the tolerance-hit count",
         "shape": f"dense counts, B=64 x {rows} rows x 640 buckets",
     })
+    # K3' on a uint8 map (the prefilters' bound scans): the same shapes on
+    # floor(d * 64) distances, the padding rows on the 255 sentinel
+    vmq = ml.quantize_value_map(vm * 0.5)
+    u8_times = {}
+    for b in (1, 64):
+        counts = torch.randint(0, 6, (b, ml.K_SIZE), generator=g,
+                               device=device, dtype=torch.int32)
+        counts[0, :3] = torch.tensor([300, 256, 255], device=device)
+        for thr in (ml.bound_threshold(None, 0.001),
+                    ml.bound_threshold(None, 0.5),
+                    ml.bound_threshold(8.0, 0.1), 254.5, 255.0, 300.0):
+            for cap in (300, None):
+                if not torch.equal(ml.hit_votes(counts, vmq, thr, cap),
+                                   ml.lattice_votes_reference(counts, vmq,
+                                                              thr)):
+                    fail(f"K3'-u8 lattice_votes_u8 != twin at B={b} "
+                         f"thr={thr} max_count={cap}")
+        counts[0, :3] = 1
+        say(f"[kernels] K3'-u8 lattice_votes_u8 [{b}, 640] x [{rows}, 640] "
+            f"uint8 dense counts: votes exact at thresholds 0.064 to 300 "
+            f"(past the 255 sentinel), 2 and 4 planes")
+        u8_times[b] = timed(
+            f"K3'-u8 lattice_votes_u8 dense B={b}",
+            lambda: ml.hit_votes(counts, vmq, 32.0, 5),
+            lambda: ml.lattice_votes_reference(counts, vmq, 32.0),
+        )
+    out.append({
+        "name": "lattice_votes_u8", "route": "cuda",
+        "source": "tiresias_tpu_torch/csrc/lattice.cu",
+        "replaces": "tiresias_tpu/ops/match_lattice.py:588",
+        "max_abs_err": 0.0, "ms": u8_times[64]["ms"],
+        "plain_ms": u8_times[64]["plain_ms"],
+        **bound(rows * ml.K_SIZE + 4 * (64 * ml.K_SIZE + 64 * rows),
+                2 * 64 * rows * ml.K_SIZE, INT8_OPS_S),
+        "library_ms": None,
+        "library": "no single PyTorch call computes the tolerance-hit count",
+        "shape": f"uint8 map, dense counts, B=64 x {rows} rows x 640 "
+                 f"buckets",
+        "ms_b1": u8_times[1]["ms"],
+    })
     out += phase_match_kernels(device)
     return out
 
@@ -596,24 +719,32 @@ def match_edge_case(device):
                                  trunc_coef1=False)
 
 
-def band_stats(index, q, active, use2, tol: float) -> dict:
+def band_stats(index, q, active, use2, tol: float, cand=None) -> dict:
     """In-band stored frames per (active query frame, row), summed over the
     index chunks, from the index's own binary search: mean, p99, max, the
-    total (the in-band pairs) and the active frames; and the pairs a bag
+    total (the in-band pairs) and the active frames; the pairs a bag
     search must test, up to and including each band's first entry that
-    also passes coefficient 1 (``walked``)."""
+    also passes coefficient 1 (``walked``); and the binary-search compares
+    (``probes``). With ``cand [B, k]`` the rows of query b are its
+    candidates only (the candidate form's work)."""
     import torch
 
     from tiresias_tpu_torch.ops import match_index as mi
 
     hist = torch.zeros(index.chunk * index.n_chunks + 1, dtype=torch.int64,
                        device=q.device)
-    walked = 0
+    walked, probes = 0, 0.0
+    steps = 2 * torch.ceil(torch.log2(index.n_live.double() + 1)).sum(dim=1)
     u = torch.arange(index.chunk, device=q.device)
-    d1 = index.entries[..., 1][None, None]
     for lo in range(q.shape[0]):
         s = slice(lo, lo + 1)
-        b0, b1 = mi.band_bounds_plain(index, q[s, :, 0], tol)
+        rows = slice(None) if cand is None else cand[lo].long()
+        sub = index if cand is None else mi.MatchIndex(
+            index.entries[rows], index.pos[rows], index.n_live[rows],
+            index.chunk, index.t_len)
+        b0, b1 = mi.band_bounds_plain(sub, q[s, :, 0], tol)
+        d1 = sub.entries[..., 1][None, None]
+        probes += int(active[s].sum()) * float(steps[rows].sum())
         w = (b1 - b0).sum(dim=-1)[active[s]]  # [frames, rows]
         hist += torch.bincount(w.reshape(-1), minlength=hist.shape[0])
         hit = (u >= b0[..., None]) & (u < b1[..., None])
@@ -629,11 +760,36 @@ def band_stats(index, q, active, use2, tol: float) -> dict:
     cum = torch.cumsum(hist, 0)
     p99 = int(torch.searchsorted(cum, torch.tensor(0.99 * n,
                                                    device=q.device)))
+    used = (index.n_live if cand is None
+            else index.n_live[torch.unique(cand.long())])
     return {"mean": pairs / max(n, 1), "p99": p99,
             "max": int(vals[hist > 0].max()) if n else 0, "pairs": pairs,
             "walked": walked, "active_frames": int(active.sum()),
-            "live": int(index.n_live.sum()),
-            "rows": int(index.n_live.shape[0])}
+            "live": int(used.sum()), "probes": probes,
+            "rows": int(index.n_live.shape[0] if cand is None
+                        else cand.shape[1]),
+            "cand_bytes": 0 if cand is None else 4 * cand.numel()}
+
+
+def bound_votes_plain(specs, maps, q, active, use2, tol):
+    """``match_lattice.bound_votes`` with K3''s plain twin in place of the
+    kernel: the coefficients' clipped-scaled lattice votes, coefficient 1's
+    bypass credit, the minimum."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    inf = float("inf")
+    out = None
+    for (c, s, lo, hi, k_min, k_size), m in zip(specs, maps):
+        act_c = active & use2 if c == 1 else active
+        v = ml.lattice_votes_reference(
+            ml.histogram(torch.clamp(q[..., c], lo, hi) * s, act_c, -inf, inf,
+                         k_min, k_size), m, ml.bound_threshold(s, tol))
+        if c == 1:
+            v = v + (active & ~use2).sum(dim=1, dtype=torch.int32)[:, None]
+        out = v if out is None else torch.minimum(out, v)
+    return out
 
 
 def index_bound(index, stats: dict, b: int, f: int, aligned: bool,
@@ -643,13 +799,10 @@ def index_bound(index, stats: dict, b: int, f: int, aligned: bool,
     (active query frame, row, chunk), one compare per step, plus 4
     operations per pair tested: every in-band pair (aligned), or up to each
     band's first hit (bag)."""
-    import torch
-
-    steps = 2 * torch.ceil(torch.log2(index.n_live.double() + 1)).sum()
     n_bytes = (10 * stats["live"] + b * (coefs + 2) * f * 4
-               + b * index.n_live.shape[0] * 4)
+               + b * stats["rows"] * 4 + stats["cand_bytes"])
     tested = stats["pairs"] if aligned else stats["walked"]
-    return bound(n_bytes, stats["active_frames"] * float(steps) + 4 * tested)
+    return bound(n_bytes, stats["probes"] + 4 * tested)
 
 
 def routes_delta(device, fn) -> tuple:
@@ -814,6 +967,39 @@ def phase_match_kernels(device) -> list[dict]:
                     f"({bd['bound_by']}) from this run's bands, "
                     f"{100 * bd['bound_ms'] / t['auto']:.1f}% of it")
     del narrow
+    # K3'-u8 on the strict/aligned prefilter's bound maps (10,112 x 768 per
+    # coefficient) with the B=64 queries' own clipped, scaled histograms
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    _, q, _ = match_case(device, 301 + 64, 256, 256, 2, 64, 128)
+    qq, act, use2 = tm.prepare_query(q, np.full(64, 94), -1, -1,
+                                     trunc_coef1=False)
+    specs, maps = ml.build_bound_maps(db, mask, 2)
+    maps_ms = device_ms(lambda: ml.build_bound_maps(db, mask, 2), 3)
+    inf = float("inf")
+    for (c, s, lo, hi, k_min, k_size), m in zip(specs, maps):
+        act_c = act & use2 if c == 1 else act
+        qc = torch.clamp(qq[..., c], lo, hi) * s
+        for tol in (0.01, STRICT_TOL, 0.5):
+            thr = ml.bound_threshold(s, tol)
+            got = ml.lattice_votes(m, qc, act_c, thr, -inf, inf, k_min,
+                                   k_size)
+            want = ml.lattice_votes_reference(
+                ml.histogram(qc, act_c, -inf, inf, k_min, k_size), m, thr)
+            if not torch.equal(got, want):
+                fail(f"K3'-u8 != twin on the bound map of coef {c} tol {tol}")
+    say(f"[kernels] K3'-u8 lattice_votes_u8 on the bound maps "
+        f"({len(maps)} x [{m.shape[0]}, {m.shape[1]}] uint8, built in "
+        f"{maps_ms} ms of device time) with 64 queries' histograms: votes "
+        f"exact at tol 0.01, 0.1 and 0.5")
+    if not torch.equal(
+            ml.bound_votes(specs, maps, qq, act, use2, STRICT_TOL),
+            bound_votes_plain(specs, maps, qq, act, use2, STRICT_TOL)):
+        fail("bound_votes on K3'-u8 != its plain twin")
+    timed("K3'-u8 bound_votes (2 bound maps) B=64",
+          lambda: ml.bound_votes(specs, maps, qq, act, use2, STRICT_TOL),
+          lambda: bound_votes_plain(specs, maps, qq, act, use2, STRICT_TOL))
+    del maps
     # every live stored frame (10,000 rows x 938) against each of the 94
     # active frames of 64 queries: a subtract and a compare per coefficient
     pairs = 64 * 10000 * 938 * 94
@@ -855,7 +1041,7 @@ def phase_match_kernels(device) -> list[dict]:
     return out
 
 
-def phase_match_real(device, eng, queries) -> None:
+def phase_match_real(device, eng, queries) -> list[dict]:
     """K4 and K5 on the traffic the strict path sends (case b): the restored
     catalog's own view and index, the 64 excerpts + 8 noise queries at tol
     0.1, batch 64 and 1; int32-exact against the twin on every route, then
@@ -899,6 +1085,136 @@ def phase_match_real(device, eng, queries) -> None:
             say(f"[kernels] {name}: bound {bd['bound_ms']:.5f} ms "
                 f"({bd['bound_by']}), {100 * bd['bound_ms'] / t['auto']:.1f}%"
                 f" of it; votes exact on the auto, dense and index routes")
+    return phase_match_cand(device, eng, view, index, q, active, use2, f)
+
+
+def phase_match_cand(device, eng, view, index, q, active, use2, f):
+    """K4/K5's candidate form on the traffic the strict prefilter sends:
+    the catalog's own view and index, each query's 1,024 candidates by its
+    bound (the engine's own selection), batch 64 and 1; int32-exact against
+    the full kernels' votes at those rows on every route and against the
+    twin, timed on the auto, dense and index routes, with the candidates'
+    own band statistics and bound. Then the ops-level prefiltered and
+    full-scan votes in turns. Returns the candidate forms' kernel
+    entries."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_kernels as tk
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
+    specs, maps = eng.store.bound_maps_for(view, 2)
+    res = {}
+    for b in (64, 1):
+        qq, act, u2 = q[:b], active[:b], use2[:b]
+        idx, _ = ml.select_candidates(
+            ml.bound_votes(specs, maps, qq, act, u2, STRICT_TOL),
+            tk.PREFILTER_K)
+        cand = idx.to(torch.int32)
+        st = band_stats(index, qq, act, u2, STRICT_TOL, cand)
+        for aligned in (False, True):
+            kname = ("match_votes_aligned_cand" if aligned
+                     else "match_votes_cand")
+            name = (f"K{5 if aligned else 4} {kname} (b) real candidates "
+                    f"B={b} x k={cand.shape[1]}")
+            want = fns[aligned](view.db, qq, act, u2, STRICT_TOL, 2,
+                                index=index).gather(1, idx)
+            call = {r: (lambda r=r, al=aligned: tk.match_votes_cand(
+                        view.db, qq, act, u2, STRICT_TOL, cand, 2,
+                        index=index, route=r, aligned=al))
+                    for r in ("auto", "dense", "index")}
+            for r, c in call.items():
+                if not torch.equal(c(), want):
+                    fail(f"{name}: the {r} route != the full kernel's votes "
+                         f"at those rows")
+            # the twin loops over the queries in thousands of small ops: one
+            # call, timed with events (a profile of it costs minutes)
+            a_ev = torch.cuda.Event(enable_timing=True)
+            b_ev = torch.cuda.Event(enable_timing=True)
+            a_ev.record()
+            twin = tk.match_votes_cand_plain(view.db, qq, act, u2, STRICT_TOL,
+                                             cand, 2, aligned)
+            b_ev.record()
+            b_ev.synchronize()
+            if not torch.equal(twin, want):
+                fail(f"{name}: the twin != the full kernel's votes")
+            t = timed_match(name, call, reps=10 if b > 1 else 50)
+            t["plain"] = a_ev.elapsed_time(b_ev)
+            say(f"[kernels] {name}: plain twin {t['plain']} ms (one call, "
+                f"CUDA events)")
+            routes = routes_delta(device, call["auto"])
+            say_bands(name, st, routes, aligned)
+            bd = index_bound(index, st, b, f, aligned)
+            say(f"[kernels] {name}: bound {bd['bound_ms']:.5f} ms "
+                f"({bd['bound_by']}) from the candidates' own bands, "
+                f"{100 * bd['bound_ms'] / t['auto']:.1f}% of it; votes exact "
+                f"on the auto, dense and index routes and the twin")
+            res[aligned, b] = dict(t, bound=bd, stats=st)
+        # every (query, candidate) pair tested: the dense route's bound
+        live = index.n_live.sum(dim=1)[idx.reshape(-1)].reshape(idx.shape)
+        pairs = float((act.sum(dim=1) * live.sum(dim=1)).sum())
+        rows_read = torch.unique(idx).numel()
+        res["dense", b] = bound(
+            rows_read * view.db.shape[1] * 2 * 4 + b * 4 * f * 4
+            + 2 * 4 * idx.numel(), pairs * 2 * 2)
+        # the ops-level prefilter against the full scan, in turns
+        for aligned in (False, True):
+            mode = "aligned" if aligned else "bag"
+            pf = (lambda al=aligned: tk.aligned_prefiltered_votes(
+                view.db, maps, qq, act, u2, STRICT_TOL, specs=specs,
+                coefs=2, aligned=al, index=index))
+            full = (lambda al=aligned: fns[al](view.db, qq, act, u2,
+                                               STRICT_TOL, 2, index=index))
+            votes, cert = pf()
+            ref = full()
+            m = votes.max(dim=1).values
+            if not torch.equal(m[cert], ref.max(dim=1).values[cert]):
+                fail(f"[prefilter] {mode} ops B={b}: a certified top-1 != "
+                     f"the full scan's")
+            reps = 5 if b > 1 else 20
+            t = [(device_ms(fn, reps), stream_ms(fn, reps))
+                 for fn in (full, pf, pf, full)]
+            dev = [float(np.median([t[i][0] for i in idx]))
+                   for idx in ((1, 2), (0, 3))]
+            st = [float(np.median([t[i][1] for i in idx]))
+                  for idx in ((1, 2), (0, 3))]
+            say(f"[prefilter] {mode} ops B={b} tol {STRICT_TOL}: prefiltered "
+                f"{dev[0]} ms device, {st[0]} ms on the stream (K3'-u8 "
+                f"bound, top-1024, candidate form); full scan {dev[1]} ms "
+                f"device, {st[1]} ms on the stream; certified "
+                f"{int(cert.sum())}/{b}")
+    none = "no single PyTorch call computes tolerance votes"
+    out = []
+    for aligned, kname in ((False, "match_votes_cand"),
+                           (True, "match_votes_aligned_cand")):
+        r64, r1 = res[aligned, 64], res[aligned, 1]
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": "tiresias_tpu_torch/csrc/match.cu",
+            "replaces": "tiresias_tpu/ops/match_pallas.py:566",
+            "max_abs_err": 0.0, "ms": r64["auto"], "plain_ms": r64["plain"],
+            **r64["bound"], "library_ms": None, "library": none,
+            "shape": "B=64 x 1,024 candidates of the 10,112-row catalog x "
+                     "1,024 frames x 2 coefs, tol 0.1",
+            "plain_timing": "one call of the twin, CUDA events",
+            "dense_route_ms": r64["dense"], "index_route_ms": r64["index"],
+            "ms_b1": r1["auto"], "bound_ms_b1": r1["bound"]["bound_ms"],
+            "bands": dict(r64["stats"]),
+        })
+    out.append({
+        "name": "match_votes_aligned_cand_dense", "route": "cuda",
+        "source": "tiresias_tpu_torch/csrc/match.cu",
+        "replaces": "tiresias_tpu/ops/match_pallas.py:566",
+        "max_abs_err": 0.0, "ms": res[True, 64]["dense"],
+        "plain_ms": res[True, 64]["plain"], **res["dense", 64],
+        "plain_timing": "one call of the twin, CUDA events",
+        "library_ms": None, "library": none,
+        "shape": "every (query, candidate) item: B=64 x 1,024 candidates x "
+                 "1,024 frames x 2 coefs (the candidate form's forced "
+                 "dense route, both kernels)",
+        "ms_b1": res[True, 1]["dense"],
+    })
+    return out
 
 
 def phase_ingest(device, cfg, media: str) -> float:
@@ -976,7 +1292,10 @@ def phase_catalog(device, cfg, starts: dict):
 
 
 def phase_search(device, eng, queries):
-    """Time the searches: batch 1 and batch 64 at tol 0.001 and 1.0."""
+    """Time the searches: batch 1 and batch 64 at tol 0.001 and 1.0, each
+    through the engine's own dispatch (the certified dialplan prefilter
+    where its gate admits the view) and with every gate closed (the full
+    scan), in turns; TIR* must be equal between the two."""
     import torch
 
     results = {}
@@ -984,45 +1303,81 @@ def phase_search(device, eng, queries):
     eng.search_pcm_batch(None, queries[:1], SR)  # value-map build
     torch.cuda.synchronize(device)
     first_s = time.perf_counter() - t0
-    lat = {1: [], 64: []}
-    for tol in (0.001, 1.0):
+    notes = pf_notes(eng)
+    fb0 = fallbacks()
+    (view,) = eng.store.search_views()
+    admitted = eng._lattice_pf_ok(view, 0.001)
+    paths = ("prefilter", "full")
+    lat = {(p, b): [] for p in paths for b in (1, 64)}
+
+    def run(path, tol):
         res = []
         for lo in range(0, len(queries), 64):
             t1 = time.perf_counter()
             res += eng.search_pcm_batch(None, queries[lo : lo + 64], SR,
                                         tolerance=tol)
             if lo + 64 <= len(queries):
-                lat[64].append((time.perf_counter() - t1) / 64)
+                lat[path, 64].append((time.perf_counter() - t1) / 64)
         for _ in range(10):
             t1 = time.perf_counter()
             eng.search_pcm_batch(None, queries[:64], SR, tolerance=tol)
-            lat[64].append((time.perf_counter() - t1) / 64)
+            lat[path, 64].append((time.perf_counter() - t1) / 64)
         single = []
         for q in queries:
             t1 = time.perf_counter()
             single.append(eng.search_pcm(None, q, SR, tolerance=tol))
-            lat[1].append(time.perf_counter() - t1)
+            lat[path, 1].append(time.perf_counter() - t1)
         if [r.to_channel_vars() for r in single] != [
                 r.to_channel_vars() for r in res]:
-            fail(f"batch-1 and batch-64 TIR* differ at tol {tol}")
-        results[tol] = res
-    p50 = {b: 1e3 * float(np.median(v)) for b, v in lat.items()}
-    dev_ms = {
-        1: device_ms(lambda: eng.search_pcm(None, queries[0], SR), reps=10),
-        64: device_ms(lambda: eng.search_pcm_batch(None, queries[:64], SR),
-                      reps=5) / 64,
-    }
-    say(f"[search] device time {dev_ms[1]:.4f} ms/query at batch 1 "
-        f"({100 * dev_ms[1] / p50[1]:.1f}% of the p50 wall time), "
-        f"{dev_ms[64]:.4f} ms/query at batch 64 "
-        f"({100 * dev_ms[64] / p50[64]:.1f}%)")
+            fail(f"[search] {path}: batch-1 and batch-64 TIR* differ at tol "
+                 f"{tol}")
+        return res
+
+    for i, tol in enumerate((0.001, 1.0)):
+        got = {}
+        for path in paths[:: 1 - 2 * i]:  # in turns: pf, full, full, pf
+            if path == "full":
+                with gates_closed():
+                    got[path] = run(path, tol)
+            else:
+                got[path] = run(path, tol)
+        if [r.to_channel_vars() for r in got["prefilter"]] != [
+                r.to_channel_vars() for r in got["full"]]:
+            fail(f"[search] prefiltered and full-scan TIR* differ at tol "
+                 f"{tol}")
+        results[tol] = got["prefilter"]
+    p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+    dev_ms = {}
+    for path in paths:
+        with (gates_closed() if path == "full" else contextlib.nullcontext()):
+            dev_ms[path, 1] = device_ms(
+                lambda: eng.search_pcm(None, queries[0], SR), reps=10)
+            dev_ms[path, 64] = device_ms(
+                lambda: eng.search_pcm_batch(None, queries[:64], SR),
+                reps=5) / 64
+    for path in paths:
+        say(f"[search] {path}: device time {dev_ms[path, 1]:.4f} ms/query at "
+            f"batch 1 ({100 * dev_ms[path, 1] / p50[path, 1]:.1f}% of the p50 "
+            f"wall time), {dev_ms[path, 64]:.4f} ms/query at batch 64 "
+            f"({100 * dev_ms[path, 64] / p50[path, 64]:.1f}%); p50 "
+            f"{p50[path, 1]:.4f} ms/query at batch 1, {p50[path, 64]:.4f} "
+            f"ms/query at batch 64")
     found = sum(r.found for r in results[1.0][:N_EXCERPTS])
+    cert, miss = notes.get("lattice", [0, 0])
     say(f"[search] {len(queries)} queries ({N_EXCERPTS} excerpts + "
         f"{N_NOISE} silence/noise) x tol {{0.001, 1.0}}; first search "
-        f"(value-map build) {first_s:.3f} s; p50 {p50[1]:.4f} "
-        f"ms/query at batch 1, {p50[64]:.4f} ms/query at batch 64; "
-        f"excerpts FOUND at tol 1.0: {found}/{N_EXCERPTS}")
-    return results, p50
+        f"(value-map build) {first_s:.3f} s; excerpts FOUND at tol 1.0: "
+        f"{found}/{N_EXCERPTS}; TIR* equal prefiltered and full scan")
+    say(f"[search] dialplan prefilter: {cert} searches certified, {miss} fell "
+        f"back to the full scan (search.prefilter_fallbacks "
+        f"+{fallbacks() - fb0:.0f}); gate misses now {dict(eng._pf_misses)}")
+    if admitted and cert + miss == 0:
+        fail("[search] the dialplan prefilter's gate admits the catalog's "
+             "view but no search took it")
+    return results, {k: p50[("prefilter", k)] for k in (1, 64)}, {
+        "p50": {f"{p}_b{b}": v for (p, b), v in p50.items()},
+        "device_ms": {f"{p}_b{b}": v for (p, b), v in dev_ms.items()},
+        "certified": cert, "fell_back": miss}
 
 
 def phase_verify(device, eng, queries, results):
@@ -1074,10 +1429,7 @@ def phase_verify(device, eng, queries, results):
         f"{len(queries)} queries x 2 tolerances; query fingerprints within "
         f"{err} dB of the twin ({ratio:.3f}x bound); every excerpt FOUND at "
         f"tol 1.0 with >= frame_count - 1 votes")
-    db = [eng.store.get_fingerprint(e.uuid)[:, 0] for e in eng.store.entries]
-    db0 = np.full((len(db), max(len(d) for d in db)), np.nan, np.float32)
-    for a, d in enumerate(db):
-        db0[a, : len(d)] = d
+    db0 = host_coefs(eng.store)[0]
     t0 = time.perf_counter()
     qfp0 = qfp[..., 0].cpu().numpy()
     for tol, res in results.items():
@@ -1090,12 +1442,12 @@ def phase_verify(device, eng, queries, results):
             if (r.name, r.match_count, r.frame_count) != (*want, len(q0)):
                 fail(f"query {i} tol {tol}: engine {r} != brute force {want}")
     say(f"[verify] engine TIR* == a brute-force numpy search over all "
-        f"{len(db)} tracks for {len(queries)} queries x 2 tolerances "
+        f"{len(db0)} tracks for {len(queries)} queries x 2 tolerances "
         f"({time.perf_counter() - t0:.1f} s)")
     return vm, qfp[..., 0].contiguous(), valid
 
 
-def phase_lattice_real(vm, q0, valid) -> None:
+def phase_lattice_real(vm, q0, valid) -> dict:
     """K3' on the traffic the engine sends: the catalog's own value map and
     the histograms of the search queries (64 excerpts + 8 silence/noise) at
     batch 64 and 1, and one long query (every query's frames in one row,
@@ -1136,64 +1488,145 @@ def phase_lattice_real(vm, q0, valid) -> None:
             timed(f"K3' lattice_votes real {name}",
                   lambda: ml.hit_votes(counts, vm, 1.0, bound),
                   lambda: ml.lattice_votes_reference(counts, vm, 1.0))
+    # the dialplan prefilter on the same traffic: K3'-u8 against the
+    # catalog's quantized map, then the ops-level prefiltered and full-scan
+    # votes in turns, and the two steps that are library calls
+    vmq = ml.quantize_value_map(vm)
+    for name, (counts, bound) in cases.items():
+        for tol in (0.001, 1.0):
+            thr = ml.bound_threshold(None, tol)
+            if not torch.equal(ml.hit_votes(counts, vmq, thr, bound),
+                               ml.lattice_votes_reference(counts, vmq, thr)):
+                fail(f"K3'-u8 != twin on real histograms {name} tol {tol}")
+    say(f"[kernels] K3'-u8 lattice_votes_u8 real B=72/B=64/B=1/long x "
+        f"[{vmq.shape[0]}, 640] uint8: votes exact at tol 0.001 and 1.0")
+    inf = float("inf")
+    for b in (64, 1):
+        qb, vb = q0[:b], valid[:b]
+        for tol in (0.001, 1.0):
+            _, cert = ml.lattice_prefiltered_votes(vm, vmq, qb, vb, tol, -inf,
+                                                   inf)
+            t_pf, t_full = [], []
+            for fn, acc in ((lambda: ml.lattice_votes(vm, qb, vb, tol, -inf,
+                                                      inf), t_full),
+                            (lambda: ml.lattice_prefiltered_votes(
+                                vm, vmq, qb, vb, tol, -inf, inf), t_pf),
+                            (lambda: ml.lattice_prefiltered_votes(
+                                vm, vmq, qb, vb, tol, -inf, inf), t_pf),
+                            (lambda: ml.lattice_votes(vm, qb, vb, tol, -inf,
+                                                      inf), t_full)):
+                acc.append(device_ms(fn, 10))
+            say(f"[prefilter] dialplan ops B={b} tol {tol}: prefiltered "
+                f"{float(np.median(t_pf))} ms (K3'-u8 bound, top-256, "
+                f"rescore), full scan {float(np.median(t_full))} ms, device; "
+                f"certified {int(cert.sum())}/{b}")
+    c = ml.histogram(q0[:N_EXCERPTS], valid[:N_EXCERPTS], -inf, inf)
+    bound64 = ml.hit_votes(c, vmq, ml.bound_threshold(None, 1.0), f)
+    idx, _ = ml.select_candidates(bound64, ml.LATTICE_PREFILTER_K)
+    library = {
+        f"rescore_rows {list(idx.shape) + [vm.shape[1]]}": device_ms(
+            lambda: ml.rescore_rows(vm, c, idx, 1.0)),
+    }
+    library.update(topk_ms(bound64))
+    for name, ms in library.items():
+        say(f"[library] {name}: device {ms} ms")
+    return library
 
 
 def phase_strict(device, eng, queries):
     """The strict path on the restored catalog: each STRICT_MODES entry
-    through ``search_pcm_batch`` (batch 64) and ``search_pcm`` (batch 1).
-    Every excerpt must be FOUND with >= frame_count - 1 votes."""
+    through ``search_pcm_batch`` (batch 64) and ``search_pcm`` (batch 1),
+    through the engine's own dispatch (the certified strict/aligned
+    prefilter where its gate admits the view) and with every gate closed
+    (the full scan), in turns; TIR* equal between the two, and every
+    excerpt FOUND with >= frame_count - 1 votes."""
     import torch
 
-    results, p50 = {}, {}
-    for mode, kw in STRICT_MODES.items():
+    results, p50, info = {}, {}, {}
+    notes = pf_notes(eng)
+    paths = ("prefilter", "full")
+    (view,) = eng.store.search_views()
+    for i, (mode, kw) in enumerate(STRICT_MODES.items()):
         eng.search_pcm_batch(None, queries[:1], SR, tolerance=STRICT_TOL,
                              **kw)
         torch.cuda.synchronize(device)
-        lat = {1: [], 64: []}
-        res = []
-        for lo in range(0, len(queries), 64):
-            t1 = time.perf_counter()
-            res += eng.search_pcm_batch(None, queries[lo : lo + 64], SR,
-                                        tolerance=STRICT_TOL, **kw)
-            if lo + 64 <= len(queries):
-                lat[64].append((time.perf_counter() - t1) / 64)
-        for _ in range(5):
-            t1 = time.perf_counter()
-            eng.search_pcm_batch(None, queries[:64], SR,
-                                 tolerance=STRICT_TOL, **kw)
-            lat[64].append((time.perf_counter() - t1) / 64)
-        single = []
-        for q in queries:
-            t1 = time.perf_counter()
-            single.append(eng.search_pcm(None, q, SR, tolerance=STRICT_TOL,
-                                         **kw))
-            lat[1].append(time.perf_counter() - t1)
-        if [r.to_channel_vars() for r in single] != [
-                r.to_channel_vars() for r in res]:
-            fail(f"[strict] {mode}: batch-1 and batch-64 TIR* differ")
+        admitted = eng._strict_pf_ok(view, 2, STRICT_TOL, 1,
+                                     bool(kw.get("aligned")))
+        lat = {(p, b): [] for p in paths for b in (1, 64)}
+        got, dev = {}, {}
+        before = {m: list(v) for m, v in notes.items()}
+        fb0 = fallbacks()
+        for path in paths[:: 1 - 2 * (i % 2)]:
+            with (gates_closed() if path == "full"
+                  else contextlib.nullcontext()):
+                res = []
+                for lo in range(0, len(queries), 64):
+                    t1 = time.perf_counter()
+                    res += eng.search_pcm_batch(None, queries[lo : lo + 64],
+                                                SR, tolerance=STRICT_TOL,
+                                                **kw)
+                    if lo + 64 <= len(queries):
+                        lat[path, 64].append((time.perf_counter() - t1) / 64)
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    eng.search_pcm_batch(None, queries[:64], SR,
+                                         tolerance=STRICT_TOL, **kw)
+                    lat[path, 64].append((time.perf_counter() - t1) / 64)
+                single = []
+                for q in queries:
+                    t1 = time.perf_counter()
+                    single.append(eng.search_pcm(None, q, SR,
+                                                 tolerance=STRICT_TOL, **kw))
+                    lat[path, 1].append(time.perf_counter() - t1)
+                if [r.to_channel_vars() for r in single] != [
+                        r.to_channel_vars() for r in res]:
+                    fail(f"[strict] {mode} {path}: batch-1 and batch-64 TIR* "
+                         f"differ")
+                got[path] = res
+                dev[path, 1] = device_ms(lambda: eng.search_pcm(
+                    None, queries[0], SR, tolerance=STRICT_TOL, **kw),
+                    reps=10)
+                dev[path, 64] = device_ms(lambda: eng.search_pcm_batch(
+                    None, queries[:64], SR, tolerance=STRICT_TOL, **kw),
+                    reps=3) / 64
+        if [r.to_channel_vars() for r in got["prefilter"]] != [
+                r.to_channel_vars() for r in got["full"]]:
+            fail(f"[strict] {mode}: prefiltered and full-scan TIR* differ")
+        res = got["prefilter"]
         found = sum(r.found and r.match_count >= r.frame_count - 1
                     for r in res[:N_EXCERPTS])
         if found != N_EXCERPTS:
             fail(f"[strict] {mode}: only {found}/{N_EXCERPTS} excerpts FOUND "
                  f"with >= frame_count - 1 votes")
-        p50[mode] = {b: 1e3 * float(np.median(v)) for b, v in lat.items()}
-        dev = {
-            1: device_ms(lambda: eng.search_pcm(
-                None, queries[0], SR, tolerance=STRICT_TOL, **kw), reps=10),
-            64: device_ms(lambda: eng.search_pcm_batch(
-                None, queries[:64], SR, tolerance=STRICT_TOL, **kw),
-                reps=3) / 64,
-        }
-        say(f"[strict] {mode} {kw} tol {STRICT_TOL}: p50 "
-            f"{p50[mode][1]:.4f} ms/query at batch 1 (device "
-            f"{dev[1]:.4f} ms, {100 * dev[1] / p50[mode][1]:.1f}%), "
-            f"{p50[mode][64]:.4f} ms/query at batch 64 (device "
-            f"{dev[64]:.4f} ms, {100 * dev[64] / p50[mode][64]:.1f}%); "
-            f"excerpts FOUND with >= frame_count - 1 votes: "
+        pf_mode = "aligned" if kw.get("aligned") else "bag"
+        cert, miss = (a - b for a, b in zip(notes.get(pf_mode, [0, 0]),
+                                            before.get(pf_mode, [0, 0])))
+        if admitted and cert + miss == 0:
+            fail(f"[strict] {mode}: the prefilter's gate admits the view but "
+                 f"no search took it")
+        pm = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+        p50[mode] = {b: pm["prefilter", b] for b in (1, 64)}
+        for path in paths:
+            say(f"[strict] {mode} {kw} tol {STRICT_TOL} {path}: p50 "
+                f"{pm[path, 1]:.4f} ms/query at batch 1 (device "
+                f"{dev[path, 1]:.4f} ms, "
+                f"{100 * dev[path, 1] / pm[path, 1]:.1f}%), "
+                f"{pm[path, 64]:.4f} ms/query at batch 64 (device "
+                f"{dev[path, 64]:.4f} ms, "
+                f"{100 * dev[path, 64] / pm[path, 64]:.1f}%)")
+        say(f"[strict] {mode}: excerpts FOUND with >= frame_count - 1 votes: "
             f"{found}/{N_EXCERPTS}; noise/silence FOUND: "
-            f"{sum(r.found for r in res[N_EXCERPTS:])}/{N_NOISE}")
+            f"{sum(r.found for r in res[N_EXCERPTS:])}/{N_NOISE}; TIR* equal "
+            f"prefiltered and full scan; {pf_mode} prefilter: {cert} searches "
+            f"certified, {miss} fell back (search.prefilter_fallbacks "
+            f"+{fallbacks() - fb0:.0f})")
         results[mode] = res
-    return results, p50
+        info[mode] = {"p50": {f"{p}_b{b}": v for (p, b), v in pm.items()},
+                      "device_ms": {f"{p}_b{b}": v
+                                    for (p, b), v in dev.items()},
+                      "certified": cert, "fell_back": miss}
+    say(f"[strict] gate misses now {dict(eng._pf_misses)}")
+    return results, p50, info
 
 
 def phase_verify_strict(device, eng, queries, results) -> None:
@@ -1238,17 +1671,15 @@ def phase_verify_strict(device, eng, queries, results) -> None:
                          f"twin {want}")
     say(f"[verify] [strict] engine TIR* == plain-twin TIR* on the same "
         f"tensors for {len(queries)} queries x {len(STRICT_MODES)} modes")
-    fps = [eng.store.get_fingerprint(e.uuid) for e in eng.store.entries]
-    db = np.full((len(fps), max(len(x) for x in fps), 2), np.nan, np.float32)
-    for a, x in enumerate(fps):
-        db[a, : len(x)] = x[:, :2]
+    d0, d1 = host_coefs(eng.store)
     qfp = qfp.cpu().numpy()
     picks = [0, N_EXCERPTS // 2, N_EXCERPTS - 1, N_EXCERPTS + N_NOISE - 1]
     t0 = time.perf_counter()
     for i in picks[:N_STRICT_BRUTE]:
         qi = qfp[i, : n_frames[i], :2]
+        both = brute_force_strict(d0, d1, qi, STRICT_TOL)
         for aligned in (False, True):
-            votes = brute_force_strict(db, qi, STRICT_TOL, aligned)
+            votes = both[aligned]
             best = int(np.argmax(votes))  # lowest index among the maxima
             v1 = int(votes[best])
             v2 = int(np.delete(votes, best).max(initial=0))
@@ -1261,7 +1692,7 @@ def phase_verify_strict(device, eng, queries, results) -> None:
                     fail(f"[strict] {mode} query {i}: engine {r} != brute "
                          f"force {want}")
     say(f"[verify] [strict] engine TIR* == a brute-force numpy search over "
-        f"all {len(fps)} tracks for {N_STRICT_BRUTE} queries x "
+        f"all {len(d0)} tracks for {N_STRICT_BRUTE} queries x "
         f"{len(STRICT_MODES)} modes ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1630,10 +2061,7 @@ def phase_serve(device, eng, cfg, queries) -> dict:
     qfp = fingerprint_padded_batch(padded, SR, cfg.dsp,
                                    device=device).cpu().numpy()
     names = [e.name for e in eng.store.entries]
-    fps = [eng.store.get_fingerprint(e.uuid) for e in eng.store.entries]
-    db = np.full((len(fps), max(len(x) for x in fps), 2), np.nan, np.float32)
-    for a, x in enumerate(fps):
-        db[a, : len(x)] = x[:, :2]
+    d0, d1 = host_coefs(eng.store)
     t0 = time.perf_counter()
     for mode, kw in (("dialplan", dial), ("aligned", SERVE_ALIGNED)):
         for i in range(2):
@@ -1645,9 +2073,9 @@ def phase_serve(device, eng, cfg, queries) -> dict:
                 fail(f"[serve] top-5 {mode} query {i}: server "
                      f"{ranked_vars(ranked)} != search_pcm_topk {want}")
             qi = qfp[i, : n_frames[i], :2]
-            votes = (brute_force_votes(db[..., 0], qi[:, 0], kw["tolerance"])
+            votes = (brute_force_votes(d0, qi[:, 0], kw["tolerance"])
                      if mode == "dialplan"
-                     else brute_force_strict(db, qi, STRICT_TOL, True))
+                     else brute_force_strict(d0, d1, qi, STRICT_TOL)[1])
             # D5: votes descending, then insertion order (a stable sort)
             order = np.argsort(-votes, kind="stable")[:5]
             brute = [(names[a], int(votes[a]), len(qi)) for a in order
@@ -1722,6 +2150,190 @@ def phase_serve(device, eng, cfg, queries) -> dict:
     return served
 
 
+def phase_prefilter(device, tmp: str) -> dict:
+    """The certified prefilters at N_PF_TRACKS tracks (102,400 rows at tier
+    1,024): a read-only engine (never checkpointed) grows its catalog by
+    fingerprinting seeded 30 s tracks as phase_catalog does, builds its
+    maps, then runs dialplan searches at batch 64 and 1 and strict bag and
+    aligned searches at batch 64, each through the engine's dispatch
+    (prefiltered; the adaptive gate is reset before each run, so every
+    search tries the prefilter) and with every gate closed (full scan), in
+    turns: certificate counts, device ms and wall p50 of both, TIR* equal
+    between them, and a numpy brute force over every stored track for 2
+    queries per mode."""
+    import torch
+
+    from tiresias_tpu_torch import ContextConfig, TiresiasConfig
+    from tiresias_tpu_torch.api import Tiresias
+    from tiresias_tpu_torch.ops.mfcc import fingerprint_signals
+
+    cfg = TiresiasConfig(contexts=(ContextConfig("media", ""),),
+                         data_dir=os.path.join(tmp, "prefilter_data"))
+    eng = Tiresias(cfg, restore=False, exclusive=False)
+    rng = np.random.default_rng(107)
+    picks = np.linspace(0, N_PF_TRACKS - 1, N_PF_QUERIES).astype(int)
+    starts = {int(t): HOP * int(rng.integers(1, (TRACK_S * SR - EXCERPT)
+                                              // HOP)) for t in picks}
+    excerpts = {}
+    t0 = time.perf_counter()
+    for lo in range(0, N_PF_TRACKS, 512):
+        n = min(512, N_PF_TRACKS - lo)
+        pcm = synth_tracks(n, TRACK_S, 5000 + lo, device).cpu().numpy()
+        fps, n_frames = fingerprint_signals(list(pcm), SR, cfg.dsp,
+                                            device=device)
+        for i in range(n):
+            track = lo + i
+            eng.store.add_audio(f"pf{track:06d}.wav", "media",
+                                fps[i, : n_frames[i]], f"pf-{track}")
+            if track in starts:
+                s = starts[track]
+                excerpts[track] = pcm[i, s : s + EXCERPT].copy()
+    grow_s = time.perf_counter() - t0
+    queries = [excerpts[t] for t in sorted(starts)]
+    store = eng.store
+    t0 = time.perf_counter()
+    (view,) = store.search_views()
+    store.value_map_q_for(view)
+    store.bound_maps_for(view, 2)
+    store.match_index_for(view)
+    torch.cuda.synchronize(device)
+    maps_s = time.perf_counter() - t0
+    index_bytes = (view.match_index.entries.numel() * 4
+                   + view.match_index.pos.numel() * 2)
+    say(f"[prefilter] catalog of {len(store)} tracks ({view.db.shape[0]} "
+        f"rows x {view.tier_frames} frames) grown in {grow_s:.3f} s; view, "
+        f"value map, uint8 map, bound maps and match index built in "
+        f"{maps_s:.3f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated(device)} B (db "
+        f"{view.db.numel() * 4} B, f32 map {view.value_map.numel() * 4} B, "
+        f"u8 map {view.value_map_q.numel()} B, bound maps "
+        f"{sum(m.numel() for m in next(iter(view.bound_maps.values()))[1])} "
+        f"B, index {index_bytes} B)")
+    from tiresias_tpu_torch.ops import match_lattice as ml
+    from tiresias_tpu_torch.ops.mfcc import (
+        fingerprint_padded_batch,
+        pad_frames_bucket,
+    )
+
+    padded, n_frames = pad_frames_bucket(queries, HOP)
+    qfp = fingerprint_padded_batch(padded, SR, cfg.dsp, device=device)
+    valid = (torch.arange(qfp.shape[1], device=device)[None, :]
+             < torch.from_numpy(n_frames.astype(np.int64)).to(device)[:, None])
+    inf = float("inf")
+    c = ml.histogram(qfp[..., 0].contiguous(), valid, -inf, inf)
+    bound100k = ml.hit_votes(c, view.value_map_q,
+                             ml.bound_threshold(None, 0.001), qfp.shape[1])
+    library = topk_ms(bound100k)
+    idx, _ = ml.select_candidates(bound100k, ml.LATTICE_PREFILTER_K)
+    library[f"rescore_rows {list(idx.shape) + [view.value_map.shape[1]]}"] = (
+        device_ms(lambda: ml.rescore_rows(view.value_map, c, idx, 0.001)))
+    library[f"K3'-u8 bound scan {list(bound100k.shape)}"] = device_ms(
+        lambda: ml.hit_votes(c, view.value_map_q,
+                             ml.bound_threshold(None, 0.001), qfp.shape[1]))
+    library[f"K3' full scan {list(bound100k.shape)}"] = device_ms(
+        lambda: ml.hit_votes(c, view.value_map, 0.001, qfp.shape[1]))
+    for name, ms in library.items():
+        say(f"[prefilter] {name}: device {ms} ms")
+    del bound100k, c
+    notes = pf_notes(eng)
+    cells = (("dialplan", {"coefs": 1, "tolerance": 0.001}, "lattice", 64),
+             ("dialplan", {"coefs": 1, "tolerance": 0.001}, "lattice", 1),
+             ("dialplan", {"coefs": 1, "tolerance": 1.0}, "lattice", 64),
+             ("bag", dict(STRICT_MODES["bag"], tolerance=STRICT_TOL), "bag",
+              64),
+             ("aligned", dict(STRICT_MODES["aligned"], tolerance=STRICT_TOL),
+              "aligned", 64))
+    out = {"tracks": len(store), "rows": int(view.db.shape[0]),
+           "grow_s": grow_s, "maps_s": maps_s, "library_ms": library}
+    results = {}
+    for name, kw, pf_mode, b in cells:
+        batches = ([queries] if b == 64 else [[q] for q in queries[:16]])
+        lat = {"prefilter": [], "full": []}
+        got = {}
+        cert0 = list(notes.get(pf_mode, [0, 0]))
+        fb0 = fallbacks()
+        dev = {"prefilter": [], "full": []}
+        for path in ("prefilter", "full", "full", "prefilter"):
+            with (gates_closed() if path == "full"
+                  else contextlib.nullcontext()):
+                res = []
+                for batch in batches:
+                    eng._pf_misses.clear()  # every search tries it
+                    t1 = time.perf_counter()
+                    res += eng.search_pcm_batch(None, batch, SR, **kw)
+                    lat[path].append((time.perf_counter() - t1) / len(batch))
+                if path in got and [r.to_channel_vars() for r in res] != [
+                        r.to_channel_vars() for r in got[path]]:
+                    fail(f"[prefilter] {name} B={b}: {path} TIR* changed "
+                         f"between runs")
+                got[path] = res
+                eng._pf_misses.clear()  # 5 searches: under the 8 misses
+                dev[path].append(device_ms(
+                    lambda: eng.search_pcm_batch(None, batches[0], SR, **kw),
+                    reps=3) / b)
+        if [r.to_channel_vars() for r in got["prefilter"]] != [
+                r.to_channel_vars() for r in got["full"]]:
+            fail(f"[prefilter] {name} {kw} B={b}: prefiltered and full-scan "
+                 f"TIR* differ")
+        cert, miss = (a - c for a, c in zip(notes.get(pf_mode, [0, 0]),
+                                            cert0))
+        if cert + miss == 0:
+            fail(f"[prefilter] {name} B={b}: no search took the prefilter")
+        p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+        turns = {k: list(v) for k, v in dev.items()}
+        dev = {k: float(np.median(v)) for k, v in dev.items()}
+        found = sum(r.found for r in got["prefilter"])
+        say(f"[prefilter] {name} {kw} B={b}: prefiltered p50 "
+            f"{p50['prefilter']:.4f} ms/query wall, device "
+            f"{dev['prefilter']:.4f} ms/query; full scan p50 "
+            f"{p50['full']:.4f} ms/query wall, device {dev['full']:.4f} "
+            f"ms/query (turns: prefiltered {turns['prefilter']}, full "
+            f"{turns['full']}); certified {cert}, fell back {miss} (per search "
+            f"call; "
+            f"search.prefilter_fallbacks +{fallbacks() - fb0:.0f}); "
+            f"FOUND {found}/{len(got['prefilter'])}; TIR* equal")
+        out[f"{name} tol {kw['tolerance']} B={b}"] = {
+            "p50": p50, "device_ms": dev, "certified": cert,
+            "fell_back": miss, "found": found}
+        results[name, kw["tolerance"], b] = got["prefilter"]
+    # the numpy brute force over every stored track, 2 queries per mode
+    t0 = time.perf_counter()
+    d0, d1 = host_coefs(store)
+    qfp = qfp.cpu().numpy()
+    names = [e.name for e in store.entries]
+    checked = 0
+    for i in (0, N_PF_QUERIES // 2):
+        qi = qfp[i, : n_frames[i], :2]
+        for tol in (0.001, 1.0):
+            votes = brute_force_votes(d0, qi[:, 0], tol)
+            best = int(np.argmax(votes))
+            want = ((names[best], int(votes[best])) if votes[best] > 0
+                    else (None, 0))
+            r = results["dialplan", tol, 64][i]
+            if (r.name, r.match_count) != want:
+                fail(f"[prefilter] dialplan tol {tol} query {i}: engine {r} "
+                     f"!= brute force {want}")
+            checked += 1
+        both = brute_force_strict(d0, d1, qi, STRICT_TOL)
+        for mode, votes in (("bag", both[0]), ("aligned", both[1])):
+            best = int(np.argmax(votes))
+            want = ((names[best], int(votes[best])) if votes[best] > 0
+                    else (None, 0))
+            r = results[mode, STRICT_TOL, 64][i]
+            if (r.name, r.match_count) != want:
+                fail(f"[prefilter] {mode} query {i}: engine {r} != brute "
+                     f"force {want}")
+            checked += 1
+    say(f"[verify] [prefilter] engine TIR* == a brute-force numpy search "
+        f"over all {len(d0)} tracks for 2 queries x (dialplan at tol 0.001 "
+        f"and 1.0, bag, aligned): {checked} checks "
+        f"({time.perf_counter() - t0:.1f} s)")
+    eng.close()
+    del eng, store, view
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_cli(device, tmp: str) -> None:
     """``python3 -m tiresias_tpu_torch.cli`` in subprocesses against a
     small data directory: create, show contexts, search (one file, and
@@ -1774,26 +2386,55 @@ def phase_cli(device, tmp: str) -> None:
         f"on the card, {time.perf_counter() - t0:.1f} s in 5 processes")
 
 
-def brute_force_strict(db: np.ndarray, q: np.ndarray, tol: float,
-                       aligned: bool) -> np.ndarray:
+def _strict_block(d0: np.ndarray, d1: np.ndarray, q: np.ndarray,
+                  tol: np.float32):
+    a, t = d0.shape
+    f = len(q)
+    bag = np.zeros(a, np.int64)
+    acc = np.zeros((a, t + f - 1), np.int32)
+    x = np.empty_like(d0)
+    ok, ok1 = np.empty(d0.shape, bool), np.empty(d0.shape, bool)
+    for fi in range(f):
+        np.less_equal(np.abs(np.subtract(d0, q[fi, 0], out=x), out=x), tol,
+                      out=ok)
+        np.less_equal(np.abs(np.subtract(d1, q[fi, 1], out=x), out=x), tol,
+                      out=ok1)
+        ok &= ok1
+        bag += ok.any(axis=1)
+        acc[:, f - 1 - fi : f - 1 - fi + t] += ok
+    return bag, acc.max(axis=1).astype(np.int64)
+
+
+def brute_force_strict(d0: np.ndarray, d1: np.ndarray, q: np.ndarray,
+                       tol: float, workers: int = 8):
     """Strict search written out over every stored frame, band filter off:
     query frame ``f`` matches stored frame ``t`` of track ``a`` when both
-    coefficients lie within ``tol`` (float32). Bag: one vote per frame with
-    any match; aligned: the best offset ``t - f``'s match count. ``db`` is
-    ``[tracks, frames, 2]`` with NaN past each track's end."""
+    coefficients lie within ``tol`` (float32). Returns (bag votes: one per
+    frame with any match; aligned votes: the best offset ``t - f``'s match
+    count). ``d0``/``d1`` are ``[tracks, frames]`` with NaN past each
+    track's end; row blocks run on threads (numpy's loops release the
+    interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     tol = np.float32(tol)
-    a, t, _ = db.shape
-    f = len(q)
-    votes = np.zeros(a, np.int64)
-    acc = np.zeros((a, t + f - 1), np.int32) if aligned else None
-    for fi in range(f):
-        ok = (np.abs(db[..., 0] - q[fi, 0]) <= tol) & (
-            np.abs(db[..., 1] - q[fi, 1]) <= tol)
-        if aligned:
-            acc[:, f - 1 - fi : f - 1 - fi + t] += ok
-        else:
-            votes += ok.any(axis=1)
-    return acc.max(axis=1).astype(np.int64) if aligned else votes
+    step = -(-len(d0) // workers)
+    with ThreadPoolExecutor(workers) as ex:
+        parts = list(ex.map(
+            lambda lo: _strict_block(d0[lo : lo + step], d1[lo : lo + step],
+                                     q, tol), range(0, len(d0), step)))
+    return tuple(np.concatenate([p[i] for p in parts]) for i in (0, 1))
+
+
+def host_coefs(store) -> tuple:
+    """Coefficients 0 and 1 of every stored track in catalog order, as two
+    contiguous ``[tracks, frames]`` float32 arrays with NaN past each
+    track's end (never within any tolerance)."""
+    fps = [store.get_fingerprint(e.uuid) for e in store.entries]
+    out = np.full((2, len(fps), max(len(x) for x in fps)), np.nan,
+                  np.float32)
+    for a, x in enumerate(fps):
+        out[:, a, : len(x)] = x[:, :2].T
+    return out[0], out[1]
 
 
 def brute_force_votes(db0: np.ndarray, q0: np.ndarray, tol: float):
@@ -1818,9 +2459,15 @@ def run(device) -> dict:
     from tiresias_tpu_torch.ops import match_kernels as tk
     from tiresias_tpu_torch.utils import build
 
+    t_start = time.perf_counter()
+
+    def took(label: str) -> None:
+        say(f"[time] {label} done at {time.perf_counter() - t_start:.1f} s")
+
     card = phase_card(device)
     phase_build()
     kernels = phase_kernels(device, TiresiasConfig().dsp)
+    took("[kernels]")
     tmp = tempfile.mkdtemp(prefix="tiresias_chip_smoke_")
     try:
         media = os.path.join(tmp, "media")
@@ -1839,6 +2486,7 @@ def run(device) -> dict:
         build.reset_launch_counts()  # --- the main path starts here ---
         rate = phase_ingest(device, cfg, media)
         eng, excerpts = phase_catalog(device, cfg, starts)
+        took("[ingest] and [catalog]")
         queries = [excerpts[t] for t in starts]
         queries += [np.zeros(EXCERPT, np.int16)] * (N_NOISE // 2)
         queries += [
@@ -1847,27 +2495,33 @@ def run(device) -> dict:
         ]
         run_peak = torch.cuda.max_memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        results, p50 = phase_search(device, eng, queries)
+        results, p50, search_info = phase_search(device, eng, queries)
         torch.cuda.synchronize(device)
         launches = dict(build.LAUNCHES)  # --- the main path ends here ---
         search_peak = torch.cuda.max_memory_allocated(device)
         say(f"[search] max_memory_allocated {search_peak} B during the "
             f"searches, {max(run_peak, search_peak)} B over the run")
-        for name in ("mfcc_rows", "mfcc_framed", "lattice_votes"):
+        for name in ("mfcc_rows", "mfcc_framed", "lattice_votes",
+                     "lattice_votes_u8"):
             if launches[name] <= 0:
                 fail(f"the main path never launched {name}")
         say(f"[launches] main path: {launches}")
-        phase_lattice_real(*phase_verify(device, eng, queries, results))
+        took("[search]")
+        library = phase_lattice_real(*phase_verify(device, eng, queries,
+                                                   results))
+        took("[verify] and the real-histogram kernels")
         torch.cuda.synchronize(device)
         routes0 = tk.route_counts(device).clone()
         build.reset_launch_counts()  # --- the strict path starts here ---
-        strict, strict_p50 = phase_strict(device, eng, queries)
+        strict, strict_p50, strict_info = phase_strict(device, eng, queries)
         torch.cuda.synchronize(device)
         strict_launches = dict(build.LAUNCHES)  # --- and ends here ---
         routes = (tk.route_counts(device) - routes0).tolist()
         match_names = ("match_votes", "match_votes_aligned",
-                       "match_votes_aligned_dense")
-        for name in match_names:
+                       "match_votes_aligned_dense", "match_votes_cand",
+                       "match_votes_aligned_cand",
+                       "match_votes_aligned_cand_dense")
+        for name in match_names + ("lattice_votes_u8",):
             if strict_launches[name] <= 0:
                 fail(f"the strict path never launched {name}")
         if routes[0] <= 0 or routes[2] <= 0:
@@ -1875,24 +2529,37 @@ def run(device) -> dict:
         say(f"[launches] strict path: {strict_launches}; work items (K4 "
             f"index, K4 dense, K5 index, K5 dense): {routes}")
         launches.update({k: strict_launches[k] for k in match_names})
+        launches["lattice_votes_u8"] += strict_launches["lattice_votes_u8"]
+        took("[strict]")
         phase_verify_strict(device, eng, queries, strict)
-        phase_match_real(device, eng, queries)
+        took("[verify] [strict]")
+        kernels += phase_match_real(device, eng, queries)
+        took("the catalog's K4/K5 and candidate forms")
         torch.cuda.synchronize(device)
         build.reset_launch_counts()  # --- the serve path starts here ---
         serve_launches = phase_serve(device, eng, cfg, queries)
-        for name in ("mfcc_rows", "lattice_votes", "match_votes_aligned"):
-            if serve_launches[name] <= 0:
-                fail(f"the serve path never launched {name}")
+        for names in (("mfcc_rows",), ("lattice_votes", "lattice_votes_u8"),
+                      ("match_votes_aligned", "match_votes_aligned_cand")):
+            if sum(serve_launches[n] for n in names) <= 0:
+                fail(f"the serve path never launched {' or '.join(names)}")
         say(f"[launches] serve path: {serve_launches}")
+        took("[serve]")
         eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        prefilter = phase_prefilter(device, tmp)
+        took("[prefilter]")
         phase_cli(device, tmp)
+        took("[cli]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_serve"] = serve_launches[k["name"]]
     return {"kernels": kernels, "card": card["card"], "ingest_rate": rate,
-            "p50": p50, "strict_p50": strict_p50}
+            "p50": p50, "strict_p50": strict_p50,
+            "summary": {"search": search_info, "strict": strict_info,
+                        "library_ms": library, "prefilter": prefilter}}
 
 
 def main() -> int:
@@ -1917,6 +2584,7 @@ def main() -> int:
     out = run(device)
     if "jax" in sys.modules:
         fail("the port imported jax")
+    say(f"[summary] {json.dumps(out['summary'])}")
     say(json.dumps({"kernels": out["kernels"]}))
     say(out["card"])  # name, power limit — as nvidia-smi prints them
     say(json.dumps({"ok": True, "device": device_report(device)}))

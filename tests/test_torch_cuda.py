@@ -223,9 +223,12 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2)
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
                               "mfcc_rows_dft": 0, "mfcc_framed_dft": 0,
-                              "lattice_votes": 1, "match_votes": 1,
-                              "match_votes_aligned": 1,
-                              "match_votes_aligned_dense": 1}
+                              "lattice_votes": 1, "lattice_votes_u8": 0,
+                              "match_votes": 1, "match_votes_aligned": 1,
+                              "match_votes_aligned_dense": 1,
+                              "match_votes_cand": 0,
+                              "match_votes_aligned_cand": 0,
+                              "match_votes_aligned_cand_dense": 0}
     with pytest.raises(ValueError):
         mk.mfcc_rows(torch.zeros((4, 512), device=dev, dtype=torch.float64),
                      consts)
@@ -240,6 +243,36 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
         tk.match_votes_fused(db, q.cpu(), flags.cpu(), flags.cpu(), 0.1, 2)
     with pytest.raises(ValueError):
         tk.match_votes_fused(db.double(), q, flags, flags, 0.1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_size", [640, 768])
+@pytest.mark.parametrize("b", [1, 64, 70])
+def test_lattice_votes_u8_match_twin_exactly(dev, b, k_size):
+    """K3' on a uint8 map (the prefilters' bound scans) == its twin: K 640
+    (the dialplan map) and 768 (the bound maps), counts >= 256 in a bucket
+    (two planes), rows of the 255 sentinel, and thresholds below, at and
+    past the saturation (255), negative and NaN."""
+    g = np.random.default_rng(b + k_size)
+    counts = g.integers(0, 4, (b, k_size)) * (g.random((b, k_size)) < 0.1)
+    counts[0, :5] = [300, 0, 256, 255, 1]
+    vm = g.integers(0, 256, (300, k_size)).astype(np.uint8)
+    vm[[7, 11, 17]] = 255
+    vm[20, :64] = np.arange(64)
+    counts = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    vm = torch.from_numpy(vm).to(dev)
+    build.reset_launch_counts()
+    for thr in (0.0, 0.5, 6.4, 63.99, 64.0, 89.6, 254.0, 254.99, 255.0, 300.0,
+                float("inf"), -1.0, float("nan"),
+                ml.bound_threshold(None, 0.5), ml.bound_threshold(8.0, 0.1)):
+        want = ml.lattice_votes_reference(counts, vm, thr)
+        for max_count in (300, None):
+            got = ml.hit_votes(counts, vm, thr, max_count)
+            assert torch.equal(got, want), (thr, max_count)
+        if thr < 255:
+            assert (got[:, [7, 11, 17]] == 0).all()
+    assert build.LAUNCHES["lattice_votes_u8"] == 30
+    assert build.LAUNCHES["lattice_votes"] == 0
 
 
 def _match_case(dev, seed, rows, t, c, b, f):
@@ -358,6 +391,92 @@ def test_match_kernels_exact_at_edge_values(dev):
                 got = fn(dbt, qq, act, use2, tol, 2, index=index,
                          route=route)
                 assert torch.equal(got, want), (tol, aligned, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("b", [1, 64, 130])
+def test_match_cand_forms_equal_full_kernels(dev, b, aligned):
+    """K4/K5's candidate form == the full kernel's votes at the same rows,
+    on every route: duplicate candidates, the empty row, padding rows of
+    PAD_VALUE, a tombstoned row, ids past the rows (0 votes); a one-chunk
+    tier and one of three index chunks."""
+    full_fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+    name = "match_votes_aligned_cand" if aligned else "match_votes_cand"
+    for rows, t, f in ((200, 256, 24), (40, 5000, 40)):
+        db, q, n_frames = _match_case(dev, 50 + b + t, rows, t, 2,
+                                      max(b, 3), f)
+        db[rows - 8 :] = PAD_VALUE  # padding rows
+        db[5] = PAD_VALUE  # a tombstone
+        q, n_frames = q[:b], n_frames[:b]
+        qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1,
+                                         trunc_coef1=False)
+        index = mi.build_match_index(db)
+        g = torch.Generator(device=dev).manual_seed(b + t)
+        cand = torch.randint(0, rows, (b, 33), generator=g, device=dev,
+                             dtype=torch.int32)
+        cand[:, :6] = torch.tensor([0, 0, 1, 5, rows - 1, 2], device=dev)
+        cand[0, 6] = rows  # past the rows
+        for tol in (0.05, 1.0):
+            full = full_fn(db, qq, act, use2, tol, 2, index=index)
+            want = torch.where(cand < rows,
+                               full.gather(1, cand.clamp(max=rows - 1).long()),
+                               0)
+            for route in ("auto", "dense", "index"):
+                build.reset_launch_counts()
+                got = tk.match_votes_cand(db, qq, act, use2, tol, cand, 2,
+                                          index=index, route=route,
+                                          aligned=aligned)
+                assert torch.equal(got, want), (t, tol, route)
+                assert build.LAUNCHES[name] == 1
+            assert (want[:, 2:4] == 0).all() and (want > 0).any()
+            twin = tk.match_votes_cand_plain(db, qq, act, use2, tol, cand, 2,
+                                             aligned)
+            assert torch.equal(twin, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [False, True])
+def test_prefilters_on_card_equal_full_scans(dev, aligned):
+    """The certified prefilters on the card: certified answers' top-1 (votes
+    and lowest row) equal the full scan's, for the dialplan lattice and the
+    strict bag / aligned search."""
+    g = np.random.default_rng(3)
+    rows, t = 3000, 128
+    mu = g.uniform(-25, 20, (rows, 1, 1)).astype(np.float32)
+    db = (mu + g.normal(0, 1.5, (rows, t, 2))).astype(np.float32)
+    n = g.integers(t // 2, t + 1, rows)
+    db[np.arange(t)[None, :] >= n[:, None]] = PAD_VALUE
+    db = torch.from_numpy(db).to(dev)
+    mask = db[..., 0] != PAD_VALUE
+    q = db[torch.arange(64, device=dev) * 40, 2:50].clone()
+    q[:, :, 1] += 0.01
+    nf = np.full(64, 48)
+    qq, act, use2 = tm.prepare_query(q, nf, -1, -1, trunc_coef1=False)
+    specs, maps = ml.build_bound_maps(db, mask, 2)
+    votes, cert = tk.aligned_prefiltered_votes(
+        db, maps, qq, act, use2, 0.1, specs=specs, coefs=2, k=256,
+        aligned=aligned, index=mi.build_match_index(db))
+    fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+    full = fn(db, qq, act, use2, 0.1, 2)
+    assert cert.float().mean() > 0.5
+    cols = torch.arange(rows, device=dev)
+
+    def top1(v):  # (votes, lowest row among the maxima)
+        m = v.max(dim=1).values
+        return m, torch.where(v == m[:, None], cols, rows).min(dim=1).values
+
+    for got, want in zip(top1(votes), top1(full)):
+        assert torch.equal(got[cert], want[cert])
+    vm = ml.build_value_map(db[..., 0], mask)
+    q0 = torch.trunc(q[..., 0]) + 0.3
+    valid = torch.ones_like(act)
+    lv, lc = ml.lattice_prefiltered_votes(vm, ml.quantize_value_map(vm), q0,
+                                          valid, 0.5, float("-inf"),
+                                          float("inf"))
+    lf = ml.lattice_votes(vm, q0, valid, 0.5, float("-inf"), float("inf"))
+    assert lc.any()
+    assert torch.equal(lv.max(dim=1).values[lc], lf.max(dim=1).values[lc])
 
 
 @pytest.mark.cuda

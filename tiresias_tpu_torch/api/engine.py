@@ -14,8 +14,13 @@ truncation — D8, offset-aligned votes — D9) votes over the stored
 fingerprints with K4 (bag) or K5 (aligned). Votes reduce to a top-1 on the
 device with the D5 tiebreak (and the runner-up audio's votes for margin
 acceptance) and are read back once; :meth:`Tiresias.search_pcm_topk` ranks
-the same votes into each view's exact top-k on the device. Mesh sharding
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+the same votes into each view's exact top-k on the device. Above twice a
+candidate budget of rows per view, each mode first tries its certified
+prefilter (a uint8 bound scan, the rows of highest bound rescored exactly,
+a certificate read back per view) and full-scans where any query's
+certificate fails; an adaptive gate stops trying after 8 misses in a row
+per view and mode. Mesh sharding raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 
 The engine is driven from several threads at once by the serve layer
 (score passes, admin searches, watch syncs, follow swaps): a search reads
@@ -53,12 +58,19 @@ from tiresias_tpu_torch.engine.sync import (
     sync_all,
     sync_context_audio,
 )
+from tiresias_tpu_torch.ops import match_kernels, match_lattice
 from tiresias_tpu_torch.ops.match import prepare_query
 from tiresias_tpu_torch.ops.match_kernels import (
+    aligned_prefiltered_votes,
     match_votes_fused,
     match_votes_fused_aligned,
 )
-from tiresias_tpu_torch.ops.match_lattice import band_thresholds, lattice_votes
+from tiresias_tpu_torch.ops.match_lattice import (
+    band_thresholds,
+    bound_tol_ok,
+    lattice_prefiltered_votes,
+    lattice_votes,
+)
 from tiresias_tpu_torch.ops.mfcc import (
     fingerprint_padded_batch,
     fingerprint_signal,
@@ -206,6 +218,10 @@ class Tiresias:
         self._warm_lock = threading.Lock()
         self._warm_stop = threading.Event()
         self._warm_threads: list[threading.Thread] = []
+        # the certified prefilters' adaptive gate: consecutive certificate
+        # misses per (view gen, mode), least recently noted first
+        self._pf_misses: dict = {}
+        self._pf_lock = threading.Lock()
         self.lock = DataDirLock(self.config.expanded_data_dir)
         if exclusive is not False:
             try:
@@ -468,11 +484,16 @@ class Tiresias:
         otherwise build lazily on first use: the insertion-seq and
         context-id rows, and — by the configured :class:`MatchConfig` — the
         lattice value map (dialplan configuration) or K4/K5's sorted index
-        (every other). A restored or just-mutated serving store otherwise
-        pays the build on the next request. Already-built maps cost
-        nothing."""
+        (every other), with the uint8 map of the dialplan prefilter or, in
+        the aligned configuration, the bound maps wherever the prefilter's
+        gate would admit the view. A restored or just-mutated serving store
+        otherwise pays the build on the next request. Already-built maps
+        cost nothing."""
         mc = self.config.match
         lattice_mode = mc.coefs == 1 and mc.trunc_coef1 and not mc.aligned
+        # the tolerance real requests run at (a negative one means the
+        # default), so the gates below build what the first search uses
+        tol = mc.tolerance if mc.tolerance >= 0 else DEF_SEARCH_TOLERANCE
         store = self.store
         with self._on_device():
             for view in store.search_views():
@@ -480,8 +501,14 @@ class Tiresias:
                 store.ctx_ids_for(view)
                 if lattice_mode:
                     store.value_map_for(view)
+                    if self._lattice_pf_ok(view, tol):
+                        store.value_map_q_for(view)
                 else:
                     store.match_index_for(view)
+                    big = view.db.shape[0] > 2 * match_kernels.PREFILTER_K
+                    if (mc.aligned and big and not view.segments
+                            and bound_tol_ok(mc.coefs, tol)):
+                        store.bound_maps_for(view, mc.coefs)
 
     def save(self) -> None:
         self._require_owner()
@@ -663,14 +690,20 @@ class Tiresias:
         self, store: FingerprintStore, qfp: torch.Tensor,
         n_frames: np.ndarray, tolerance: float, freq_ignore_low: int,
         freq_ignore_high: int, ctx_id: int | None, coefs: int,
-        trunc_coef1: bool, aligned: bool,
+        trunc_coef1: bool, aligned: bool, top: int = 1,
     ):
         """The per-view vote computation every search entry point shares:
         returns ``votes_of(view) -> [B, A_pad] int32``. Lattice votes (K3')
         for the dialplan configuration, K4/K5 over the view's fingerprints
         otherwise, with an auto-split audio's segment columns summed into
         its first column (D15, additive), then the context filter (votes of
-        rows outside ``ctx_id`` become 0)."""
+        rows outside ``ctx_id`` become 0).
+
+        Where its gate admits a view, the certified prefilter of the mode
+        (PARITY.md D17/D19/D20) computes the votes instead: exact in every
+        row that can reach the caller's top ``top`` (1; 2 for a margin
+        search; k for a ranked listing) when every query certifies, and
+        otherwise the full scan above runs."""
         f = int(qfp.shape[1])
         dialplan = coefs == 1 and trunc_coef1 and not aligned
         if dialplan:
@@ -688,23 +721,120 @@ class Tiresias:
             vote = match_votes_fused_aligned if aligned else match_votes_fused
 
         def votes_of(view) -> torch.Tensor:
+            votes = None
             if dialplan:
-                votes = lattice_votes(
-                    store.value_map_for(view), q0, valid, tolerance,
-                    band_lo, band_hi,
-                )
+                if self._lattice_pf_ok(view, tolerance, top):
+                    votes = self._lattice_prefiltered(
+                        store, view, q0, valid, tolerance, band_lo, band_hi,
+                        ctx_id, top,
+                    )
+                if votes is None:
+                    votes = lattice_votes(
+                        store.value_map_for(view), q0, valid, tolerance,
+                        band_lo, band_hi,
+                    )
             else:
-                votes = self._merge_segments(
-                    store, view,
-                    vote(view.db, q, active, use2, tolerance, coefs,
-                         index=store.match_index_for(view)),
-                )
+                if self._strict_pf_ok(view, coefs, tolerance, top, aligned):
+                    votes = self._aligned_prefiltered(
+                        store, view, q, active, use2, coefs, tolerance,
+                        ctx_id, top, aligned,
+                    )
+                if votes is None:
+                    votes = self._merge_segments(
+                        store, view,
+                        vote(view.db, q, active, use2, tolerance, coefs,
+                             index=store.match_index_for(view)),
+                    )
             if ctx_id is not None:
                 keep = store.ctx_ids_for(view) == ctx_id
                 votes = torch.where(keep[None, :], votes, 0)
             return votes
 
         return votes_of
+
+    # ---- certified prefilters (PARITY.md D17/D19/D20) ----------------- #
+
+    def _pf_allowed(self, view, mode: str) -> bool:
+        """The adaptive gate, per (view ``gen``, mode): 8 consecutive
+        certificate misses switch the prefilter off for that view; a
+        certified result, or a mutation (new views, new gens), re-arms it."""
+        with self._pf_lock:
+            return self._pf_misses.get((view.gen, mode), 0) < 8
+
+    def _pf_note(self, view, mode: str, certified: bool) -> None:
+        """Feed a prefiltered search's certificate back into the gate. A
+        miss re-inserts its key, so insertion order is least recently
+        noted and the 32-key bound evicts stale gens, never a live view's
+        streak. Searches run on several threads, hence the lock."""
+        key = (view.gen, mode)
+        with self._pf_lock:
+            if certified:
+                self._pf_misses.pop(key, None)
+            else:
+                self._pf_misses[key] = self._pf_misses.pop(key, 0) + 1
+                while len(self._pf_misses) > 32:
+                    self._pf_misses.pop(next(iter(self._pf_misses)))
+        if not certified:
+            metrics.add("search.prefilter_fallbacks", 1)
+
+    def _lattice_pf_ok(self, view, tolerance: float, top: int = 1) -> bool:
+        """Gate of the dialplan prefilter: the selection must be real
+        (rows > 2k), the listing must fit the candidates, the tolerance must
+        stay below the uint8 saturation, and the adaptive gate must allow
+        it."""
+        k = match_lattice.LATTICE_PREFILTER_K
+        if (top > k or view.db.shape[0] <= 2 * k
+                or not bound_tol_ok(None, tolerance)):
+            return False
+        return self._pf_allowed(view, "lattice")
+
+    def _strict_pf_ok(self, view, coefs: int, tolerance: float, top: int,
+                      aligned: bool) -> bool:
+        """Gate of the strict/aligned prefilter, as :meth:`_lattice_pf_ok`
+        with the bound maps' saturation per coefficient."""
+        k = match_kernels.PREFILTER_K
+        if (top > k or view.db.shape[0] <= 2 * k
+                or not bound_tol_ok(coefs, tolerance)):
+            return False
+        return self._pf_allowed(view, "aligned" if aligned else "bag")
+
+    def _lattice_prefiltered(self, store, view, q0, valid, tolerance: float,
+                             band_lo: float, band_hi: float,
+                             ctx_id: int | None, top: int):
+        """Certified dialplan votes ``[B, A_pad]`` of one view, or None when
+        any query's certificate fails (the caller full-scans). One ``[B]``
+        readback. Auto-split audios need no bail-out: the map min-combines
+        their segment rows into one exact row."""
+        votes, cert = lattice_prefiltered_votes(
+            store.value_map_for(view), store.value_map_q_for(view), q0,
+            valid, tolerance, band_lo, band_hi, top=top,
+            ctx_ids=None if ctx_id is None else store.ctx_ids_for(view),
+            ctx_id=ctx_id,
+        )
+        certified = bool(cert.all())
+        self._pf_note(view, "lattice", certified)
+        return votes if certified else None
+
+    def _aligned_prefiltered(self, store, view, q, active, use2, coefs: int,
+                             tolerance: float, ctx_id: int | None, top: int,
+                             aligned: bool):
+        """Certified aligned (or, ``aligned=False``, strict bag) votes of
+        one view, or None when any query's certificate fails or the view
+        holds auto-split audios (their per-segment bounds cannot certify a
+        summed winner, D15): the caller full-scans. One ``[B]`` readback."""
+        if view.segments:
+            return None
+        specs, maps = store.bound_maps_for(view, coefs)
+        votes, cert = aligned_prefiltered_votes(
+            view.db, maps, q, active, use2, tolerance, specs=specs,
+            coefs=coefs, k=match_kernels.PREFILTER_K,
+            ctx_ids=None if ctx_id is None else store.ctx_ids_for(view),
+            ctx_id=ctx_id, top=top, aligned=aligned,
+            index=store.match_index_for(view),
+        )
+        certified = bool(cert.all())
+        self._pf_note(view, "aligned" if aligned else "bag", certified)
+        return votes if certified else None
 
     def _match(
         self, qfp: torch.Tensor, n_frames: np.ndarray, tolerance: float,
@@ -733,11 +863,13 @@ class Tiresias:
                 SearchResult(STATUS_NOTFOUND, int(n_frames[i]), 0)
                 for i in range(b)
             ]
+        margin = min_margin > 0.0
+        # a margin needs the runner-up audio exact too
         votes_of = self._view_votes(
             store, qfp, n_frames, tolerance, freq_ignore_low,
             freq_ignore_high, ctx_id, coefs, trunc_coef1, aligned,
+            top=2 if margin else 1,
         )
-        margin = min_margin > 0.0
         per_view = []
         for view in views:
             votes = votes_of(view)
@@ -839,9 +971,11 @@ class Tiresias:
             qfp, n_frames = self._query_fingerprints(
                 [np.asarray(pcm)], samplerate, wire_law
             )
+            # a certified top-k listing holds every row that reaches the
+            # view's k-th best score, with its exact votes
             votes_of = self._view_votes(
                 store, qfp, n_frames, tolerance, lo, hi, ctx_id, coefs,
-                trunc_coef1, aligned,
+                trunc_coef1, aligned, top=k,
             )
             got = torch.stack([
                 topk_by_row(votes_of(view)[0], store.seq_for(view), k)

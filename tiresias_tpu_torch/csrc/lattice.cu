@@ -41,6 +41,15 @@
 // (or 255 * K), so each accumulator is exact; the planes recombine with
 // 32-bit wrapping shifts, exact wherever the int32 result is. NaN and +inf
 // never satisfy <= tol.
+//
+// The same kernel, templated on the map's element type, runs the certified
+// prefilters' bound scans (tiresias_tpu/ops/match_lattice.py:588, the
+// dialplan bound _hit_matmul(c, vm_q, tol * BOUND_Q), and :304 bound_votes
+// over the per-coefficient maps) on uint8 maps of floor(d * 64) distances:
+// a lane reads its 8 buckets of a row as one 8-byte load (a quarter of the
+// float32 bytes, the bound scan's whole cost) and turns them into 0/1 hits
+// with one __vcmpleu4 against floor(tol): for an integer m and tol >= 0,
+// (float)m <= tol is m <= floor(tol), so the test is exact.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -67,14 +76,6 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four hits as four bytes, element 0 in the low byte (mma's element order)
-__device__ __forceinline__ uint32_t hits4(float4 v, float tol) {
-  return static_cast<uint32_t>(v.x <= tol) |
-         static_cast<uint32_t>(v.y <= tol) << 8 |
-         static_cast<uint32_t>(v.z <= tol) << 16 |
-         static_cast<uint32_t>(v.w <= tol) << 24;
 }
 
 // One block per (step, 64-query tile): 8 buckets of one query per thread.
@@ -115,35 +116,89 @@ __global__ void __launch_bounds__(kPlanesThreads)
 
 // A lane's map values of one step: [0] row r buckets k+8t..+3, [1] row r+8
 // the same, [2] row r buckets k+8t+4..+7, [3] row r+8 the same (pa and pb
-// point at bucket 8t of rows r and r+8; +inf past the map's edge, never a
-// hit). vec: rows are 16-byte aligned (k_size % 4 == 0).
-__device__ __forceinline__ void load_step(float4 (&v)[4], const float* pa,
-                                          const float* pb, bool oka, bool okb,
-                                          int k, int kt, int k_size,
-                                          bool vec) {
+// point at bucket 8t of rows r and r+8). Past the map's edge the counts
+// planes are 0, so whatever hit a value there gives adds nothing. vec:
+// rows are aligned for the vector load (float: k_size % 4 == 0; uint8:
+// k_size % 8 == 0).
+template <typename T>
+struct MapStep;
+
+template <>
+struct MapStep<float> {
+  using Reg = float4;
+  static constexpr int kVec = 4;
+  __device__ static __forceinline__ void load(Reg (&v)[4], const float* pa,
+                                              const float* pb, bool oka,
+                                              bool okb, int k, int kt,
+                                              int k_size, bool vec) {
 #pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    const float* src = ((h & 1) ? pb : pa) + k + 4 * (h >> 1);
-    const bool ok = (h & 1) ? okb : oka;
-    const int kk = kt + 4 * (h >> 1);
-    v[h] = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
-    if (vec) {
-      if (ok && kk < k_size)
-        v[h] = __ldg(reinterpret_cast<const float4*>(src));
-    } else if (ok) {
-      if (kk < k_size) v[h].x = __ldg(src);
-      if (kk + 1 < k_size) v[h].y = __ldg(src + 1);
-      if (kk + 2 < k_size) v[h].z = __ldg(src + 2);
-      if (kk + 3 < k_size) v[h].w = __ldg(src + 3);
+    for (int h = 0; h < 4; ++h) {
+      const float* src = ((h & 1) ? pb : pa) + k + 4 * (h >> 1);
+      const bool ok = (h & 1) ? okb : oka;
+      const int kk = kt + 4 * (h >> 1);
+      v[h] = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+      if (vec) {
+        if (ok && kk < k_size)
+          v[h] = __ldg(reinterpret_cast<const float4*>(src));
+      } else if (ok) {
+        if (kk < k_size) v[h].x = __ldg(src);
+        if (kk + 1 < k_size) v[h].y = __ldg(src + 1);
+        if (kk + 2 < k_size) v[h].z = __ldg(src + 2);
+        if (kk + 3 < k_size) v[h].w = __ldg(src + 3);
+      }
     }
   }
-}
+  // four hits as four bytes, element 0 in the low byte (mma's element order)
+  __device__ static __forceinline__ uint32_t hits(Reg v, float tol, int) {
+    return static_cast<uint32_t>(v.x <= tol) |
+           static_cast<uint32_t>(v.y <= tol) << 8 |
+           static_cast<uint32_t>(v.z <= tol) << 16 |
+           static_cast<uint32_t>(v.w <= tol) << 24;
+  }
+};
+
+template <>
+struct MapStep<uint8_t> {
+  using Reg = uint32_t;  // four map bytes, bucket order from the low byte
+  static constexpr int kVec = 8;
+  __device__ static __forceinline__ void load(Reg (&v)[4], const uint8_t* pa,
+                                              const uint8_t* pb, bool oka,
+                                              bool okb, int k, int kt,
+                                              int k_size, bool vec) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint8_t* src = (h ? pb : pa) + k;
+      const bool ok = h ? okb : oka;
+      uint2 w = make_uint2(0xffffffffu, 0xffffffffu);
+      if (vec) {
+        if (ok && kt < k_size) w = __ldg(reinterpret_cast<const uint2*>(src));
+      } else if (ok) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (kt + j < k_size) {
+            const uint32_t b = __ldg(src + j);
+            uint32_t& dst = j < 4 ? w.x : w.y;
+            dst = (dst & ~(0xffu << (8 * (j % 4)))) | (b << (8 * (j % 4)));
+          }
+        }
+      }
+      v[h] = w.x;      // buckets 8t..8t+3 of the row
+      v[h + 2] = w.y;  // buckets 8t+4..8t+7
+    }
+  }
+  // ti = floor(tol) clamped to [-1, 255] (-1: nothing passes)
+  __device__ static __forceinline__ uint32_t hits(Reg v, float, int ti) {
+    if (ti < 0) return 0u;
+    return __vcmpleu4(v, static_cast<uint32_t>(ti) * 0x01010101u) &
+           0x01010101u;
+  }
+};
 
 // Dynamic shared memory: the flagged steps' indices (steps ints, padded to
 // 16 bytes), then their counts [flagged][P][64 queries][32] u8.
-template <int P>
+template <int P, typename T>
 __global__ void __launch_bounds__(kThreads)
-    lattice_votes_kernel(const float* __restrict__ value_map,
+    lattice_votes_kernel(const T* __restrict__ value_map,
                          const uint8_t* __restrict__ planes,
                          const uint8_t* __restrict__ flags, int batch,
                          int rows, int k_size, int steps, float tol,
@@ -159,11 +214,11 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r = warp * 16 + g;  // this lane's rows r and r + 8
-  const bool vec = k_size % 4 == 0;
+  const bool vec = k_size % MapStep<T>::kVec == 0;
   const bool oka = a0 + r < rows, okb = a0 + r + 8 < rows;
-  const float* pa = value_map + (size_t)(oka ? a0 + r : 0) * k_size + 8 * t;
-  const float* pb =
-      value_map + (size_t)(okb ? a0 + r + 8 : 0) * k_size + 8 * t;
+  const T* pa = value_map + (size_t)(oka ? a0 + r : 0) * k_size + 8 * t;
+  const T* pb = value_map + (size_t)(okb ? a0 + r + 8 : 0) * k_size + 8 * t;
+  const int ti = !(tol >= 0.f) ? -1 : tol >= 255.f ? 255 : (int)floorf(tol);
 
   // the tile's flagged steps, in order
   if (warp == 0) {
@@ -191,12 +246,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   asm volatile("cp.async.commit_group;\n" ::);
 
-  float4 buf[kDepth][4];
+  typename MapStep<T>::Reg buf[kDepth][4];
 #pragma unroll
   for (int d = 0; d < kDepth; ++d)
     if (d < n_steps) {
       const int k = list[d] * kStep;
-      load_step(buf[d], pa, pb, oka, okb, k, k + 8 * t, k_size, vec);
+      MapStep<T>::load(buf[d], pa, pb, oka, okb, k, k + 8 * t, k_size, vec);
     }
   int acc[P][8][4];
 #pragma unroll
@@ -215,10 +270,13 @@ __global__ void __launch_bounds__(kThreads)
       if (i < n_steps) {
         uint32_t a[4];
 #pragma unroll
-        for (int h = 0; h < 4; ++h) a[h] = hits4(buf[d][h], tol);
+        for (int h = 0; h < 4; ++h) {
+          a[h] = MapStep<T>::hits(buf[d][h], tol, ti);
+        }
         if (i + kDepth < n_steps) {
           const int k = list[i + kDepth] * kStep;
-          load_step(buf[d], pa, pb, oka, okb, k, k + 8 * t, k_size, vec);
+          MapStep<T>::load(buf[d], pa, pb, oka, okb, k, k + 8 * t, k_size,
+                           vec);
         }
 #pragma unroll
         for (int p = 0; p < P; ++p) {
@@ -253,35 +311,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int P>
-int launch_votes(const float* value_map, const uint8_t* planes,
+template <int P, typename T>
+int launch_votes(const T* value_map, const uint8_t* planes,
                  const uint8_t* flags, int batch, int rows, int k_size,
                  int steps, float tol, int* votes, cudaStream_t stream) {
   const size_t bytes = (size_t)((steps * 4 + 15) & ~15) +
                        (size_t)steps * P * kQueries * kStep;
   if (bytes > 48 * 1024) {  // past the default dynamic limit
     const cudaError_t rc = cudaFuncSetAttribute(
-        lattice_votes_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        lattice_votes_kernel<P, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc != cudaSuccess) return (int)rc;
   }
   const dim3 grid((rows + kRows - 1) / kRows,
                   (batch + kQueries - 1) / kQueries);
-  lattice_votes_kernel<P><<<grid, kThreads, bytes, stream>>>(
+  lattice_votes_kernel<P, T><<<grid, kThreads, bytes, stream>>>(
       value_map, planes, flags, batch, rows, k_size, steps, tol, votes);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// scratch: the u8 planes [n_planes][batch][steps * 32], then the flags
-// [tiles][steps] (steps = ceil(k_size / 32), tiles = ceil(batch / 64)),
-// allocated by the wrapper (ops/match_lattice.py::hit_votes).
-extern "C" int tiresias_lattice_votes(const void* counts,
-                                      const void* value_map, int batch,
-                                      int rows, int k_size, float tol,
-                                      int n_planes, void* scratch,
-                                      void* votes, void* stream) {
+template <typename T>
+int lattice_votes(const void* counts, const void* value_map, int batch,
+                  int rows, int k_size, float tol, int n_planes,
+                  void* scratch, void* votes, void* stream) {
   if (n_planes < 1 || n_planes > 4 || batch < 1 || rows < 1 || k_size < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -293,7 +345,7 @@ extern "C" int tiresias_lattice_votes(const void* counts,
       (const int*)counts, batch, k_size, steps, n_planes, planes, flags);
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return (int)rc;
-  const float* m = (const float*)value_map;
+  const T* m = (const T*)value_map;
   int* out = (int*)votes;
   switch (n_planes) {
     case 1:
@@ -309,4 +361,28 @@ extern "C" int tiresias_lattice_votes(const void* counts,
       return launch_votes<4>(m, planes, flags, batch, rows, k_size, steps,
                              tol, out, s);
   }
+}
+
+}  // namespace
+
+// scratch: the u8 planes [n_planes][batch][steps * 32], then the flags
+// [tiles][steps] (steps = ceil(k_size / 32), tiles = ceil(batch / 64)),
+// allocated by the wrapper (ops/match_lattice.py::hit_votes).
+extern "C" int tiresias_lattice_votes(const void* counts,
+                                      const void* value_map, int batch,
+                                      int rows, int k_size, float tol,
+                                      int n_planes, void* scratch,
+                                      void* votes, void* stream) {
+  return lattice_votes<float>(counts, value_map, batch, rows, k_size, tol,
+                              n_planes, scratch, votes, stream);
+}
+
+// The same over a uint8 map (the prefilters' bound scans).
+extern "C" int tiresias_lattice_votes_u8(const void* counts,
+                                         const void* value_map, int batch,
+                                         int rows, int k_size, float tol,
+                                         int n_planes, void* scratch,
+                                         void* votes, void* stream) {
+  return lattice_votes<uint8_t>(counts, value_map, batch, rows, k_size, tol,
+                                n_planes, scratch, votes, stream);
 }

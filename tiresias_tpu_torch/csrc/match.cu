@@ -47,6 +47,16 @@
 // the item on a work list that a dense K5 kernel serves right after, on the
 // same stream. The kernels add the items of each route into a device
 // counter.
+//
+// Candidate form (the certified strict/aligned prefilter's rescore, the
+// Pallas kernels run over each query's candidate rows at
+// tiresias_tpu/ops/match_pallas.py:566-577): given cand [batch, n_cand]
+// int32 row ids, the kernels compute votes[b, j] of query b against row
+// cand[b, j] only, equal to the full kernels' votes at that row. One block
+// takes one (query, candidate) item and stages that row's index chunks for
+// it alone (no chunk is shared across the batch, so staging is per item);
+// K5 puts dense items on its work list as item ids. A row id outside
+// [0, rows) scores 0.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -194,6 +204,7 @@ __device__ __forceinline__ bool sweep(const float2* s_ent,
   return hit;
 }
 
+template <bool kCand>
 __global__ void __launch_bounds__(kWarps * 32)
     match_votes_kernel(const float* __restrict__ db,
                        const float* __restrict__ q,
@@ -202,6 +213,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                        const int* __restrict__ n_live, int batch, int rows,
                        int t_len, int n_coefs, int coefs, int f_len,
                        int chunk, int n_chunks, float tol, float share,
+                       const int* __restrict__ cand, int n_cand,
                        int* __restrict__ votes,
                        unsigned long long* __restrict__ routes) {
   __shared__ __align__(16) float2 s_ent[kMaxChunk];
@@ -210,10 +222,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   __shared__ unsigned long long s_routes[2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int a = blockIdx.x;
+  // a stored row for every query, or (kCand) one (query, candidate) item
+  const long long item = blockIdx.x;
+  const int a = kCand ? cand[item] : (int)item;
+  if (kCand && (a < 0 || a >= rows)) return;  // uniform; the votes stay 0
   const int groups = (f_len + 31) / 32;
-  const int i0 = blockIdx.y * kMaxItems;
-  const int n_items = min(kMaxItems, batch * groups - i0);
+  const int q_lo = kCand ? (int)(item / n_cand) : 0;
+  const int q_end = kCand ? q_lo + 1 : batch;
+  const int i0 = q_lo * groups + blockIdx.y * kMaxItems;
+  const int n_items = min(kMaxItems, q_end * groups - i0);
   const float* row = db + (size_t)a * t_len * n_coefs;
   for (int i = threadIdx.x; i < n_items; i += blockDim.x) hits[i] = 0u;
   if (threadIdx.x < 2) s_routes[threadIdx.x] = 0ull;
@@ -300,7 +317,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int hi = min((b + 1) * groups, i0 + n_items) - i0;
     int cnt = 0;
     for (int it = lo; it < hi; ++it) cnt += __popc(hits[it]);
-    if (cnt) atomicAdd(votes + (size_t)b * rows + a, cnt);
+    if (cnt) atomicAdd(votes + (kCand ? (size_t)item : (size_t)b * rows + a),
+                       cnt);
   }
 }
 
@@ -339,6 +357,7 @@ long long aligned_smem(int chunk, int f_len, int warps) {
   return 10LL * chunk + 4LL * warps * (chunk + 2LL * f_len - 1);
 }
 
+template <bool kCand>
 __global__ void __launch_bounds__(kWarps * 32)
     match_votes_aligned_kernel(const float* __restrict__ db,
                                const float* __restrict__ q,
@@ -347,7 +366,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                                const int* __restrict__ n_live, int batch,
                                int rows, int t_len, int n_coefs, int coefs,
                                int f_len, int chunk, int n_chunks, float tol,
-                               float share, int* __restrict__ votes,
+                               float share, const int* __restrict__ cand,
+                               int n_cand, int* __restrict__ votes,
                                int* __restrict__ work,
                                unsigned long long* __restrict__ n_work,
                                unsigned long long* __restrict__ routes) {
@@ -364,12 +384,17 @@ __global__ void __launch_bounds__(kWarps * 32)
                       reinterpret_cast<int*>(s_pos + chunk) +
                       (size_t)warps * win) +
                   (size_t)warp * f_len;
-  const int a = blockIdx.x;
+  // a stored row for every query (a warp per query), or (kCand) one
+  // (query, candidate) item for warp 0
+  const long long item = blockIdx.x;
+  const int a = kCand ? cand[item] : (int)item;
+  if (kCand && (a < 0 || a >= rows)) return;  // uniform; the votes stay 0
   const float* row = db + (size_t)a * t_len * n_coefs;
   if (threadIdx.x < 2) s_routes[threadIdx.x] = 0ull;
-  for (int r0 = 0; r0 < batch; r0 += warps) {
-    const int b = r0 + warp;
-    bool mine = b < batch;
+  for (int r0 = 0; r0 < (kCand ? 1 : batch); r0 += warps) {
+    const int b = kCand ? (int)(item / n_cand) : r0 + warp;
+    bool mine = kCand ? warp == 0 : b < batch;
+    const long long out = kCand ? item : (long long)b * rows + a;
     const float* qb = q + (size_t)(mine ? b : 0) * (coefs + 2) * f_len;
     int best = 0;
     bool decided = share < 0.f;  // forced dense: straight to the list
@@ -444,11 +469,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     if (mine && lane == 0) {
       atomicAdd(&s_routes[dense ? 1 : 0], 1ull);
-      if (dense) work[atomicAdd(n_work, 1ull)] = b * rows + a;
+      if (dense) work[atomicAdd(n_work, 1ull)] = (int)out;
     }
     if (mine && !dense) {
       best = __reduce_max_sync(kFull, best);
-      if (lane == 0) votes[(size_t)b * rows + a] = best;
+      if (lane == 0) votes[out] = best;
     }
   }
   __syncthreads();
@@ -476,14 +501,19 @@ __device__ __forceinline__ void stage_query(float4* qs, int n, const float* qb,
 }
 
 // Votes of (query b, row a) = work[w] = b * rows + a for w < n_work[0], or
-// of w = b * rows + a for every pair when work is null. Blocks take items
-// in turn from the counter n_work[1] (zero on entry), so a grid of the
-// resident blocks stays busy to the end.
+// of w = b * rows + a for every pair when work is null. With cand, an item
+// is a candidate slot b * n_cand + j of row cand[item] instead, and its
+// votes go to votes[item]. Blocks take items in turn from the counter
+// n_work[1] (zero on entry), so a grid of the resident blocks stays busy to
+// the end.
+template <bool kCand>
 __global__ void __launch_bounds__(kThreads5)
     match_votes_aligned_dense_kernel(const float* __restrict__ db,
                                      const float* __restrict__ q, int batch,
                                      int rows, int t_len, int n_coefs,
                                      int coefs, int f_len, float tol,
+                                     const int* __restrict__ cand,
+                                     int n_cand,
                                      const int* __restrict__ work,
                                      unsigned long long* n_work,
                                      int* __restrict__ votes) {
@@ -493,7 +523,8 @@ __global__ void __launch_bounds__(kThreads5)
   __shared__ int red[kThreads5 / 32];
   __shared__ unsigned long long s_next;
   const unsigned long long total =
-      work ? n_work[0] : (unsigned long long)batch * rows;
+      work ? n_work[0]
+           : (unsigned long long)batch * (kCand ? n_cand : rows);
   const bool two = coefs > 1;
   const int n_off = t_len + f_len - 1;
   const bool one_stage = f_len <= kStage5;
@@ -505,8 +536,9 @@ __global__ void __launch_bounds__(kThreads5)
     const unsigned long long w = s_next;
     if (w >= total) break;
     const long long item = work ? work[w] : (long long)w;
-    const int b = (int)(item / rows);
-    const int a = (int)(item % rows);
+    const int b = (int)(item / (kCand ? n_cand : rows));
+    const int a = kCand ? cand[item] : (int)(item % rows);
+    if (kCand && (a < 0 || a >= rows)) continue;  // uniform; votes stay 0
     const float* qb = q + (size_t)b * (coefs + 2) * f_len;
     const float* row = db + (size_t)a * t_len * n_coefs;
     if (one_stage) stage_query(qs, kStage5, qb, coefs, f_len, 0, f_len);
@@ -583,7 +615,7 @@ __global__ void __launch_bounds__(kThreads5)
     if (threadIdx.x == 0) {
       int m = red[0];
       for (int i = 1; i < kThreads5 / 32; ++i) m = max(m, red[i]);
-      votes[(size_t)b * rows + a] = m;
+      votes[kCand ? (size_t)item : (size_t)b * rows + a] = m;
     }
   }
 }
@@ -600,26 +632,35 @@ extern "C" int tiresias_match_aligned_warps(int chunk, int f_len, int batch) {
   return w;
 }
 
+// cand: null for votes [batch, rows], or [batch, n_cand] row ids for the
+// candidate form's votes [batch, n_cand] (its own instantiation of each
+// kernel, so the full kernels carry none of its branches).
 extern "C" int tiresias_match_votes(const void* db, const void* q,
                                     const void* ent, const void* pos,
                                     const void* n_live, int batch, int rows,
                                     int t_len, int n_coefs, int coefs,
                                     int f_len, int chunk, int n_chunks,
-                                    float tol, float share, void* votes,
-                                    void* routes, void* stream) {
+                                    float tol, float share, const void* cand,
+                                    int n_cand, void* votes, void* routes,
+                                    void* stream) {
   // votes must be zeroed: blocks add their partial counts
   if (chunk > kMaxChunk || chunk % 2) return (int)cudaErrorInvalidValue;
-  const long long items = (long long)batch * ((f_len + 31) / 32);
-  const dim3 grid(rows, (unsigned)((items + kMaxItems - 1) / kMaxItems));
-  match_votes_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+  const long long groups = (f_len + 31) / 32;
+  const long long items = (cand ? 1LL : (long long)batch) * groups;
+  const long long blocks = cand ? (long long)batch * n_cand : rows;
+  const dim3 grid((unsigned)blocks,
+                  (unsigned)((items + kMaxItems - 1) / kMaxItems));
+  auto kernel = cand ? match_votes_kernel<true> : match_votes_kernel<false>;
+  kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const float*)db, (const float*)q, (const float2*)ent,
       (const short*)pos, (const int*)n_live, batch, rows, t_len, n_coefs,
-      coefs, f_len, chunk, n_chunks, tol, share, (int*)votes,
-      (unsigned long long*)routes);
+      coefs, f_len, chunk, n_chunks, tol, share, (const int*)cand, n_cand,
+      (int*)votes, (unsigned long long*)routes);
   return (int)cudaGetLastError();
 }
 
-// Resident blocks of the dense kernel on this device (its grid).
+// Resident blocks of a dense kernel on this device (its grid).
+template <bool kCand>
 static int dense_grid() {
   static int grid = 0;
   if (grid == 0) {
@@ -627,49 +668,75 @@ static int dense_grid() {
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, match_votes_aligned_dense_kernel, kThreads5, 0);
+        &per_sm, match_votes_aligned_dense_kernel<kCand>, kThreads5, 0);
     grid = max(1, sms * per_sm);
   }
   return grid;
 }
 
-// routes: [index items, dense items]; work: batch * rows ints and n_work
-// two u64 of scratch. warps 0 runs the dense kernel on every pair.
+template <bool kCand>
+static int match_votes_aligned(
+    const void* db, const void* q, const void* ent, const void* pos,
+    const void* n_live, int batch, int rows, int t_len, int n_coefs,
+    int coefs, int f_len, int chunk, int n_chunks, float tol, float share,
+    int warps, const int* cand, int n_cand, void* votes, void* work,
+    void* n_work, void* routes, cudaStream_t st) {
+  unsigned long long* nw = (unsigned long long*)n_work;
+  cudaError_t err = cudaMemsetAsync(nw, 0, 2 * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
+  const long long pairs = (long long)batch * (kCand ? n_cand : rows);
+  const int grid =
+      pairs < dense_grid<kCand>() ? (int)pairs : dense_grid<kCand>();
+  if (warps == 0) {
+    match_votes_aligned_dense_kernel<kCand><<<grid, kThreads5, 0, st>>>(
+        (const float*)db, (const float*)q, batch, rows, t_len, n_coefs,
+        coefs, f_len, tol, cand, n_cand, nullptr, nw, (int*)votes);
+    return (int)cudaGetLastError();
+  }
+  const long long smem = aligned_smem(chunk, f_len, warps);
+  if (warps < 0 || warps > (kCand ? 1 : kWarps) || smem > kMaxSmem ||
+      chunk % 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(match_votes_aligned_kernel<kCand>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = kCand ? pairs : rows;
+  match_votes_aligned_kernel<kCand>
+      <<<(unsigned)blocks, warps * 32, (size_t)smem, st>>>(
+          (const float*)db, (const float*)q, (const float2*)ent,
+          (const short*)pos, (const int*)n_live, batch, rows, t_len,
+          n_coefs, coefs, f_len, chunk, n_chunks, tol, share, cand, n_cand,
+          (int*)votes, (int*)work, nw, (unsigned long long*)routes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  match_votes_aligned_dense_kernel<kCand><<<grid, kThreads5, 0, st>>>(
+      (const float*)db, (const float*)q, batch, rows, t_len, n_coefs, coefs,
+      f_len, tol, cand, n_cand, (const int*)work, nw, (int*)votes);
+  return (int)cudaGetLastError();
+}
+
+// routes: [index items, dense items]; work: one int per item (batch * rows,
+// or batch * n_cand with cand) and n_work two u64 of scratch. warps 0 runs
+// the dense kernel on every item. cand as for tiresias_match_votes; the
+// candidate form runs one warp per item (warps must be 1 or 0).
 extern "C" int tiresias_match_votes_aligned(
     const void* db, const void* q, const void* ent, const void* pos,
     const void* n_live, int batch, int rows, int t_len, int n_coefs,
     int coefs, int f_len, int chunk, int n_chunks, float tol, float share,
-    int warps, void* votes, void* work, void* n_work, void* routes,
-    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  unsigned long long* nw = (unsigned long long*)n_work;
-  cudaError_t err = cudaMemsetAsync(nw, 0, 2 * sizeof(unsigned long long), st);
-  if (err != cudaSuccess) return (int)err;
-  const long long pairs = (long long)batch * rows;
-  const int grid = pairs < dense_grid() ? (int)pairs : dense_grid();
-  if (warps == 0) {
-    match_votes_aligned_dense_kernel<<<grid, kThreads5, 0, st>>>(
-        (const float*)db, (const float*)q, batch, rows, t_len, n_coefs,
-        coefs, f_len, tol, nullptr, nw, (int*)votes);
-    return (int)cudaGetLastError();
+    int warps, const void* cand, int n_cand, void* votes, void* work,
+    void* n_work, void* routes, void* stream) {
+  const int* cd = (const int*)cand;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cd) {
+    return match_votes_aligned<true>(db, q, ent, pos, n_live, batch, rows,
+                                     t_len, n_coefs, coefs, f_len, chunk,
+                                     n_chunks, tol, share, warps, cd, n_cand,
+                                     votes, work, n_work, routes, st);
   }
-  const long long smem = aligned_smem(chunk, f_len, warps);
-  if (warps < 0 || warps > kWarps || smem > kMaxSmem || chunk % 2) {
-    return (int)cudaErrorInvalidValue;
-  }
-  err = cudaFuncSetAttribute(
-      match_votes_aligned_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  match_votes_aligned_kernel<<<rows, warps * 32, (size_t)smem, st>>>(
-      (const float*)db, (const float*)q, (const float2*)ent,
-      (const short*)pos, (const int*)n_live, batch, rows, t_len, n_coefs,
-      coefs, f_len, chunk, n_chunks, tol, share, (int*)votes, (int*)work, nw,
-      (unsigned long long*)routes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  match_votes_aligned_dense_kernel<<<grid, kThreads5, 0, st>>>(
-      (const float*)db, (const float*)q, batch, rows, t_len, n_coefs, coefs,
-      f_len, tol, (const int*)work, nw, (int*)votes);
-  return (int)cudaGetLastError();
+  return match_votes_aligned<false>(db, q, ent, pos, n_live, batch, rows,
+                                    t_len, n_coefs, coefs, f_len, chunk,
+                                    n_chunks, tol, share, warps, nullptr, 0,
+                                    votes, work, n_work, routes, st);
 }

@@ -16,6 +16,13 @@ a work list on the device that a second kernel, which tests every frame
 pair, serves in the same call (every (query, row) pair for a query whose
 offset histogram does not fit in shared memory, over ~50,000 frames).
 
+The certified strict/aligned prefilter (:func:`aligned_prefiltered_votes`,
+PARITY.md D17/D20) bounds every row's votes with K3' on the view's uint8
+bound maps, takes the ``PREFILTER_K`` rows of highest bound per query
+(exact ``torch.topk``), and rescores them with the kernels' candidate form
+(:func:`match_votes_cand`: one (query, candidate row) item per block, its
+own row's index chunks staged for it alone).
+
 Operand convention (the store's layout): ``db [A, T, C]`` holds PAD_VALUE
 in every frame that does not exist — past an audio's end, in padding rows
 and in tombstoned rows — and the kernels treat ``d0 == PAD_VALUE`` as "no
@@ -34,6 +41,7 @@ import torch
 
 from tiresias_tpu_torch.config import DEF_SEARCH_TOLERANCE
 from tiresias_tpu_torch.ops import match
+from tiresias_tpu_torch.ops import match_lattice as ml
 from tiresias_tpu_torch.ops.match_index import MatchIndex, build_match_index
 from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 from tiresias_tpu_torch.utils import build
@@ -51,7 +59,12 @@ _K4_ITEMS = 512  # (query, 32-frame group) items per K4 block (kMaxItems)
 # queries a block has fewer items than warps (K4) or one warp per stored
 # row (K5), and one lane walking a long band is slower than the warp
 # sweeping the chunk (K4) or the dense kernel's 128 threads per item (K5),
-# so the dense route takes over sooner there.
+# so the dense route takes over sooner there. The candidate form has one
+# query per block (one warp per item in K5), so it takes the small-batch
+# shares at any batch: on chip_smoke's catalog candidates (bands 21% of a
+# row) at batch 64 with the batch-64 share, K5 sent all but one item to
+# the index route and took 3.484 ms, its dense route 2.471 (H100 80GB
+# HBM3, 700 W).
 DENSE_SHARE = {"bag": 0.5, "aligned": 0.35, "bag_small_batch": 0.125,
                "aligned_small_batch": 0.125}
 SMALL_BATCH = 8
@@ -59,6 +72,9 @@ SMALL_BATCH = 8
 # route for every item, to measure and test each.
 _FORCED = {"dense": -1.0, "index": float("inf")}
 _ROUTES: dict[torch.device, torch.Tensor] = {}
+# Candidates the strict/aligned prefilter rescores (the engine takes it above
+# 2 x this many rows per view).
+PREFILTER_K = 1024
 _ROUTES_LOCK = threading.Lock()  # searches run on several threads at once
 
 
@@ -86,8 +102,28 @@ def route_counts(device) -> torch.Tensor:
         return _ROUTES[device]
 
 
+def match_votes_cand_plain(db, q, active, use2, tolerance, cand,
+                           coefs: int = 1, aligned: bool = False):
+    """The candidate form's plain twin: ``votes [B, k]`` int32 of query b
+    against row ``cand[b, j]``, the twin over each query's gathered rows
+    (``match_pallas.aligned_prefiltered_votes``' ``db[idx]`` rescore). Row
+    ids outside ``[0, A)`` score 0, as in the kernels."""
+    b, k = cand.shape
+    a = db.shape[0]
+    votes = torch.zeros((b, k), dtype=torch.int32, device=db.device)
+    for i in range(b):
+        ok = (cand[i] >= 0) & (cand[i] < a)
+        rows = db[cand[i][ok].to(torch.int64)]
+        votes[i, ok] = match.match_votes(
+            rows, rows[..., 0] != PAD_VALUE, q[i : i + 1], active[i : i + 1],
+            use2[i : i + 1], tolerance, coefs=coefs, aligned=aligned,
+        )[0]
+    return votes
+
+
 def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
-           index: MatchIndex | None = None, route: str = "auto"):
+           index: MatchIndex | None = None, route: str = "auto",
+           cand: torch.Tensor | None = None):
     a, t, c = db.shape
     if coefs < 1 or coefs > c:
         raise ValueError(f"coefs must be in [1, {c}]")
@@ -95,14 +131,18 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
         raise ValueError("route must be 'auto', 'dense' or 'index'")
     tol = float(np.float32(tolerance))
     if db.device.type == "cpu":
+        if cand is not None:
+            return match_votes_cand_plain(db, q, active, use2, tol, cand,
+                                          coefs, aligned)
         return match.match_votes(
             db, db[..., 0] != PAD_VALUE, q, active, use2, tol, coefs=coefs,
             aligned=aligned,
         )
-    name = "match_votes_aligned" if aligned else "match_votes"
+    name = ("match_votes_aligned" if aligned else "match_votes") + (
+        "" if cand is None else "_cand")
     if db.device.type != "cuda" or any(
         x.device != db.device for x in (q, active, use2)
-    ):
+    ) or (cand is not None and cand.device != db.device):
         raise ValueError(
             f"{name}: db on {db.device}, query on {q.device}, flags on "
             f"{active.device}/{use2.device}"
@@ -120,48 +160,63 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
             f"{db.dtype}, q {tuple(q.shape)}, active {tuple(active.shape)} "
             f"{active.dtype}, use2 {tuple(use2.shape)} {use2.dtype})"
         )
+    if cand is not None and (
+        cand.dtype != torch.int32 or cand.ndim != 2 or cand.shape[0] != b
+        or not cand.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name} needs contiguous cand [B, k] int32 row ids (got "
+            f"{tuple(cand.shape)} {cand.dtype})"
+        )
+    n_cand = 0 if cand is None else cand.shape[1]
     items = b * -(-f // 32)  # K4's work items: 32-frame query groups
-    if a > _MAX_BLOCKS or (aligned and b * a > _MAX_BLOCKS) or (
-            not aligned and -(-items // _K4_ITEMS) > _MAX_GRID_Y):
+    blocks = a if cand is None else b * n_cand
+    if blocks > _MAX_BLOCKS or (aligned and b * a > _MAX_BLOCKS) or (
+            not aligned and cand is None
+            and -(-items // _K4_ITEMS) > _MAX_GRID_Y):
         raise ValueError(f"{name}: {b} queries x {a} rows exceed one launch")
     if index is None:
         index = build_match_index(db)
     if (index.t_len != t or index.entries.shape[0] != a
             or index.entries.device != db.device):
         raise ValueError(f"{name}: the index was built for another db")
-    votes = torch.zeros((b, a), dtype=torch.int32, device=db.device)
-    if b == 0 or a == 0 or f == 0:
+    votes = torch.zeros((b, a if cand is None else n_cand),
+                        dtype=torch.int32, device=db.device)
+    if votes.numel() == 0 or a == 0 or f == 0:
         return votes
     rows = query_rows(q.to(torch.float32), active, use2, coefs)
     lib = build.kernel_library()
     stream = torch.cuda.current_stream(db.device).cuda_stream
     routes = route_counts(db.device)
     key = ("aligned" if aligned else "bag") + (
-        "" if b >= SMALL_BATCH else "_small_batch")
+        "" if b >= SMALL_BATCH and cand is None else "_small_batch")
     share = _FORCED.get(route, DENSE_SHARE[key])
     common = (index.entries.data_ptr(), index.pos.data_ptr(),
               index.n_live.data_ptr(), b, a, t, c, coefs, f, index.chunk,
               index.n_chunks, tol, share)
+    cand_args = (None if cand is None else cand.data_ptr(), n_cand)
     if not aligned:
         rc = lib.tiresias_match_votes(
-            db.data_ptr(), rows.data_ptr(), *common, votes.data_ptr(),
-            routes.data_ptr(), stream)
+            db.data_ptr(), rows.data_ptr(), *common, *cand_args,
+            votes.data_ptr(), routes.data_ptr(), stream)
         build.check(name, rc)
         return votes
     # K5: the index kernel, then the dense kernel over the items it put on
-    # the work list (every pair when the offset histogram does not fit in
-    # shared memory: a query of more than ~50,000 frames)
-    warps = lib.tiresias_match_aligned_warps(index.chunk, f, b)
-    work = torch.empty(b * a if warps else 0, dtype=torch.int32,
+    # the work list (every item when the offset histogram does not fit in
+    # shared memory: a query of more than ~50,000 frames); the candidate
+    # form runs one warp per (query, candidate) item
+    warps = lib.tiresias_match_aligned_warps(index.chunk, f,
+                                             b if cand is None else 1)
+    work = torch.empty(votes.numel() if warps else 0, dtype=torch.int32,
                        device=db.device)
     n_work = torch.empty(2, dtype=torch.int64, device=db.device)
     rc = lib.tiresias_match_votes_aligned(
-        db.data_ptr(), rows.data_ptr(), *common, warps, votes.data_ptr(),
-        work.data_ptr(), n_work.data_ptr(),
+        db.data_ptr(), rows.data_ptr(), *common, warps, *cand_args,
+        votes.data_ptr(), work.data_ptr(), n_work.data_ptr(),
         routes.data_ptr() + 2 * routes.element_size(), stream)
     if warps:
         build.check(name, rc)
-    build.check("match_votes_aligned_dense", rc)
+    build.check(name + "_dense", rc)
     return votes
 
 
@@ -188,6 +243,76 @@ def match_votes_fused_aligned(db, q, active, use2, tolerance,
     hit count (``match_pallas.match_votes_pallas_aligned``); arguments as
     :func:`match_votes_fused`."""
     return _votes(db, q, active, use2, tolerance, coefs, True, index, route)
+
+
+def match_votes_cand(db, q, active, use2, tolerance, cand, coefs: int = 1,
+                     index: MatchIndex | None = None, route: str = "auto",
+                     aligned: bool = False):
+    """K4 (K5 with ``aligned``) over candidate rows: ``votes [B, k]`` int32,
+    query b's votes against row ``cand[b, j]`` (``cand [B, k]`` int32 row
+    ids into ``db``; duplicates allowed), equal to the full kernel's votes
+    at those rows. Each item stages its own row's index chunks; arguments
+    otherwise as :func:`match_votes_fused`."""
+    return _votes(db, q, active, use2, tolerance, coefs, aligned, index,
+                  route, cand=cand)
+
+
+def aligned_prefiltered_votes(
+    db: torch.Tensor,
+    maps: tuple,
+    q: torch.Tensor,
+    active: torch.Tensor,
+    use2: torch.Tensor,
+    tolerance: float,
+    specs: tuple = (),
+    coefs: int = 2,
+    k: int = PREFILTER_K,
+    ctx_ids: torch.Tensor | None = None,
+    ctx_id: int | None = None,
+    top: int = 1,
+    aligned: bool = True,
+    index: MatchIndex | None = None,
+):
+    """Aligned (or, ``aligned=False``, strict bag) votes by a CERTIFIED
+    two-stage search (``match_pallas.aligned_prefiltered_votes``, PARITY.md
+    D17/D20): the bound ``min_c`` of each bound coefficient's clipped-scaled
+    lattice votes (:func:`match_lattice.bound_votes`, K3' on the uint8
+    ``maps``), which no row's bag votes, and so no row's aligned votes,
+    exceed; the ``k`` rows of highest bound; their exact votes by K5 (K4)'s
+    candidate form over the view's sorted ``index``; and the certificate,
+    that the ``top``-th best rescored score strictly beats the highest
+    unselected bound.
+
+    Out-of-context rows (``ctx_ids != ctx_id``) get bound -1 and, if
+    selected, score 0. Returns ``(votes [B, A] int32 — candidate scores
+    scattered, zeros elsewhere; certificate [B] bool)``."""
+    if not specs or len(specs) != len(maps):
+        raise ValueError(
+            "aligned_prefiltered_votes requires matching non-empty "
+            "specs/maps (store.bound_maps_for provides both)"
+        )
+    a = db.shape[0]
+    k = min(int(k), a)
+    if top > k:
+        # a top-k listing larger than the candidate budget cannot be
+        # served exactly: the caller must full-scan instead
+        raise ValueError(f"top={top} exceeds the candidate budget k={k}")
+    # the band is already inside `active` (prepare_query); the bound's
+    # lattice band stays open, or a band-edge frame could leave the bound
+    # but not the votes
+    bound = ml.bound_votes(specs, maps, q, active, use2, tolerance)
+    keep = None
+    if ctx_ids is not None:
+        keep = ctx_ids == ctx_id
+        bound = torch.where(keep[None, :], bound, -1)
+    idx, unselected_max = ml.select_candidates(bound, k)
+    votes_k = match_votes_cand(db, q, active, use2, tolerance,
+                               idx.to(torch.int32), coefs, index,
+                               aligned=aligned)
+    if keep is not None:
+        votes_k = torch.where(keep[idx], votes_k, 0)
+    return (ml.scatter_candidates(votes_k, idx, a),
+            ml.certificate(votes_k, unselected_max, top))
 
 
 def search_batch_fused(

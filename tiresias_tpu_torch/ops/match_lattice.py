@@ -59,9 +59,13 @@ def _build_block(db0, db_mask, k_min: int, k_size: int) -> torch.Tensor:
 
     which is bitwise ``min_t |fl(v - k)|`` (one float32 subtraction per
     candidate, monotone in v). Masked entries scatter +-inf, the identities
-    of min/max; all-masked rows come out +inf everywhere."""
+    of min/max; all-masked rows come out +inf everywhere. A NaN among a
+    row's unmasked values makes the whole row NaN, as XLA's NaN-propagating
+    min/max scans make it in the JAX package (never a hit; quantized: 0)."""
     a = db0.shape[0]
     dev = db0.device
+    nan_rows = (torch.isnan(db0) & db_mask).any(dim=1)
+    db_mask = db_mask & ~torch.isnan(db0)
     v_lo = torch.where(db_mask, db0, torch.inf)
     v_hi = torch.where(db_mask, db0, -torch.inf)
     # clip in float and zero masked entries BEFORE the integer cast (a
@@ -83,7 +87,8 @@ def _build_block(db0, db_mask, k_min: int, k_size: int) -> torch.Tensor:
         dim=1,
     )
     ks = torch.arange(k_min, k_min + k_size, dtype=torch.float32, device=dev)
-    return torch.minimum(suffix_min - ks[None, :], ks[None, :] - prefix_max)
+    vm = torch.minimum(suffix_min - ks[None, :], ks[None, :] - prefix_max)
+    return torch.where(nan_rows[:, None], torch.nan, vm)
 
 
 def build_value_map(
@@ -130,10 +135,11 @@ def lattice_votes_reference(
     counts: torch.Tensor, value_map: torch.Tensor, tol: float
 ) -> torch.Tensor:
     """K3''s plain twin: ``C @ (M <= tol).T`` as ``_hit_matmul`` computes
-    it (float32 product of small integers — exact), returned as int32."""
+    it (float32 product of small integers — exact), returned as int32. A
+    uint8 map compares as float32 (lossless), as XLA promotes it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    hits = (value_map <= tol).to(torch.float32)
+    hits = (value_map.to(torch.float32) <= tol).to(torch.float32)
     return (counts.to(torch.float32) @ hits.T).to(torch.int32)
 
 
@@ -168,7 +174,12 @@ def hit_votes(
     as float32. ``max_count`` bounds every count (see :func:`count_planes`);
     it picks the kernel's plane count and never needs a readback. The
     kernel stages a query tile's counts in shared memory, which holds
-    ``K * planes`` up to about 3,600."""
+    ``K * planes`` up to about 3,600.
+
+    ``value_map`` is float32 (the exact map) or uint8 (the prefilters'
+    quantized maps, :func:`quantize_value_map` and :func:`build_bound_maps`:
+    K3' then reads a quarter of the bytes and tests ``(float)m <= tol``,
+    exact because uint8 converts to float32 losslessly)."""
     tol = float(np.float32(tol))
     planes = count_planes(max_count)
     if counts.device.type == "cpu":
@@ -178,7 +189,8 @@ def hit_votes(
             f"hit_votes: counts on {counts.device}, map on {value_map.device}"
         )
     if (
-        counts.dtype != torch.int32 or value_map.dtype != torch.float32
+        counts.dtype != torch.int32
+        or value_map.dtype not in (torch.float32, torch.uint8)
         or not counts.is_contiguous() or not value_map.is_contiguous()
         or counts.ndim != 2 or value_map.ndim != 2
         or counts.shape[1] != value_map.shape[1]
@@ -186,7 +198,7 @@ def hit_votes(
     ):
         raise ValueError(
             "hit_votes needs contiguous counts [B, K] int32 and a 16-byte "
-            "aligned value_map [A, K] float32 (got "
+            "aligned value_map [A, K] float32 or uint8 (got "
             f"{tuple(counts.shape)} {counts.dtype}, "
             f"{tuple(value_map.shape)} {value_map.dtype})"
         )
@@ -203,12 +215,14 @@ def hit_votes(
         dtype=torch.uint8, device=counts.device,
     )
     lib = build.kernel_library()
-    rc = lib.tiresias_lattice_votes(
+    u8 = value_map.dtype == torch.uint8
+    fn = lib.tiresias_lattice_votes_u8 if u8 else lib.tiresias_lattice_votes
+    rc = fn(
         counts.data_ptr(), value_map.data_ptr(), b, a, k, tol, planes,
         scratch.data_ptr(), votes.data_ptr(),
         torch.cuda.current_stream(counts.device).cuda_stream,
     )
-    build.check("lattice_votes", rc)
+    build.check("lattice_votes_u8" if u8 else "lattice_votes", rc)
     return votes
 
 
@@ -236,3 +250,220 @@ def lattice_votes(
     c = histogram(q0, active, band_lo, band_hi, k_min, k_size)
     # a bucket holds at most every frame: the plane count K3' needs
     return hit_votes(c, value_map, tolerance, max_count=q0.shape[1])
+
+
+# ---- certified prefilters (PARITY.md D17/D19/D20) ------------------------ #
+#
+# A prefilter bounds every row's votes from above with the quantized maps
+# below (K3' on uint8), rescores the ``k`` rows of highest bound exactly, and
+# certifies the result when the ``top``-th best rescored score strictly beats
+# the highest bound left unselected; the engine full-scans otherwise.
+
+# Distances in the uint8 maps are ``floor(d * BOUND_Q)``, saturating at
+# BOUND_FAR (dead, tombstoned and padding rows hold it). Floor only
+# under-states a distance, so ``(Mq <= tol * BOUND_Q)`` is a superset of the
+# exact hit set for any tolerance: the bound stays valid.
+BOUND_Q = 64
+BOUND_FAR = 255
+
+# Bound-map specs of the strict/aligned prefilter: ``(scale, lo, hi)`` of a
+# coefficient's CLIPPED, SCALED values. Clipping is 1-Lipschitz, so a true
+# hit |q_c - d_c| <= tol implies a clipped-scaled lattice hit within
+# ``s * tol + 1``; K is ``(hi - lo) * s + 128`` (768 for both).
+BOUND_SPEC_C0 = (4.0, -120.0, 40.0)  # coef 0 spans the energy floor
+BOUND_SPEC_CN = (8.0, -40.0, 40.0)  # higher coefs concentrate near 0
+
+# Candidates the dialplan prefilter rescores (the engine takes it above
+# 2 x this many rows per view).
+LATTICE_PREFILTER_K = 256
+
+
+def quantize_value_map(value_map: torch.Tensor) -> torch.Tensor:
+    """uint8 companion of the dialplan distance map: ``floor(d * BOUND_Q)``
+    clipped to [0, BOUND_FAR] (+inf rows land on the sentinel; a NaN row,
+    :func:`_build_block`, becomes 0, as XLA converts NaN)."""
+    q = torch.clamp(torch.floor(value_map * float(BOUND_Q)), 0.0,
+                    float(BOUND_FAR))
+    return torch.nan_to_num(q, nan=0.0).to(torch.uint8)
+
+
+def bound_coef_indices(n_coefs: int) -> tuple[int, ...]:
+    """The coefficients the strict/aligned bound tests, for a search that
+    tests ``n_coefs`` (a bound on a coefficient the search does not test
+    would be unsound): coefs 1-2 discriminate best, and two coefficients
+    AND both."""
+    if n_coefs >= 3:
+        return (1, 2)
+    if n_coefs == 2:
+        return (0, 1)
+    return (0,)
+
+
+def bound_specs(n_coefs: int) -> tuple:
+    """Per-coefficient specs ``(coef, scale, lo, hi, k_min, k_size)`` of the
+    bound maps."""
+    out = []
+    for c in bound_coef_indices(n_coefs):
+        s, lo, hi = BOUND_SPEC_C0 if c == 0 else BOUND_SPEC_CN
+        out.append((c, s, lo, hi, int(lo * s), int((hi - lo) * s) + 128))
+    return tuple(out)
+
+
+def build_bound_maps(db: torch.Tensor, db_mask: torch.Tensor,
+                     coefs: int | None = None) -> tuple:
+    """``(specs, maps)``: one uint8 ``[A, k_size]`` map per spec, the value
+    map of ``clip(db[..., c], lo, hi) * s`` quantized as
+    :func:`quantize_value_map` (``coefs``: how many coefficients the search
+    tests; default every stored one). Built in row blocks where ``db``
+    lies."""
+    if coefs is None:
+        coefs = db.shape[2]
+    specs = bound_specs(min(coefs, db.shape[2]))
+    maps = []
+    for c, s, lo, hi, k_min, k_size in specs:
+        parts = [
+            quantize_value_map(_build_block(
+                torch.clamp(db[r0 : r0 + BUILD_CHUNK, :, c], lo, hi) * s,
+                db_mask[r0 : r0 + BUILD_CHUNK], k_min, k_size,
+            ))
+            for r0 in range(0, db.shape[0], BUILD_CHUNK)
+        ]
+        maps.append(torch.cat(parts) if len(parts) != 1 else parts[0])
+    return specs, tuple(maps)
+
+
+def bound_threshold(scale: float | None, tolerance: float) -> float:
+    """The uint8 maps' threshold in float32, as the JAX package computes it:
+    ``tol * BOUND_Q`` for the dialplan map (``scale`` None), ``(s * tol +
+    1) * BOUND_Q`` for a bound spec (the +1 is the truncation allowance)."""
+    f32 = np.float32
+    tol = f32(tolerance)
+    if scale is None:
+        return float(tol * f32(BOUND_Q))
+    return float((f32(scale) * tol + f32(1.0)) * f32(BOUND_Q))
+
+
+def bound_votes(specs: tuple, maps: tuple, q: torch.Tensor,
+                active: torch.Tensor, use2: torch.Tensor,
+                tolerance: float) -> torch.Tensor:
+    """Upper bound ``[B, A]`` int32 on every row's strict bag (and so
+    aligned) votes: the minimum over the bound coefficients of that
+    coefficient's clipped-scaled lattice votes (K3' on the uint8 map). A
+    frame whose q1 lies outside the band (``use2`` False) bypasses the
+    coefficient-1 test in the matcher, so it is credited to that
+    coefficient unconditionally."""
+    neg, pos = float("-inf"), float("inf")
+    out = None
+    for (c, s, lo, hi, k_min, k_size), m in zip(specs, maps):
+        act_c = (active & use2) if c == 1 else active
+        qc = torch.clamp(q[..., c], lo, hi) * s
+        v = lattice_votes(m, qc, act_c, bound_threshold(s, tolerance),
+                          neg, pos, k_min=k_min, k_size=k_size)
+        if c == 1:
+            v = v + (active & ~use2).sum(dim=1, dtype=torch.int32)[:, None]
+        out = v if out is None else torch.minimum(out, v)
+    return out
+
+
+def bound_tol_ok(specs_or_coefs, tolerance: float) -> bool:
+    """Whether the uint8 maps still inform at this tolerance: the threshold
+    must stay below BOUND_FAR, or every row passes the bound (valid, but
+    the certificate can never hold). ``None``: the dialplan map; a coef
+    count or a spec tuple: the strict bound, informative while ANY of its
+    coefficients is."""
+    if tolerance < 0:
+        return False
+    if specs_or_coefs is None:
+        return tolerance * BOUND_Q < BOUND_FAR
+    if isinstance(specs_or_coefs, int):
+        specs_or_coefs = bound_specs(specs_or_coefs)
+    return any((sp[1] * tolerance + 1.0) * BOUND_Q < BOUND_FAR
+               for sp in specs_or_coefs)
+
+
+def certificate(votes_k: torch.Tensor, unselected_max: torch.Tensor,
+                top: int = 1) -> torch.Tensor:
+    """``[B]`` bool: the ``top``-th best rescored score strictly beats the
+    highest unselected bound (strict: a certified winner ties no unselected
+    row, so the D5 tiebreak stays exact), or nothing unselected can score."""
+    if top == 1:
+        kth = votes_k.max(dim=1).values
+    else:
+        kth = torch.topk(votes_k, top, dim=1).values[:, -1]
+    return (kth > unselected_max) | (unselected_max <= 0)
+
+
+def scatter_candidates(votes_k: torch.Tensor, idx: torch.Tensor,
+                       n_rows: int) -> torch.Tensor:
+    """Candidate scores scattered into ``[B, n_rows]`` int32, zeros
+    elsewhere."""
+    out = torch.zeros((votes_k.shape[0], n_rows), dtype=torch.int32,
+                      device=votes_k.device)
+    return out.scatter_reduce_(1, idx.to(torch.int64), votes_k, "amax")
+
+
+def select_candidates(bound: torch.Tensor, k: int):
+    """``(idx [B, k] int64, unselected_max [B] int32)``: the ``k`` rows of
+    highest bound (exact ``torch.topk``; which of tied rows it picks is
+    free) and the highest bound among the rest, computed exactly after the
+    picked rows are set to -1."""
+    idx = torch.topk(bound, k, dim=1).indices
+    rest = bound.scatter(1, idx, -1)
+    return idx, rest.max(dim=1).values
+
+
+def rescore_rows(value_map: torch.Tensor, counts: torch.Tensor,
+                 idx: torch.Tensor, tol: float) -> torch.Tensor:
+    """Exact dialplan votes ``[B, k]`` int32 of each query's candidate rows:
+    the rows ``idx`` gathered from the float32 map and contracted with the
+    query histogram in int32 (``_prefilter_core``'s ``vm[idx]`` and
+    einsum, in plain torch)."""
+    rows = value_map[idx]  # [B, k, K]
+    hit = rows <= float(np.float32(tol))
+    return torch.where(hit, counts[:, None, :], 0).sum(dim=2,
+                                                       dtype=torch.int32)
+
+
+def lattice_prefiltered_votes(
+    value_map: torch.Tensor,
+    value_map_q: torch.Tensor,
+    q0: torch.Tensor,
+    active: torch.Tensor,
+    tolerance: float,
+    band_lo: float,
+    band_hi: float,
+    k: int | None = None,
+    top: int = 1,
+    ctx_ids: torch.Tensor | None = None,
+    ctx_id: int | None = None,
+    k_min: int = K_MIN,
+    k_size: int = K_SIZE,
+):
+    """CERTIFIED two-stage dialplan search (PARITY.md D19): the uint8 bound
+    scan (K3' on ``value_map_q``), the ``k`` rows of highest bound, their
+    exact votes on the float32 map, and the certificate.
+
+    Returns ``(votes [B, A] int32 — candidate scores scattered, zeros
+    elsewhere; certificate [B] bool)``. Where the certificate holds, the
+    top-``top`` rows of ``votes`` (by votes, then lowest row) are the full
+    scan's. Out-of-context rows (``ctx_ids != ctx_id``) get bound -1 and,
+    if selected, score 0."""
+    if k is None:
+        k = LATTICE_PREFILTER_K
+    n_rows = value_map.shape[0]
+    k = min(int(k), n_rows)
+    if top > k:
+        raise ValueError(f"top={top} exceeds the candidate budget k={k}")
+    c = histogram(q0, active, band_lo, band_hi, k_min, k_size)
+    bound = hit_votes(c, value_map_q, bound_threshold(None, tolerance),
+                      max_count=q0.shape[1])
+    keep = None
+    if ctx_ids is not None:
+        keep = ctx_ids == ctx_id
+        bound = torch.where(keep[None, :], bound, -1)
+    idx, unselected_max = select_candidates(bound, k)
+    votes_k = rescore_rows(value_map, c, idx, tolerance)
+    if keep is not None:
+        votes_k = torch.where(keep[idx], votes_k, 0)
+    return (scatter_candidates(votes_k, idx, n_rows),
+            certificate(votes_k, unselected_max, top))

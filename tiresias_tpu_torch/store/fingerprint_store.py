@@ -10,8 +10,10 @@ top tier are split into consecutive segment rows of one catalog entry.
 
 Device side, each non-empty tier has a :class:`TierView` of torch tensors
 (rows padded to multiples of 128). Any mutation rebuilds the views on the
-next search; the lattice distance map, the per-row insertion seqs and the
-per-row context ids are derived lazily per view.
+next search; the lattice distance map, the certified prefilters' uint8 maps
+(the quantized distance map and the strict/aligned bound maps), K4/K5's
+sorted index, the per-row insertion seqs and the per-row context ids are
+derived lazily per view.
 
 The checkpoint is the JAX package's version-4 format — ``catalog.json``
 plus immutable per-tier ``.npy`` segment files, committed by an atomic
@@ -22,6 +24,7 @@ checkpoint written by either package restores in the other.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -34,7 +37,12 @@ from tiresias_tpu_torch.config import DEF_N_COEFS
 from tiresias_tpu_torch.utils.hashing import generate_uuid
 from tiresias_tpu_torch.utils.logging import get_logger
 from tiresias_tpu_torch.ops.match_index import MatchIndex, build_match_index
-from tiresias_tpu_torch.ops.match_lattice import build_value_map
+from tiresias_tpu_torch.ops.match_lattice import (
+    bound_coef_indices,
+    build_bound_maps,
+    build_value_map,
+    quantize_value_map,
+)
 from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 from tiresias_tpu_torch.utils.device import resolve_device
 
@@ -280,10 +288,17 @@ class TierView:
     dead_rows: frozenset = frozenset()
     segments: tuple = ()  # row groups of auto-split audios
     value_map: torch.Tensor | None = None  # [A_pad, K], lazily built
+    # the certified prefilters' uint8 maps, lazily: the dialplan map
+    # quantized, and the strict/aligned bound maps keyed by
+    # bound_coef_indices -> (specs, maps)
+    value_map_q: torch.Tensor | None = None
+    bound_maps: dict | None = None
     match_index: MatchIndex | None = None  # K4/K5's sorted index, lazily
     seq_dev: torch.Tensor | None = None  # [A_pad] int64, lazily built
     ctx_dev: torch.Tensor | None = None  # [A_pad] int32, lazily built
     seg_dev: tuple | None = None  # (followers, heads) int64, lazily built
+    # process-unique: the key of the engine's adaptive prefilter gate
+    gen: int = dataclasses.field(default_factory=itertools.count().__next__)
 
 
 def _combine_segment_rows(vm: torch.Tensor, groups) -> torch.Tensor:
@@ -536,6 +551,31 @@ class FingerprintStore:
                 vm = build_value_map(view.db[..., 0], view.mask)
                 view.value_map = _combine_segment_rows(vm, view.segments)
             return view.value_map
+
+    def value_map_q_for(self, view: TierView) -> torch.Tensor:
+        """uint8 companion ``[A_pad, K]`` of :meth:`value_map_for` for the
+        certified dialplan prefilter (``floor(d * 64)``; dead and padding
+        rows hold the 255 sentinel), derived on the device from the f32 map
+        and cached on the view."""
+        with self._lock:
+            if view.value_map_q is None:
+                view.value_map_q = quantize_value_map(self.value_map_for(view))
+            return view.value_map_q
+
+    def bound_maps_for(self, view: TierView, coefs: int) -> tuple:
+        """``(specs, maps)`` of the strict/aligned prefilter for a search
+        testing ``coefs`` coefficients, built on the device from the view's
+        own tensors (its mask leaves out dead and padding rows: sentinel
+        255) and cached on the view, one entry per coefficient set. Any
+        mutation rebuilds the views, and these maps with them."""
+        key = bound_coef_indices(min(coefs, self.n_coefs))
+        with self._lock:
+            if view.bound_maps is None:
+                view.bound_maps = {}
+            if key not in view.bound_maps:
+                view.bound_maps[key] = build_bound_maps(view.db, view.mask,
+                                                        coefs)
+            return view.bound_maps[key]
 
     def match_index_for(self, view: TierView) -> MatchIndex:
         """K4/K5's sorted index of one view (``ops/match_index.py``), built

@@ -40,11 +40,15 @@ NVCC_FLAGS = (
 # K5 is two kernels: match_votes_aligned (the index kernel) and
 # match_votes_aligned_dense (the dense kernel over its work list); the work
 # items of each route are counted on the device
-# (ops/match_kernels.py::route_counts).
+# (ops/match_kernels.py::route_counts). lattice_votes_u8 is K3' on a uint8
+# map (the prefilters' bound scans); the *_cand names are K4/K5's candidate
+# form (the strict/aligned prefilter's rescore).
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
-    "mfcc_framed_dft": 0, "lattice_votes": 0, "match_votes": 0,
-    "match_votes_aligned": 0, "match_votes_aligned_dense": 0,
+    "mfcc_framed_dft": 0, "lattice_votes": 0, "lattice_votes_u8": 0,
+    "match_votes": 0, "match_votes_aligned": 0,
+    "match_votes_aligned_dense": 0, "match_votes_cand": 0,
+    "match_votes_aligned_cand": 0, "match_votes_aligned_cand_dense": 0,
 }
 
 _P = ctypes.c_void_p
@@ -71,17 +75,20 @@ _SIGNATURES = {
     # counts, value_map, batch, rows, k_size, tol, n_planes, scratch,
     # votes, stream
     "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+    # the same over a uint8 map
+    "tiresias_lattice_votes_u8": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     # db, query_rows, entries, pos, n_live, batch, rows, t_len, n_coefs,
-    # coefs, f_len, chunk, n_chunks, tol, dense share, votes, routes, stream
+    # coefs, f_len, chunk, n_chunks, tol, dense share, cand (or null),
+    # n_cand, votes, routes, stream
     "tiresias_match_votes": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
-        _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I,
+        _P, _P, _P,
     ],
-    # the same with the warps per block before votes, and the work list
-    # and its length after them
+    # the same with the warps per block before cand, and the work list
+    # and its length after votes
     "tiresias_match_votes_aligned": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
-        _P, _P, _P, _P,
+        _I, _P, _P, _P, _P, _P,
     ],
     # chunk, f_len, batch
     "tiresias_match_aligned_warps": [_I, _I, _I],
