@@ -246,6 +246,26 @@ def topk_ms(bound) -> dict:
     return out
 
 
+def library_bounds(tag: str, b: int, a: int, k: int, kk: int) -> dict:
+    """The bounds of the prefilters' library and plain-torch steps, from
+    their shapes: ``torch.topk`` of [b, a] int32 bounds (the bounds read
+    once; k int32 values and int64 indices a query written once) at both
+    candidate budgets, and ``rescore_rows`` of [b, k, kk] (the gathered
+    float32 rows, the int32 histograms and the int64 ids read once, the
+    int32 votes written once; a compare and an add per element)."""
+    from tiresias_tpu_torch.ops import match_kernels as tk
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    out = {f"torch.topk [{b}, {a}] k={kt}": bound(4 * b * a + 12 * b * kt, 0)
+           for kt in (ml.LATTICE_PREFILTER_K, tk.PREFILTER_K)}
+    out[f"rescore_rows [{b}, {k}, {kk}]"] = bound(
+        4 * b * k * kk + 4 * b * kk + 12 * b * k, 2 * b * k * kk)
+    say(f"{tag} bounds (3.35 TB/s, 67 TFLOP/s): " + "; ".join(
+        f"{n} {v['bound_ms']:.6f} ms ({v['bound_by']})"
+        for n, v in out.items()))
+    return {n: v["bound_ms"] for n, v in out.items()}
+
+
 def pf_notes(eng) -> dict:
     """Counts of the certificates the engine notes, per prefilter mode:
     ``{mode: [certified, fell back]}`` (the engine counts the fallbacks in
@@ -819,22 +839,35 @@ def routes_delta(device, fn) -> tuple:
 
 
 def timed_match(label: str, fns: dict, plain=None, plain_reps: int = 2,
-                reps: int = 10):
+                reps: int = 10, events: bool = False):
     """Device times of the auto route and the forced dense route (and the
-    forced index route, when ``fns`` has it) in turns, two rounds, and of
-    the twin around them when given."""
-    order = ["dense", "auto"] + (["index"] if "index" in fns else [])
+    forced index route, and the candidate form's "per_item" and "grouped"
+    forms, when ``fns`` has them) in turns, two rounds, and of the twin
+    around them when given. With ``events``, each turn also takes the
+    CUDA-event time of back-to-back calls (``stream_ms``), printed with
+    both rounds of both clocks: a check on the profiler's sums."""
+    extra = [k for k in ("index", "per_item", "grouped") if k in fns]
+    order = ["dense", "auto"] + extra
     times = {k: [] for k in order}
+    ev = {k: [] for k in order}
     if plain is not None:
         times["plain"] = [device_ms(plain, plain_reps)]
     for k in order + order[::-1]:
         times[k].append(device_ms(fns[k], reps))
+        if events:
+            ev[k].append(stream_ms(fns[k], reps))
     if plain is not None:
         times["plain"].append(device_ms(plain, plain_reps))
     out = {k: float(np.median(v)) for k, v in times.items()}
+    if events:
+        out["stream"] = {k: float(np.median(v)) for k, v in ev.items()}
+        say(f"[kernels] {label}: rounds, device (profiler) / stream (CUDA "
+            f"events) ms: " + "; ".join(
+                f"{k} {times[k]} / {ev[k]}" for k in order))
     say(f"[kernels] {label}: device {out['auto']} ms, dense route "
         f"{out['dense']} ms ({out['dense'] / out['auto']:.2f}x)"
-        + (f", index route {out['index']} ms" if "index" in out else "")
+        + "".join(f", {k.replace('_', '-')} {'route' if k == 'index' else 'form'}"
+                  f" {out[k]} ms" for k in extra)
         + (f", plain twin {out['plain']} ms" if plain is not None else ""))
     return out
 
@@ -1085,18 +1118,120 @@ def phase_match_real(device, eng, queries) -> list[dict]:
             say(f"[kernels] {name}: bound {bd['bound_ms']:.5f} ms "
                 f"({bd['bound_by']}), {100 * bd['bound_ms'] / t['auto']:.1f}%"
                 f" of it; votes exact on the auto, dense and index routes")
-    return phase_match_cand(device, eng, view, index, q, active, use2, f)
+    out = phase_match_cand(device, eng, view, index, q, active, use2, f)
+    phase_cand_sharing(device, view, q[:64], active[:64], use2[:64])
+    return out
+
+
+def phase_cand_sharing(device, view, q, act, use2) -> None:
+    """The candidate forms by how many queries share each row: the
+    catalog's view repeated 7 times (70,784 rows, so 64 x 1,024 slots can
+    fall on distinct rows), each group of s queries on one list of 1,024
+    rows (lists disjoint), s = 1, 2, 4, 8 and 64; the grouped form's auto,
+    dense and index routes and the per-item form, exact against the full
+    kernels' votes at those rows, timed in turns. The crossover of K5's
+    routes sets CAND_SHARED (ops/match_kernels.py)."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_index as mi
+    from tiresias_tpu_torch.ops import match_kernels as tk
+
+    db = view.db.repeat(7, 1, 1).contiguous()
+    index = mi.build_match_index(db)
+    g = torch.Generator(device=device).manual_seed(109)
+    perm = torch.randperm(db.shape[0], generator=g, device=device)
+    fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
+    full = {al: fn(db, q, act, use2, STRICT_TOL, 2, index=index)
+            for al, fn in fns.items()}
+    for s in (1, 2, 4, 8, 64):
+        lists = perm[: 64 // s * 1024].reshape(64 // s, 1024)
+        cand = lists[torch.arange(64, device=device) // s].to(
+            torch.int32).contiguous()
+        for al in (False, True):
+            want = full[al].gather(1, cand.long())
+            call = {r: (lambda r=r, al=al: tk.match_votes_cand(
+                        db, q, act, use2, STRICT_TOL, cand, 2, index=index,
+                        route=r, aligned=al))
+                    for r in ("auto", "dense", "index", "per_item")}
+            for r, c in call.items():
+                if not torch.equal(c(), want):
+                    fail(f"[kernels] sharing s={s} K{5 if al else 4}: the {r}"
+                         f" route != the full kernel's votes at those rows")
+            name = (f"K{5 if al else 4} candidate forms, {s} queries per "
+                    f"row, B=64 x k=1,024 of {db.shape[0]} rows")
+            timed_match(name, call, reps=5, events=True)
+            say(f"[kernels] {name}: auto routes (K4 index, K4 dense, K5 "
+                f"index, K5 dense) {routes_delta(device, call['auto'])}; "
+                f"votes exact on every route and form")
+    del db, index
+    torch.cuda.empty_cache()
+
+
+CAND_ROUTES = ("auto", "dense", "index", "grouped", "per_item")
+
+
+def check_grouping(label: str, cand, rows: int, f: int) -> dict:
+    """The candidate form's work list on the card against its twin (the
+    same items; row by row the same slots), how the candidates share rows
+    (distinct rows, slots per chosen row, work items of K4's and K5's
+    grouped forms) and the grouping's device time beside its twin's, at
+    each kernel's queries per item."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_kernels as tk
+
+    flat = cand.reshape(-1).long()
+    valid = flat[(flat >= 0) & (flat < rows)]
+    per_row = torch.bincount(valid, minlength=rows)
+    chosen = per_row[per_row > 0].float()
+    out = {"slots": int(valid.numel()), "distinct_rows": int(chosen.numel()),
+           "slots_per_row_mean": float(chosen.mean()),
+           "slots_per_row_max": int(chosen.max())}
+    for aligned in (False, True):
+        g = tk.cand_group_size(aligned, f)
+        slots, items, n = tk.group_candidates(cand, rows, g)
+        ps, pi, pn = tk.group_candidates_plain(cand, rows, g)
+        n = int(n)
+        ks = slots[: ps.numel()].long()
+        if (n != int(pn) or not torch.equal(items[:n], pi)
+                or not torch.equal(flat[ks], flat[ps.long()])
+                or not torch.equal(ks[torch.argsort(flat[ks] * flat.numel()
+                                                    + ks)], ps.long())):
+            fail(f"[kernels] group_candidates ({label}, g={g}) != its twin")
+        key = "k5" if aligned else "k4"
+        ms = [device_ms(lambda: tk.group_candidates_plain(cand, rows, g), 10),
+              device_ms(lambda: tk.group_candidates(cand, rows, g), 20),
+              device_ms(lambda: tk.group_candidates(cand, rows, g), 20),
+              device_ms(lambda: tk.group_candidates_plain(cand, rows, g), 10)]
+        out[key] = {"g": g, "items": n, "ms": float(np.median(ms[1:3])),
+                    "plain_ms": float(np.median(ms[::3])),
+                    # cand read once, slots and items written once
+                    **bound(4 * flat.numel() + 4 * ps.numel() + 16 * n, 0)}
+    say(f"[kernels] candidates ({label}) B={cand.shape[0]} x k="
+        f"{cand.shape[1]}: {out['slots']} valid slots on "
+        f"{out['distinct_rows']} distinct rows, {out['slots_per_row_mean']:.3f}"
+        f" slots per chosen row on average, max {out['slots_per_row_max']}; "
+        f"work items K4 {out['k4']['items']} (g={out['k4']['g']}), K5 "
+        f"{out['k5']['items']} (g={out['k5']['g']}); group_candidates == "
+        f"twin; device {out['k4']['ms']} / {out['k5']['ms']} ms (plain twin "
+        f"{out['k4']['plain_ms']} / {out['k5']['plain_ms']} ms), bound "
+        f"{out['k5']['bound_ms']:.5f} ms ({out['k5']['bound_by']})")
+    return out
 
 
 def phase_match_cand(device, eng, view, index, q, active, use2, f):
     """K4/K5's candidate form on the traffic the strict prefilter sends:
     the catalog's own view and index, each query's 1,024 candidates by its
-    bound (the engine's own selection), batch 64 and 1; int32-exact against
-    the full kernels' votes at those rows on every route and against the
-    twin, timed on the auto, dense and index routes, with the candidates'
-    own band statistics and bound. Then the ops-level prefiltered and
-    full-scan votes in turns. Returns the candidate forms' kernel
-    entries."""
+    bound (the engine's own selection), batch 64 and 1, and two synthetic
+    sharings at batch 64: every query on query 0's 1,024 candidates, and
+    the slots spread evenly over the view's rows. On each: the work list
+    against its twin, the sharing and the grouping's time; every route of
+    the grouped form (auto, dense, index, "grouped") and the per-item form
+    int32-exact against the full kernels' votes at those rows (and the twin,
+    on the catalog's candidates); the grouped form's routes and the
+    per-item form timed in turns, with the candidates' own band statistics
+    and bound. Then the ops-level prefiltered and full-scan votes in turns.
+    Returns the candidate forms' kernel entries."""
     import torch
 
     from tiresias_tpu_torch.ops import match_kernels as tk
@@ -1104,59 +1239,78 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
 
     fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
     specs, maps = eng.store.bound_maps_for(view, 2)
-    res = {}
+    rows = view.db.shape[0]
+    cases = []
     for b in (64, 1):
-        qq, act, u2 = q[:b], active[:b], use2[:b]
         idx, _ = ml.select_candidates(
-            ml.bound_votes(specs, maps, qq, act, u2, STRICT_TOL),
-            tk.PREFILTER_K)
-        cand = idx.to(torch.int32)
+            ml.bound_votes(specs, maps, q[:b], active[:b], use2[:b],
+                           STRICT_TOL), tk.PREFILTER_K)
+        cases.append(("catalog", b, idx.to(torch.int32).contiguous()))
+    k = cases[0][2].shape[1]
+    cases.append(("same rows", 64, cases[0][2][:1].repeat(64, 1).contiguous()))
+    cases.append(("even", 64, (torch.arange(64 * k, device=device).reshape(
+        64, k) % rows).to(torch.int32)))
+    res, sharing = {}, {}
+    for label, b, cand in cases:
+        qq, act, u2 = q[:b], active[:b], use2[:b]
+        sharing[label, b] = check_grouping(label, cand, rows, f)
         st = band_stats(index, qq, act, u2, STRICT_TOL, cand)
         for aligned in (False, True):
             kname = ("match_votes_aligned_cand" if aligned
                      else "match_votes_cand")
-            name = (f"K{5 if aligned else 4} {kname} (b) real candidates "
-                    f"B={b} x k={cand.shape[1]}")
+            name = (f"K{5 if aligned else 4} {kname} (b) {label} candidates "
+                    f"B={b} x k={k}")
             want = fns[aligned](view.db, qq, act, u2, STRICT_TOL, 2,
-                                index=index).gather(1, idx)
+                                index=index).gather(1, cand.long())
             call = {r: (lambda r=r, al=aligned: tk.match_votes_cand(
                         view.db, qq, act, u2, STRICT_TOL, cand, 2,
                         index=index, route=r, aligned=al))
-                    for r in ("auto", "dense", "index")}
+                    for r in CAND_ROUTES}
             for r, c in call.items():
                 if not torch.equal(c(), want):
                     fail(f"{name}: the {r} route != the full kernel's votes "
                          f"at those rows")
-            # the twin loops over the queries in thousands of small ops: one
-            # call, timed with events (a profile of it costs minutes)
-            a_ev = torch.cuda.Event(enable_timing=True)
-            b_ev = torch.cuda.Event(enable_timing=True)
-            a_ev.record()
-            twin = tk.match_votes_cand_plain(view.db, qq, act, u2, STRICT_TOL,
-                                             cand, 2, aligned)
-            b_ev.record()
-            b_ev.synchronize()
-            if not torch.equal(twin, want):
-                fail(f"{name}: the twin != the full kernel's votes")
-            t = timed_match(name, call, reps=10 if b > 1 else 50)
-            t["plain"] = a_ev.elapsed_time(b_ev)
-            say(f"[kernels] {name}: plain twin {t['plain']} ms (one call, "
-                f"CUDA events)")
+            if b > 1:  # "grouped" is the auto route there
+                del call["grouped"]
+            plain = None
+            if label == "catalog":
+                # the twin loops over the queries in thousands of small ops:
+                # one call, timed with events (a profile of it costs minutes)
+                a_ev = torch.cuda.Event(enable_timing=True)
+                b_ev = torch.cuda.Event(enable_timing=True)
+                a_ev.record()
+                twin = tk.match_votes_cand_plain(view.db, qq, act, u2,
+                                                 STRICT_TOL, cand, 2, aligned)
+                b_ev.record()
+                b_ev.synchronize()
+                if not torch.equal(twin, want):
+                    fail(f"{name}: the twin != the full kernel's votes")
+                plain = a_ev.elapsed_time(b_ev)
+                say(f"[kernels] {name}: plain twin {plain} ms (one call, "
+                    f"CUDA events)")
+            t = timed_match(name, call, reps=10 if b > 1 else 50,
+                            events=True)
+            t["plain"] = plain
             routes = routes_delta(device, call["auto"])
             say_bands(name, st, routes, aligned)
             bd = index_bound(index, st, b, f, aligned)
+            grouped = t["grouped" if b == 1 else "auto"]
             say(f"[kernels] {name}: bound {bd['bound_ms']:.5f} ms "
                 f"({bd['bound_by']}) from the candidates' own bands, "
-                f"{100 * bd['bound_ms'] / t['auto']:.1f}% of it; votes exact "
-                f"on the auto, dense and index routes and the twin")
-            res[aligned, b] = dict(t, bound=bd, stats=st)
+                f"{100 * bd['bound_ms'] / t['auto']:.1f}% of it; grouped "
+                f"{grouped} ms against per-item {t['per_item']} ms "
+                f"({t['per_item'] / grouped:.2f}x); votes exact on every "
+                f"route and form" + (" and the twin" if plain else ""))
+            res[label, aligned, b] = dict(t, bound=bd, stats=st)
+        if label != "catalog":
+            continue
         # every (query, candidate) pair tested: the dense route's bound
-        live = index.n_live.sum(dim=1)[idx.reshape(-1)].reshape(idx.shape)
+        live = index.n_live.sum(dim=1)[cand.long().reshape(-1)].reshape(
+            cand.shape)
         pairs = float((act.sum(dim=1) * live.sum(dim=1)).sum())
-        rows_read = torch.unique(idx).numel()
         res["dense", b] = bound(
-            rows_read * view.db.shape[1] * 2 * 4 + b * 4 * f * 4
-            + 2 * 4 * idx.numel(), pairs * 2 * 2)
+            sharing[label, b]["distinct_rows"] * view.db.shape[1] * 2 * 4
+            + b * 4 * f * 4 + 2 * 4 * cand.numel(), pairs * 2 * 2)
         # the ops-level prefilter against the full scan, in turns
         for aligned in (False, True):
             mode = "aligned" if aligned else "bag"
@@ -1174,45 +1328,87 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
             reps = 5 if b > 1 else 20
             t = [(device_ms(fn, reps), stream_ms(fn, reps))
                  for fn in (full, pf, pf, full)]
-            dev = [float(np.median([t[i][0] for i in idx]))
-                   for idx in ((1, 2), (0, 3))]
-            st = [float(np.median([t[i][1] for i in idx]))
-                  for idx in ((1, 2), (0, 3))]
+            dev = [float(np.median([t[i][0] for i in ii]))
+                   for ii in ((1, 2), (0, 3))]
+            st_ms = [float(np.median([t[i][1] for i in ii]))
+                     for ii in ((1, 2), (0, 3))]
             say(f"[prefilter] {mode} ops B={b} tol {STRICT_TOL}: prefiltered "
-                f"{dev[0]} ms device, {st[0]} ms on the stream (K3'-u8 "
+                f"{dev[0]} ms device, {st_ms[0]} ms on the stream (K3'-u8 "
                 f"bound, top-1024, candidate form); full scan {dev[1]} ms "
-                f"device, {st[1]} ms on the stream; certified "
+                f"device, {st_ms[1]} ms on the stream; certified "
                 f"{int(cert.sum())}/{b}")
     none = "no single PyTorch call computes tolerance votes"
+    shape = ("B=64 x 1,024 candidates of the 10,112-row catalog x 1,024 "
+             "frames x 2 coefs, tol 0.1")
     out = []
     for aligned, kname in ((False, "match_votes_cand"),
                            (True, "match_votes_aligned_cand")):
-        r64, r1 = res[aligned, 64], res[aligned, 1]
+        r64, r1 = res["catalog", aligned, 64], res["catalog", aligned, 1]
+        common = {"route": "cuda",
+                  "source": "tiresias_tpu_torch/csrc/match.cu",
+                  "replaces": "tiresias_tpu/ops/match_pallas.py:566",
+                  "max_abs_err": 0.0, "plain_ms": r64["plain"], **r64["bound"],
+                  "library_ms": None, "library": none,
+                  "plain_timing": "one call of the twin, CUDA events",
+                  "bound_ms_b1": r1["bound"]["bound_ms"],
+                  "bands": dict(r64["stats"])}
+        synthetic = {
+            f"{form}_ms_{lab.replace(' ', '_')}": res[lab, aligned, 64][key]
+            for lab in ("same rows", "even")
+            for form, key in (("grouped", "auto"), ("per_item", "per_item"))}
         out.append({
-            "name": kname, "route": "cuda",
-            "source": "tiresias_tpu_torch/csrc/match.cu",
-            "replaces": "tiresias_tpu/ops/match_pallas.py:566",
-            "max_abs_err": 0.0, "ms": r64["auto"], "plain_ms": r64["plain"],
-            **r64["bound"], "library_ms": None, "library": none,
-            "shape": "B=64 x 1,024 candidates of the 10,112-row catalog x "
-                     "1,024 frames x 2 coefs, tol 0.1",
-            "plain_timing": "one call of the twin, CUDA events",
-            "dense_route_ms": r64["dense"], "index_route_ms": r64["index"],
-            "ms_b1": r1["auto"], "bound_ms_b1": r1["bound"]["bound_ms"],
-            "bands": dict(r64["stats"]),
+            "name": kname, **common, "ms": r64["auto"],
+            "shape": shape + " (grouped form: one block per row and up to "
+                     "g of its queries; its work list included)",
+            "per_item_ms": r64["per_item"], "dense_route_ms": r64["dense"],
+            "index_route_ms": r64["index"], "ms_b1": r1["grouped"],
+            "per_item_ms_b1": r1["per_item"], **synthetic,
+            "stream_ms": r64["stream"], "stream_ms_b1": r1["stream"],
         })
+        out.append({
+            "name": kname + "_per_item", **common, "ms": r64["per_item"],
+            "shape": shape + " (per-item form: one block per (query, "
+                     "candidate); the auto route at batch 1)",
+            "grouped_ms": r64["auto"], "ms_b1": r1["per_item"],
+        })
+    d64 = {"max_abs_err": 0.0, "route": "cuda",
+           "source": "tiresias_tpu_torch/csrc/match.cu",
+           "replaces": "tiresias_tpu/ops/match_pallas.py:566",
+           "plain_ms": res["catalog", True, 64]["plain"], **res["dense", 64],
+           "plain_timing": "one call of the twin, CUDA events",
+           "library_ms": None, "library": none}
     out.append({
-        "name": "match_votes_aligned_cand_dense", "route": "cuda",
-        "source": "tiresias_tpu_torch/csrc/match.cu",
-        "replaces": "tiresias_tpu/ops/match_pallas.py:566",
-        "max_abs_err": 0.0, "ms": res[True, 64]["dense"],
-        "plain_ms": res[True, 64]["plain"], **res["dense", 64],
-        "plain_timing": "one call of the twin, CUDA events",
-        "library_ms": None, "library": none,
+        "name": "match_votes_aligned_cand_dense", **d64,
+        "ms": res["catalog", True, 64]["dense"],
         "shape": "every (query, candidate) item: B=64 x 1,024 candidates x "
-                 "1,024 frames x 2 coefs (the candidate form's forced "
-                 "dense route, both kernels)",
-        "ms_b1": res[True, 1]["dense"],
+                 "1,024 frames x 2 coefs (the grouped form's forced dense "
+                 "route: its index kernel lists every item, the dense "
+                 "kernel serves them)",
+        "ms_b1": res["catalog", True, 1]["dense"],
+    })
+    out.append({
+        "name": "match_votes_aligned_cand_dense_per_item", **d64,
+        "ms": res["catalog", True, 64]["per_item"],
+        "shape": "the per-item K5 call at B=64 x 1,024 candidates (its index "
+                 "kernel and its dense kernel, which takes the items with "
+                 "wide bands: most of them on the catalog)",
+        "ms_b1": res["catalog", True, 1]["per_item"],
+    })
+    s64 = sharing["catalog", 64]
+    out.append({
+        "name": "group_candidates", "route": "cuda",
+        "source": "tiresias_tpu_torch/csrc/match.cu",
+        "replaces": "tiresias_tpu/ops/match_pallas.py:566 (the per-query "
+                    "db[idx] gather becomes a row-major work list)",
+        "max_abs_err": 0.0, "ms": s64["k5"]["ms"],
+        "plain_ms": s64["k5"]["plain_ms"], "bound_ms": s64["k5"]["bound_ms"],
+        "bound_by": s64["k5"]["bound_by"], "library_ms": None,
+        "library": "no single PyTorch call computes it (a stable sort of "
+                   "the row ids neither drops invalid ids nor cuts items)",
+        "shape": "cand [64, 1,024] of the catalog over 10,112 rows, g=8 "
+                 "(K5); three kernels: counts, scan, scatter",
+        "ms_g16": s64["k4"]["ms"], "ms_b1": sharing["catalog", 1]["k5"]["ms"],
+        "sharing": {f"{lab} B={b}": v for (lab, b), v in sharing.items()},
     })
     return out
 
@@ -1530,6 +1726,8 @@ def phase_lattice_real(vm, q0, valid) -> dict:
     library.update(topk_ms(bound64))
     for name, ms in library.items():
         say(f"[library] {name}: device {ms} ms")
+    library["bound_ms"] = library_bounds("[library]", *bound64.shape,
+                                         idx.shape[1], vm.shape[1])
     return library
 
 
@@ -2166,6 +2364,7 @@ def phase_prefilter(device, tmp: str) -> dict:
     from tiresias_tpu_torch import ContextConfig, TiresiasConfig
     from tiresias_tpu_torch.api import Tiresias
     from tiresias_tpu_torch.ops.mfcc import fingerprint_signals
+    from tiresias_tpu_torch.utils import build
 
     cfg = TiresiasConfig(contexts=(ContextConfig("media", ""),),
                          data_dir=os.path.join(tmp, "prefilter_data"))
@@ -2234,6 +2433,9 @@ def phase_prefilter(device, tmp: str) -> dict:
         lambda: ml.hit_votes(c, view.value_map, 0.001, qfp.shape[1]))
     for name, ms in library.items():
         say(f"[prefilter] {name}: device {ms} ms")
+    library["bound_ms"] = library_bounds(
+        "[prefilter]", *bound100k.shape, idx.shape[1],
+        view.value_map.shape[1])
     del bound100k, c
     notes = pf_notes(eng)
     cells = (("dialplan", {"coefs": 1, "tolerance": 0.001}, "lattice", 64),
@@ -2252,6 +2454,7 @@ def phase_prefilter(device, tmp: str) -> dict:
         got = {}
         cert0 = list(notes.get(pf_mode, [0, 0]))
         fb0 = fallbacks()
+        launches0 = dict(build.LAUNCHES)
         dev = {"prefilter": [], "full": []}
         for path in ("prefilter", "full", "full", "prefilter"):
             with (gates_closed() if path == "full"
@@ -2279,6 +2482,15 @@ def phase_prefilter(device, tmp: str) -> dict:
                                             cert0))
         if cert + miss == 0:
             fail(f"[prefilter] {name} B={b}: no search took the prefilter")
+        grouped = {}
+        if pf_mode != "lattice":  # the grouped candidate form rescored
+            kern = ("match_votes_aligned_cand" if pf_mode == "aligned"
+                    else "match_votes_cand")
+            grouped = {n: build.LAUNCHES[n] - launches0[n]
+                       for n in ("group_candidates", kern)}
+            if min(grouped.values()) <= 0:
+                fail(f"[prefilter] {name} B={b}: the grouped candidate form "
+                     f"never launched: {grouped}")
         p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
         turns = {k: list(v) for k, v in dev.items()}
         dev = {k: float(np.median(v)) for k, v in dev.items()}
@@ -2291,10 +2503,11 @@ def phase_prefilter(device, tmp: str) -> dict:
             f"{turns['full']}); certified {cert}, fell back {miss} (per search "
             f"call; "
             f"search.prefilter_fallbacks +{fallbacks() - fb0:.0f}); "
-            f"FOUND {found}/{len(got['prefilter'])}; TIR* equal")
+            f"FOUND {found}/{len(got['prefilter'])}; TIR* equal"
+            + (f"; grouped candidate launches {grouped}" if grouped else ""))
         out[f"{name} tol {kw['tolerance']} B={b}"] = {
             "p50": p50, "device_ms": dev, "certified": cert,
-            "fell_back": miss, "found": found}
+            "fell_back": miss, "found": found, "launches": grouped}
         results[name, kw["tolerance"], b] = got["prefilter"]
     # the numpy brute force over every stored track, 2 queries per mode
     t0 = time.perf_counter()
@@ -2517,10 +2730,14 @@ def run(device) -> dict:
         torch.cuda.synchronize(device)
         strict_launches = dict(build.LAUNCHES)  # --- and ends here ---
         routes = (tk.route_counts(device) - routes0).tolist()
+        # the candidate forms: grouped at batch > 1, per item at batch 1
         match_names = ("match_votes", "match_votes_aligned",
-                       "match_votes_aligned_dense", "match_votes_cand",
-                       "match_votes_aligned_cand",
-                       "match_votes_aligned_cand_dense")
+                       "match_votes_aligned_dense", "group_candidates",
+                       "match_votes_cand", "match_votes_aligned_cand",
+                       "match_votes_aligned_cand_dense",
+                       "match_votes_cand_per_item",
+                       "match_votes_aligned_cand_per_item",
+                       "match_votes_aligned_cand_dense_per_item")
         for name in match_names + ("lattice_votes_u8",):
             if strict_launches[name] <= 0:
                 fail(f"the strict path never launched {name}")

@@ -226,9 +226,13 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
                               "lattice_votes": 1, "lattice_votes_u8": 0,
                               "match_votes": 1, "match_votes_aligned": 1,
                               "match_votes_aligned_dense": 1,
+                              "group_candidates": 0,
                               "match_votes_cand": 0,
                               "match_votes_aligned_cand": 0,
-                              "match_votes_aligned_cand_dense": 0}
+                              "match_votes_aligned_cand_dense": 0,
+                              "match_votes_cand_per_item": 0,
+                              "match_votes_aligned_cand_per_item": 0,
+                              "match_votes_aligned_cand_dense_per_item": 0}
     with pytest.raises(ValueError):
         mk.mfcc_rows(torch.zeros((4, 512), device=dev, dtype=torch.float64),
                      consts)
@@ -393,21 +397,39 @@ def test_match_kernels_exact_at_edge_values(dev):
                 assert torch.equal(got, want), (tol, aligned, route)
 
 
+_CAND_ROUTES = ("auto", "dense", "index", "grouped", "per_item")
+
+
+def _cand_launched(name, route, b):
+    """Holds the launch counts of one candidate-form call: the grouped form
+    (its work list and kernel) or the per-item form."""
+    grouped = route != "per_item" and not (route == "auto" and b == 1)
+    assert build.LAUNCHES[name + ("" if grouped else "_per_item")] == 1
+    assert build.LAUNCHES[name + ("_per_item" if grouped else "")] == 0
+    assert build.LAUNCHES["group_candidates"] == int(grouped)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("aligned", [False, True])
-@pytest.mark.parametrize("b", [1, 64, 130])
+@pytest.mark.parametrize("b", [1, 7, 64, 130])
 def test_match_cand_forms_equal_full_kernels(dev, b, aligned):
-    """K4/K5's candidate form == the full kernel's votes at the same rows,
-    on every route: duplicate candidates, the empty row, padding rows of
-    PAD_VALUE, a tombstoned row, ids past the rows (0 votes); a one-chunk
-    tier and one of three index chunks."""
+    """K4/K5's candidate forms == the full kernel's votes at the same rows
+    and == the twin, int32 exact: the grouped form on the auto, forced
+    dense, forced index and "grouped" routes, and the per-item form;
+    duplicate and shared candidates, the empty row, padding rows of
+    PAD_VALUE, a tombstoned row, a row with NaN frames, ids past the rows
+    and negative ids (0 votes); a one-chunk tier, a 1,024-frame tier with
+    200-frame queries at coefs 3 (two query stages in K5's dense kernel,
+    rest_close), and a tier of three index chunks."""
     full_fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
     name = "match_votes_aligned_cand" if aligned else "match_votes_cand"
-    for rows, t, f in ((200, 256, 24), (40, 5000, 40)):
-        db, q, n_frames = _match_case(dev, 50 + b + t, rows, t, 2,
+    for rows, t, f, coefs in ((200, 256, 24, 2), (300, 1024, 200, 3),
+                              (40, 5000, 40, 2)):
+        db, q, n_frames = _match_case(dev, 50 + b + t, rows, t, coefs,
                                       max(b, 3), f)
         db[rows - 8 :] = PAD_VALUE  # padding rows
         db[5] = PAD_VALUE  # a tombstone
+        db[6, ::7, 0] = float("nan")  # NaN frames never vote
         q, n_frames = q[:b], n_frames[:b]
         qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1,
                                          trunc_coef1=False)
@@ -415,24 +437,98 @@ def test_match_cand_forms_equal_full_kernels(dev, b, aligned):
         g = torch.Generator(device=dev).manual_seed(b + t)
         cand = torch.randint(0, rows, (b, 33), generator=g, device=dev,
                              dtype=torch.int32)
-        cand[:, :6] = torch.tensor([0, 0, 1, 5, rows - 1, 2], device=dev)
-        cand[0, 6] = rows  # past the rows
+        cand[:, :7] = torch.tensor([0, 0, 1, 5, rows - 1, 2, 6], device=dev)
+        cand[0, 7] = rows  # past the rows
+        cand[-1, 8] = -1
+        valid = (cand >= 0) & (cand < rows)
         for tol in (0.05, 1.0):
-            full = full_fn(db, qq, act, use2, tol, 2, index=index)
-            want = torch.where(cand < rows,
-                               full.gather(1, cand.clamp(max=rows - 1).long()),
-                               0)
-            for route in ("auto", "dense", "index"):
+            full = full_fn(db, qq, act, use2, tol, coefs, index=index)
+            want = torch.where(
+                valid, full.gather(1, cand.clamp(0, rows - 1).long()), 0)
+            for route in _CAND_ROUTES:
                 build.reset_launch_counts()
-                got = tk.match_votes_cand(db, qq, act, use2, tol, cand, 2,
+                got = tk.match_votes_cand(db, qq, act, use2, tol, cand, coefs,
                                           index=index, route=route,
                                           aligned=aligned)
                 assert torch.equal(got, want), (t, tol, route)
-                assert build.LAUNCHES[name] == 1
+                _cand_launched(name, route, b)
             assert (want[:, 2:4] == 0).all() and (want > 0).any()
-            twin = tk.match_votes_cand_plain(db, qq, act, use2, tol, cand, 2,
-                                             aligned)
+            twin = tk.match_votes_cand_plain(db, qq, act, use2, tol, cand,
+                                             coefs, aligned)
             assert torch.equal(twin, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("sharing", ["same", "even", "skewed"])
+def test_match_cand_grouped_shared_rows(dev, sharing, aligned):
+    """64 queries x 1,024 candidates on shared rows: every query on the same
+    1,024 rows (each row in 64 lists: 64 / g work items), the slots spread
+    evenly over all 1,100 rows, and half of them on 16 rows; the grouped
+    form on every route and the per-item form == the full kernel's votes at
+    those rows (and the twin, for "same")."""
+    full_fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+    rows, b, k = 1100, 64, 1024
+    db, q, n_frames = _match_case(dev, 90, rows, 256, 2, b, 128)
+    qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1, trunc_coef1=False)
+    index = mi.build_match_index(db)
+    g = torch.Generator(device=dev).manual_seed(91)
+    if sharing == "same":
+        cand = torch.randperm(rows, generator=g, device=dev)[:k].repeat(b, 1)
+    elif sharing == "even":
+        cand = torch.arange(b * k, device=dev).reshape(b, k) % rows
+    else:
+        cand = torch.randint(0, rows, (b, k), generator=g, device=dev)
+        cand[:, : k // 2] = torch.randint(0, 16, (b, k // 2), generator=g,
+                                          device=dev)
+    cand = cand.to(torch.int32).contiguous()
+    tol = 1.0
+    want = full_fn(db, qq, act, use2, tol, 2, index=index).gather(
+        1, cand.long())
+    assert (want > 0).any()
+    for route in _CAND_ROUTES:
+        got = tk.match_votes_cand(db, qq, act, use2, tol, cand, 2,
+                                  index=index, route=route, aligned=aligned)
+        assert torch.equal(got, want), route
+    if sharing == "same":
+        assert torch.equal(tk.match_votes_cand_plain(
+            db, qq, act, use2, tol, cand, 2, aligned), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 8, 16])
+def test_group_candidates_kernel_equals_twin(dev, g):
+    """The work list on the card == group_candidates_plain: the same items
+    (row, first slot, count) and, row by row, the same slots (the kernel's
+    order inside a row is the atomics'); batch 1, every query on the same
+    rows, uniform, ids past the rows and negative, no candidate at all,
+    and 100,096 rows (25 tiles of the scan)."""
+    gen = torch.Generator(device=dev).manual_seed(g)
+    cases = [
+        (torch.randperm(10112, generator=gen, device=dev)[:1024][None],
+         10112),
+        (torch.randperm(10112, generator=gen, device=dev)[:1024].repeat(
+            64, 1), 10112),
+        (torch.randint(-3, 10115, (64, 1024), generator=gen, device=dev),
+         10112),
+        (torch.zeros((64, 0), dtype=torch.int64, device=dev), 10112),
+        (torch.randint(0, 100096, (64, 1024), generator=gen, device=dev),
+         100096),
+    ]
+    for cand, rows in cases:
+        cand = cand.to(torch.int32).contiguous()
+        build.reset_launch_counts()
+        slots, items, n = tk.group_candidates(cand, rows, g)
+        assert build.LAUNCHES["group_candidates"] == 1
+        ps, pi, pn = tk.group_candidates_plain(cand.cpu(), rows, g)
+        n = int(n)
+        assert n == int(pn) and items.shape[0] >= n
+        assert torch.equal(items[:n].cpu(), pi)
+        ks = slots[: ps.numel()].cpu().long()
+        flat = cand.reshape(-1).cpu().long()
+        assert torch.equal(flat[ks], flat[ps.long()])
+        key = flat[ks] * max(flat.numel(), 1) + ks
+        assert torch.equal(ks[torch.argsort(key)], ps.long())
 
 
 @pytest.mark.cuda

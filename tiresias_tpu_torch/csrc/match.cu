@@ -52,11 +52,24 @@
 // Pallas kernels run over each query's candidate rows at
 // tiresias_tpu/ops/match_pallas.py:566-577): given cand [batch, n_cand]
 // int32 row ids, the kernels compute votes[b, j] of query b against row
-// cand[b, j] only, equal to the full kernels' votes at that row. One block
-// takes one (query, candidate) item and stages that row's index chunks for
-// it alone (no chunk is shared across the batch, so staging is per item);
-// K5 puts dense items on its work list as item ids. A row id outside
-// [0, rows) scores 0.
+// cand[b, j] only, equal to the full kernels' votes at that row. A row id
+// outside [0, rows) scores 0. Two designs:
+//  - grouped (the engine's): a counting sort over rows (three small kernels
+//    on the device, no host sync) turns cand into a row-major work list;
+//    each work item is one row and up to kGroup4 (K4) / kGroup5 (K5) of the
+//    queries that chose it. The candidates of a batch share rows (65,536
+//    slots at batch 64 x 1,024 fall on at most 10,112 rows of the catalog),
+//    so one block stages a row's index chunks, or K5's dense window of its
+//    frames, once for every query of its item, as the full kernels do for
+//    the whole batch. Each slot is written by its item's block alone.
+//    What bounds it is what bounds the full kernels: K4's band walks
+//    (dependent shared-memory probes) and K5's pair tests (the dense
+//    route is issue-bound); grouping removes the per-item staging, window
+//    rebuilds, syncs and reductions, not those.
+//  - per item (the first design, kept as a forced route to measure
+//    against, and what batch 1 takes): the <true> instantiation of the
+//    full kernels, one block per (query, candidate) item staging that row
+//    for it alone.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -136,6 +149,28 @@ __device__ __forceinline__ void stage_chunk(float2* s_ent,
     se[i] = ge[i];
     sp[i] = gp[i];
   }
+}
+
+// The same with cp.async (no registers in between), waited for here; the
+// caller syncs the block.
+__device__ __forceinline__ void stage_chunk_async(float2* s_ent,
+                                                  unsigned short* s_pos,
+                                                  const float2* ent,
+                                                  const short* pos,
+                                                  size_t off, int n_stage) {
+  const float4* ge = reinterpret_cast<const float4*>(ent + off);
+  const unsigned* gp = reinterpret_cast<const unsigned*>(pos + off);
+  for (int i = threadIdx.x; i < n_stage / 2; i += blockDim.x) {
+    const unsigned se = (unsigned)__cvta_generic_to_shared(
+        reinterpret_cast<float4*>(s_ent) + i);
+    const unsigned sp = (unsigned)__cvta_generic_to_shared(
+        reinterpret_cast<unsigned*>(s_pos) + i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(se),
+                 "l"(ge + i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sp),
+                 "l"(gp + i));
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Entry u against query frame f on coefficients 1..coefs-1 (coefficient 0
@@ -620,6 +655,608 @@ __global__ void __launch_bounds__(kThreads5)
   }
 }
 
+// ------------------------------------------- grouped candidate form --- //
+// The work list: slots [n_valid] (slot s = b * n_cand + j, grouped by row,
+// rows ascending; the order inside a row is the atomics' and varies from
+// run to run, which no vote depends on) and items [n_items] int4 (row,
+// first slot in the list, queries <= g, 0). Three kernels: counts per row,
+// one block's scan of (slots, items) per row that writes the items and
+// turns the counts into each row's cursor, and the scatter.
+constexpr int kGroup4 = 16;  // queries per K4 work item, at most
+constexpr int kGroup5 = 8;   // queries per K5 work item (its query stage)
+constexpr int kScan = 1024;  // threads of the scan block
+
+__global__ void group_count_kernel(const int* __restrict__ cand, long long n,
+                                   int rows, int* __restrict__ counts) {
+  for (long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x; s < n;
+       s += (long long)gridDim.x * blockDim.x) {
+    const int r = cand[s];
+    if (r >= 0 && r < rows) atomicAdd(counts + r, 1);
+  }
+}
+
+// Inclusive block-wide sums of (x, y); `tot` gets the block's totals.
+__device__ __forceinline__ int2 block_scan2(int x, int y, int2* s_warp,
+                                            int2& tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int xo = __shfl_up_sync(kFull, x, d);
+    const int yo = __shfl_up_sync(kFull, y, d);
+    if (lane >= d) {
+      x += xo;
+      y += yo;
+    }
+  }
+  if (lane == 31) s_warp[warp] = make_int2(x, y);
+  __syncthreads();
+  if (warp == 0) {
+    int2 v = lane < n_warps ? s_warp[lane] : make_int2(0, 0);
+    for (int d = 1; d < 32; d <<= 1) {
+      const int xo = __shfl_up_sync(kFull, v.x, d);
+      const int yo = __shfl_up_sync(kFull, v.y, d);
+      if (lane >= d) {
+        v.x += xo;
+        v.y += yo;
+      }
+    }
+    if (lane < n_warps) s_warp[lane] = v;
+  }
+  __syncthreads();
+  const int2 pre = warp ? s_warp[warp - 1] : make_int2(0, 0);
+  tot = s_warp[n_warps - 1];
+  __syncthreads();  // s_warp is free for the next call
+  return make_int2(x + pre.x, y + pre.y);
+}
+
+// Tiles of 4 rows a thread: each row's first slot in the list (written over
+// its count, the scatter's cursor) and its items of up to g slots.
+__global__ void __launch_bounds__(kScan)
+    group_scan_kernel(int* __restrict__ counts, int rows, int g,
+                      int4* __restrict__ items, int* __restrict__ n_items) {
+  __shared__ int2 s_warp[kScan / 32];
+  int slot0 = 0, item0 = 0;  // the tiles before this one
+  for (int lo = 0; lo < rows; lo += kScan * 4) {
+    const int r0 = lo + threadIdx.x * 4;
+    int c[4], sx = 0, sy = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = r0 + k < rows ? counts[r0 + k] : 0;
+      sx += c[k];
+      sy += (c[k] + g - 1) / g;
+    }
+    int2 tot;
+    const int2 inc = block_scan2(sx, sy, s_warp, tot);
+    int off = slot0 + inc.x - sx, it = item0 + inc.y - sy;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (r0 + k >= rows) break;
+      counts[r0 + k] = off;
+      for (int p = 0; p < c[k]; p += g) {
+        items[it++] = make_int4(r0 + k, off + p, min(g, c[k] - p), 0);
+      }
+      off += c[k];
+    }
+    slot0 += tot.x;
+    item0 += tot.y;
+  }
+  if (threadIdx.x == 0) *n_items = item0;
+}
+
+__global__ void group_scatter_kernel(const int* __restrict__ cand,
+                                     long long n, int rows,
+                                     int* __restrict__ cursor,
+                                     int* __restrict__ slots) {
+  for (long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x; s < n;
+       s += (long long)gridDim.x * blockDim.x) {
+    const int r = cand[s];
+    if (r >= 0 && r < rows) slots[atomicAdd(cursor + r, 1)] = (int)s;
+  }
+}
+
+// K4 over the work list: one block per work item (grid.x, the list's upper
+// bound; blocks past n_items leave) and range of its (query, 32-frame
+// group) items (grid.y, more than one only past kMaxItems). The row's index
+// chunks are staged once (cp.async) for every query of the item, and the
+// warps take its items in turn, as match_votes_kernel does for a batch.
+// The dense share is `share` where the item holds >= shared_min queries,
+// `share_small` below.
+__global__ void __launch_bounds__(kWarps * 32)
+    match_votes_group_kernel(const float* __restrict__ db,
+                             const float* __restrict__ q,
+                             const float2* __restrict__ ent,
+                             const short* __restrict__ pos,
+                             const int* __restrict__ n_live, int t_len,
+                             int n_coefs, int coefs, int f_len, int chunk,
+                             int n_chunks, float tol, float share,
+                             float share_small, int shared_min, int n_cand,
+                             const int* __restrict__ slots,
+                             const int4* __restrict__ items,
+                             const int* __restrict__ n_items,
+                             int* __restrict__ votes,
+                             unsigned long long* __restrict__ routes) {
+  __shared__ __align__(16) float2 s_ent[kMaxChunk];
+  __shared__ __align__(16) unsigned short s_pos[kMaxChunk];
+  __shared__ unsigned hits[kMaxItems];
+  __shared__ int s_slot[kGroup4];
+  __shared__ unsigned long long s_routes[2];
+  if ((int)blockIdx.x >= *n_items) return;  // uniform
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int4 wi = items[blockIdx.x];
+  const int a = wi.x, nq = wi.z;
+  const int groups = (f_len + 31) / 32;
+  const int i0 = blockIdx.y * kMaxItems;
+  const int n_items_b = min(kMaxItems, nq * groups - i0);
+  if (n_items_b <= 0) return;  // uniform
+  const float sh = nq >= shared_min ? share : share_small;
+  const float* row = db + (size_t)a * t_len * n_coefs;
+  if (threadIdx.x < nq) s_slot[threadIdx.x] = slots[wi.y + threadIdx.x];
+  for (int i = threadIdx.x; i < n_items_b; i += blockDim.x) hits[i] = 0u;
+  if (threadIdx.x < 2) s_routes[threadIdx.x] = 0ull;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int n = n_live[(size_t)a * n_chunks + c];
+    if (n == 0) continue;  // uniform: nothing can match here
+    const int n_even = (n + 1) & ~1;  // entries past n are NaN
+    __syncthreads();  // the previous chunk is consumed
+    stage_chunk_async(s_ent, s_pos, ent, pos,
+                      ((size_t)a * n_chunks + c) * chunk, n_even);
+    __syncthreads();
+    const int t0 = c * chunk;
+    for (int it = warp; it < n_items_b; it += kWarps) {
+      const int b = s_slot[(i0 + it) / groups] / n_cand;
+      const int f = ((i0 + it) % groups) * 32 + lane;
+      const float* qb = q + (size_t)b * (coefs + 2) * f_len;
+      const unsigned done = hits[it];
+      // a frame still to test: active, and no hit in an earlier chunk
+      const bool live = f < f_len && qb[(size_t)(coefs + 1) * f_len + f] > 0.f
+                        && !((done >> lane) & 1u);
+      if (!__any_sync(kFull, live)) continue;
+      const float q0 = live ? qb[f] : nan_f();
+      const float q1 = live && coefs > 1 ? qb[(size_t)f_len + f] : 0.f;
+      const bool nouse2 = !(live && qb[(size_t)coefs * f_len + f] > 0.f);
+      bool hit = false;
+      bool dense = sh < 0.f;
+      if (!dense) {
+        // walk: u from the band's first entry while d0 stays in the band
+        int u = live ? band_lo(s_ent, n, q0, tol) : n;
+        const int probe_end = u + kProbe;
+        for (; u < min(n, probe_end); ++u) {
+          if (!(s_ent[u].x - q0 <= tol)) {
+            u = n;  // past the band
+            break;
+          }
+          if (rest_ok(s_ent, s_pos, u, q1, nouse2, row, t0, n_coefs, qb, f,
+                      f_len, coefs, tol)) {
+            hit = true;
+            break;
+          }
+        }
+        const bool more = !hit && u < n;
+        if (__any_sync(kFull, more)) {
+          const int hi = more ? band_hi(s_ent, u, n, q0, tol) : u;
+          const int total = __reduce_add_sync(kFull, hi - u);
+          const int n_lanes = __popc(__ballot_sync(kFull, live));
+          dense = (float)total > sh * (float)n * (float)n_lanes;
+          if (!dense) {
+            for (; u < hi && !hit; ++u) {
+              hit = rest_ok(s_ent, s_pos, u, q1, nouse2, row, t0, n_coefs,
+                            qb, f, f_len, coefs, tol);
+            }
+          }
+        }
+      }
+      if (dense) {
+        if (coefs == 1) {
+          hit = sweep<1>(s_ent, s_pos, n_even, q0, q1, nouse2, live, hit,
+                         tol, row, t0, n_coefs, qb + f, f_len, coefs);
+        } else if (coefs == 2) {
+          hit = sweep<2>(s_ent, s_pos, n_even, q0, q1, nouse2, live, hit,
+                         tol, row, t0, n_coefs, qb + f, f_len, coefs);
+        } else {
+          hit = sweep<3>(s_ent, s_pos, n_even, q0, q1, nouse2, live, hit,
+                         tol, row, t0, n_coefs, qb + f, f_len, coefs);
+        }
+      }
+      const unsigned m = __ballot_sync(kFull, hit && live);
+      if (lane == 0) {
+        hits[it] = done | m;
+        atomicAdd(&s_routes[dense ? 1 : 0], 1ull);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 && s_routes[threadIdx.x]) {
+    atomicAdd(routes + threadIdx.x, s_routes[threadIdx.x]);
+  }
+  const int q_first = i0 / groups;
+  const int q_last = (i0 + n_items_b - 1) / groups;
+  for (int qi = q_first + threadIdx.x; qi <= q_last; qi += blockDim.x) {
+    const int lo = max(qi * groups, i0) - i0;
+    const int hi = min((qi + 1) * groups, i0 + n_items_b) - i0;
+    int cnt = 0;
+    for (int it = lo; it < hi; ++it) cnt += __popc(hits[it]);
+    if (gridDim.y == 1) {
+      votes[s_slot[qi]] = cnt;  // the slot's one writer
+    } else if (cnt) {
+      atomicAdd(votes + s_slot[qi], cnt);  // integer sums: any order
+    }
+  }
+}
+
+// K5's index kernel over the work list: one block per work item, a warp
+// (or, for an item of fewer queries than warps, several) per query of it,
+// each chunk of the row staged once for all of them. The route is the item's: the bands of each query's first
+// 32 frames with an active one, in the row's first chunk with stored
+// frames, summed over the item's queries; a dense item goes on the work
+// list (its id) for the dense kernel, whole.
+__global__ void __launch_bounds__(kWarps * 32)
+    match_votes_aligned_group_kernel(
+        const float* __restrict__ db, const float* __restrict__ q,
+        const float2* __restrict__ ent, const short* __restrict__ pos,
+        const int* __restrict__ n_live, int t_len, int n_coefs, int coefs,
+        int f_len, int chunk, int n_chunks, float tol, float share,
+        float share_small, int shared_min, int n_cand,
+        const int* __restrict__ slots, const int4* __restrict__ items,
+        const int* __restrict__ n_items, int* __restrict__ votes,
+        int* __restrict__ work, unsigned long long* __restrict__ n_work,
+        unsigned long long* __restrict__ routes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_slot[kGroup5];
+  __shared__ int s_band[2];  // in-band entries, active frames
+  __shared__ int s_best[kWarps];
+  if ((int)blockIdx.x >= *n_items) return;  // uniform
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int win = chunk + f_len - 1;
+  float2* s_ent = reinterpret_cast<float2*>(smem);
+  unsigned short* s_pos = reinterpret_cast<unsigned short*>(s_ent + chunk);
+  int* hists = reinterpret_cast<int*>(s_pos + chunk);  // one per query
+  unsigned* bnd = reinterpret_cast<unsigned*>(hists + (size_t)warps * win) +
+                  (size_t)warp * f_len;
+  const int4 wi = items[blockIdx.x];
+  const int a = wi.x, nq = wi.z;
+  const float* row = db + (size_t)a * t_len * n_coefs;
+  const int* nl = n_live + (size_t)a * n_chunks;
+  if (threadIdx.x < nq) s_slot[threadIdx.x] = slots[wi.y + threadIdx.x];
+  if (threadIdx.x < 2) s_band[threadIdx.x] = 0;
+  int c0 = 0;
+  while (c0 < n_chunks && nl[c0] == 0) ++c0;
+  if (c0 == n_chunks) {  // no stored frame: the votes stay 0
+    if (threadIdx.x == 0) atomicAdd(routes, (unsigned long long)nq);
+    return;
+  }
+  __syncthreads();  // s_slot, s_band
+  stage_chunk_async(s_ent, s_pos, ent, pos,
+                    ((size_t)a * n_chunks + c0) * chunk, (nl[c0] + 1) & ~1);
+  __syncthreads();
+  const float sh = nq >= shared_min ? share : share_small;
+  bool dense = sh < 0.f;  // forced dense: straight to the list
+  if (!dense) {
+    const int n = nl[c0];
+    for (int qi = warp; qi < nq; qi += warps) {
+      const float* qb =
+          q + (size_t)(s_slot[qi] / n_cand) * (coefs + 2) * f_len;
+      for (int f0 = 0; f0 < f_len; f0 += 32) {
+        const int f = f0 + lane;
+        int width = 0, act = 0;
+        if (f < f_len && qb[(size_t)(coefs + 1) * f_len + f] > 0.f) {
+          const float q0 = qb[f];
+          const int lo = band_lo(s_ent, n, q0, tol);
+          width = band_hi(s_ent, lo, n, q0, tol) - lo;
+          act = 1;
+        }
+        const int a_all = __reduce_add_sync(kFull, act);
+        if (a_all > 0) {  // uniform
+          const int w_all = __reduce_add_sync(kFull, width);
+          if (lane == 0) {
+            atomicAdd(s_band, w_all);
+            atomicAdd(s_band + 1, a_all);
+          }
+          break;
+        }
+      }
+    }
+    __syncthreads();
+    dense = (float)s_band[0] > sh * (float)n * (float)s_band[1];
+  }
+  if (threadIdx.x == 0) {
+    atomicAdd(routes + (dense ? 1 : 0), (unsigned long long)nq);
+    if (dense) work[atomicAdd(n_work, 1ull)] = (int)blockIdx.x;
+  }
+  if (dense) return;  // uniform
+  // Rounds of up to `warps` queries; each query of a round gets
+  // warps / (its queries) warps, which share its offset histogram (shared
+  // atomics) and take its 32-frame groups in turn, so an item of fewer
+  // queries than warps leaves no warp idle for want of a query.
+  int staged = c0;  // the chunk in shared memory
+  for (int r0 = 0; r0 < nq; r0 += warps) {
+    const int nr = min(warps, nq - r0);
+    const int wpq = warps / nr;
+    const int qr = warp / wpq, sub = warp % wpq;
+    const bool mine = qr < nr;
+    int* hq = hists + (size_t)(mine ? qr : 0) * win;
+    const float* qb =
+        q + (size_t)(mine ? s_slot[r0 + qr] / n_cand : 0) * (coefs + 2) *
+                f_len;
+    int best = 0;
+    for (int i = threadIdx.x; i < nr * win; i += blockDim.x) hists[i] = 0;
+    if (threadIdx.x < nr) s_best[threadIdx.x] = 0;
+    __syncthreads();
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c > 0) {  // slide each [chunk, win) to the front (block-wide)
+        __syncthreads();  // every hit of the previous chunk is in
+        for (int h = 0; h < nr; ++h) {
+          int* hh = hists + (size_t)h * win;
+          for (int s = 0; s < f_len - 1; s += blockDim.x) {
+            const int i = s + threadIdx.x;
+            __syncthreads();  // reads before writes
+            const int v = i < f_len - 1 ? hh[chunk + i] : 0;
+            __syncthreads();
+            if (i < f_len - 1) hh[i] = v;
+          }
+          for (int i = f_len - 1 + threadIdx.x; i < win; i += blockDim.x) {
+            hh[i] = 0;
+          }
+        }
+        __syncthreads();
+      }
+      const int n = nl[c];
+      if (n == 0) continue;  // uniform
+      if (c != staged) {  // uniform
+        __syncthreads();  // the previous chunk is consumed
+        stage_chunk_async(s_ent, s_pos, ent, pos,
+                          ((size_t)a * n_chunks + c) * chunk, (n + 1) & ~1);
+        __syncthreads();
+        staged = c;
+      }
+      if (!mine) continue;
+      const int t0 = c * chunk;
+      for (int f = sub * 32 + lane; f - lane < f_len; f += wpq * 32) {
+        if (f >= f_len) continue;
+        unsigned bd = 0u;
+        if (qb[(size_t)(coefs + 1) * f_len + f] > 0.f) {
+          const float q0 = qb[f];
+          const int lo = band_lo(s_ent, n, q0, tol);
+          bd = (unsigned)lo | ((unsigned)band_hi(s_ent, lo, n, q0, tol) << 16);
+        }
+        bnd[f] = bd;
+      }
+      __syncwarp();
+      for (int f = sub * 32 + lane; f - lane < f_len; f += wpq * 32) {
+        if (f >= f_len) continue;
+        const unsigned bd = bnd[f];
+        const int lo = bd & 0xffffu, hi = bd >> 16;
+        if (lo == hi) continue;
+        const bool nouse2 = !(qb[(size_t)coefs * f_len + f] > 0.f);
+        const float q1 = coefs > 1 ? qb[(size_t)f_len + f] : 0.f;
+        for (int u = lo; u < hi; ++u) {
+          if (rest_ok(s_ent, s_pos, u, q1, nouse2, row, t0, n_coefs, qb, f,
+                      f_len, coefs, tol)) {
+            best = max(best, atomicAdd(hq + s_pos[u] - f + f_len - 1, 1) + 1);
+          }
+        }
+      }
+      __syncwarp();
+    }
+    if (mine) {
+      best = __reduce_max_sync(kFull, best);
+      if (lane == 0 && best > 0) atomicMax(s_best + qr, best);
+    }
+    __syncthreads();
+    if (threadIdx.x < nr) votes[s_slot[r0 + threadIdx.x]] = s_best[threadIdx.x];
+    __syncthreads();  // s_best and the histograms are free for the next round
+  }
+}
+
+// One pass of the dense kernel's register ring over a staged window for
+// query a (and, kTwo, query c in the same pass: one ring, two tests per
+// stored value), adding each offset's hits to ca (cc). Per query frame the
+// branch on its active and use2 flags is taken once (they are uniform
+// across the block), so each test is two compares and an add, with
+// coefficient 1 four; kRest (coefs > 2) tests the rest where 0 and 1 pass.
+template <bool kTwo, bool kRest>
+__device__ __forceinline__ void ring_pass(
+    const float* w0, const float* w1, const float4* qa, const float4* qc,
+    int fs, int base, float tol, bool two, int coefs, const float* row,
+    int n_coefs, int tw0, const float* ga, const float* gc, int f0,
+    int f_len, int (&ca)[kK], int (&cc)[kK]) {
+  // ring: at frame j, offset k's stored value is r[(k + j) % kK]
+  float r0[kK], r1[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    r0[k] = w0[base + k];
+    r1[k] = w1[base + k];
+  }
+  for (int j0 = 0; j0 < fs; j0 += kK) {
+#pragma unroll
+    for (int jj = 0; jj < kK; ++jj) {
+      const int j = j0 + jj;
+      if (j < fs) {
+#pragma unroll
+        for (int h = 0; h < (kTwo ? 2 : 1); ++h) {
+          const float4 qf = h ? qc[j] : qa[j];  // uniform across the block
+          int (&cnt)[kK] = h ? cc : ca;
+          if (qf.w > 0.f) {
+            if (two && qf.z > 0.f) {
+#pragma unroll
+              for (int k = 0; k < kK; ++k) {
+                const int s = (k + jj) % kK;
+                // bitwise &: both compares run, no branch
+                bool ok = (fabsf(r0[s] - qf.x) <= tol) &
+                          (fabsf(r1[s] - qf.y) <= tol);
+                if (kRest && ok) {
+                  ok = rest_close(
+                      row + (size_t)(tw0 + base + k + j) * n_coefs,
+                      h ? gc : ga, f0 + j, f_len, coefs, tol);
+                }
+                cnt[k] += ok ? 1 : 0;
+              }
+            } else {
+#pragma unroll
+              for (int k = 0; k < kK; ++k) {
+                const int s = (k + jj) % kK;
+                bool ok = fabsf(r0[s] - qf.x) <= tol;
+                if (kRest && ok) {
+                  ok = rest_close(
+                      row + (size_t)(tw0 + base + k + j) * n_coefs,
+                      h ? gc : ga, f0 + j, f_len, coefs, tol);
+                }
+                cnt[k] += ok ? 1 : 0;
+              }
+            }
+          }
+        }
+        // slot jj (offset 0's value at frame j) takes the value offset
+        // kK-1 needs at frame j + 1
+        r0[jj] = w0[base + kK + j];
+        r1[jj] = w1[base + kK + j];
+      }
+    }
+  }
+}
+
+// The block's best count of one query over its offsets so far, into s_best.
+__device__ __forceinline__ void flush_best(const int (&cnt)[kK], int* s_best) {
+  int m = 0;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) m = max(m, cnt[k]);
+  m = __reduce_max_sync(kFull, m);
+  if ((threadIdx.x & 31) == 0 && m > 0) atomicMax(s_best, m);
+}
+
+// K5's dense kernel over the work list: blocks take work items from the
+// counter n_work[1] (zero on entry): those on the list (work[0, n_work[0]))
+// or, with work null, every item. A window of the row's frames is staged
+// once per offset chunk (and query stage) for all of the item's queries;
+// with one query stage (f_len <= kStage5) every query of the item is
+// staged once and the queries go through the ring two at a time. The next
+// item is taken when this one starts, and its row is prefetched into L2.
+template <bool kRest>
+__global__ void __launch_bounds__(kThreads5)
+    match_votes_aligned_group_dense_kernel(
+        const float* __restrict__ db, const float* __restrict__ q,
+        int t_len, int n_coefs, int coefs, int f_len, float tol, int n_cand,
+        const int* __restrict__ slots, const int4* __restrict__ items,
+        const int* __restrict__ n_items, const int* __restrict__ work,
+        unsigned long long* n_work, int* __restrict__ votes) {
+  __shared__ float4 qs[kGroup5 * kStage5];
+  __shared__ float w0[kWin];
+  __shared__ float w1[kWin];
+  __shared__ int s_slot[kGroup5];
+  __shared__ int s_best[kGroup5];
+  __shared__ unsigned long long s_next;
+  const unsigned long long total =
+      work ? n_work[0] : (unsigned long long)*n_items;
+  const bool two = coefs > 1;
+  const int n_off = t_len + f_len - 1;
+  const bool one_stage = f_len <= kStage5;
+  const int base = threadIdx.x * kK;
+  const size_t row_len = (size_t)t_len * n_coefs;
+  const size_t q_len = (size_t)(coefs + 2) * f_len;
+  if (threadIdx.x == 0) s_next = atomicAdd(n_work + 1, 1ull);
+  __syncthreads();
+  unsigned long long w = s_next;
+  while (w < total) {  // uniform
+    const int4 wi = items[work ? work[w] : (int)w];
+    const int nq = wi.z;
+    const float* row = db + (size_t)wi.x * row_len;
+    __syncthreads();  // s_next is read; the previous item's votes written
+    if (threadIdx.x == 0) s_next = atomicAdd(n_work + 1, 1ull);
+    if (threadIdx.x < nq) {
+      s_slot[threadIdx.x] = slots[wi.y + threadIdx.x];
+      s_best[threadIdx.x] = 0;
+    }
+    __syncthreads();
+    const unsigned long long next = s_next;
+    if (next < total) {  // the next item's row toward L2 meanwhile
+      const float* nrow =
+          db + (size_t)items[work ? work[next] : (int)next].x * row_len;
+      for (size_t i = threadIdx.x * 32; i < row_len; i += kThreads5 * 32) {
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(nrow + i));
+      }
+    }
+    if (one_stage) {
+      for (int p = 0; p < nq; ++p) {
+        stage_query(qs + p * kStage5, kStage5,
+                    q + (size_t)(s_slot[p] / n_cand) * q_len, coefs, f_len, 0,
+                    f_len);
+      }
+    }
+    // one stage: every query in one round; else two a round, each window
+    // staged again per round and query stage
+    const int step = one_stage ? nq : 2;
+    for (int o0 = 0; o0 < n_off; o0 += kOffChunk) {
+      for (int pb = 0; pb < nq; pb += step) {
+        const int pe = min(nq, pb + step);
+        int ca[kK], cc[kK];
+#pragma unroll
+        for (int k = 0; k < kK; ++k) ca[k] = cc[k] = 0;
+        for (int f0 = 0; f0 < f_len; f0 += kStage5) {
+          const int fs = min(kStage5, f_len - f0);
+          const int tw0 = o0 - (f_len - 1) + f0;  // stored frame of window[0]
+          __syncthreads();  // the previous window and stage are consumed
+          if (!one_stage) {
+            for (int p = pb; p < pe; ++p) {
+              stage_query(qs + (p - pb) * kStage5, kStage5,
+                          q + (size_t)(s_slot[p] / n_cand) * q_len, coefs,
+                          f_len, f0, fs);
+            }
+          }
+          bool any_frame = false;
+          for (int i = threadIdx.x; i < kWin; i += kThreads5) {
+            const int t = tw0 + i;
+            float x0 = nan_f(), x1 = nan_f();
+            if (t >= 0 && t < t_len) {
+              const float* fr = row + (size_t)t * n_coefs;
+              const float x = fr[0];
+              if (x != kPad) {
+                x0 = x;
+                x1 = two ? fr[1] : 0.f;
+                any_frame = true;
+              }
+            }
+            w0[i] = x0;
+            w1[i] = x1;
+          }
+          if (!__syncthreads_or(any_frame)) continue;  // no stored frame
+          for (int p = pb; p < pe; p += 2) {
+            if (one_stage) {
+#pragma unroll
+              for (int k = 0; k < kK; ++k) ca[k] = cc[k] = 0;
+            }
+            const float* ga = q + (size_t)(s_slot[p] / n_cand) * q_len;
+            const float4* qa = qs + (p - pb) * kStage5;
+            if (p + 1 < pe) {
+              ring_pass<true, kRest>(
+                  w0, w1, qa, qa + kStage5, fs, base, tol, two, coefs, row,
+                  n_coefs, tw0, ga,
+                  q + (size_t)(s_slot[p + 1] / n_cand) * q_len, f0, f_len,
+                  ca, cc);
+            } else {
+              ring_pass<false, kRest>(w0, w1, qa, qa, fs, base, tol, two,
+                                      coefs, row, n_coefs, tw0, ga, ga, f0,
+                                      f_len, ca, cc);
+            }
+            if (one_stage) {
+              flush_best(ca, s_best + p);
+              if (p + 1 < pe) flush_best(cc, s_best + p + 1);
+            }
+          }
+        }
+        if (!one_stage) {
+          flush_best(ca, s_best + pb);
+          if (pb + 1 < pe) flush_best(cc, s_best + pb + 1);
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < nq) votes[s_slot[threadIdx.x]] = s_best[threadIdx.x];
+    w = next;
+  }
+}
+
 }  // namespace
 
 // Warps per block of the aligned index kernel for this chunk, query length
@@ -739,4 +1376,124 @@ extern "C" int tiresias_match_votes_aligned(
                                     t_len, n_coefs, coefs, f_len, chunk,
                                     n_chunks, tol, share, warps, nullptr, 0,
                                     votes, work, n_work, routes, st);
+}
+
+// The candidate form's work list (see group_scan_kernel): counts [rows] int
+// scratch, slots [batch * n_cand] int (the first n_valid used), items
+// [max_items] int4 (max_items >= min(rows, batch * n_cand) + ceil(batch *
+// n_cand / g)), n_items one int on the device. g: queries per item.
+extern "C" int tiresias_group_candidates(const void* cand, int batch,
+                                         int n_cand, int rows, int g,
+                                         void* counts, void* slots,
+                                         void* items, void* n_items,
+                                         void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (g < 1 || rows < 0) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)batch * n_cand;
+  const int threads = 256;
+  const long long want = (n + threads - 1) / threads;
+  const unsigned blocks = want < 1 ? 1u : want > 4096 ? 4096u : (unsigned)want;
+  cudaError_t err =
+      cudaMemsetAsync(counts, 0, (size_t)rows * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  group_count_kernel<<<blocks, threads, 0, st>>>((const int*)cand, n, rows,
+                                                 (int*)counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  group_scan_kernel<<<1, kScan, 0, st>>>((int*)counts, rows, g,
+                                         (int4*)items, (int*)n_items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  group_scatter_kernel<<<blocks, threads, 0, st>>>(
+      (const int*)cand, n, rows, (int*)counts, (int*)slots);
+  return (int)cudaGetLastError();
+}
+
+// K4's grouped candidate form over a work list of at most max_items items
+// of up to g (<= kGroup4) queries; votes [batch, n_cand] zeroed.
+extern "C" int tiresias_match_votes_group(
+    const void* db, const void* q, const void* ent, const void* pos,
+    const void* n_live, int t_len, int n_coefs, int coefs, int f_len,
+    int chunk, int n_chunks, float tol, float share, float share_small,
+    int shared_min, int n_cand, int g, const void* slots, const void* items,
+    const void* n_items, int max_items, void* votes, void* routes,
+    void* stream) {
+  if (chunk > kMaxChunk || chunk % 2 || g < 1 || g > kGroup4 ||
+      max_items < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long per_item = (long long)g * ((f_len + 31) / 32);
+  const dim3 grid((unsigned)max_items,
+                  (unsigned)((per_item + kMaxItems - 1) / kMaxItems));
+  match_votes_group_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)db, (const float*)q, (const float2*)ent,
+      (const short*)pos, (const int*)n_live, t_len, n_coefs, coefs, f_len,
+      chunk, n_chunks, tol, share, share_small, shared_min, n_cand,
+      (const int*)slots, (const int4*)items, (const int*)n_items,
+      (int*)votes, (unsigned long long*)routes);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks of the grouped dense kernel on this device.
+template <bool kRest>
+static int group_dense_grid() {
+  static int grid = 0;
+  if (grid == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, match_votes_aligned_group_dense_kernel<kRest>, kThreads5,
+        0);
+    grid = max(1, sms * per_sm);
+  }
+  return grid;
+}
+
+// K5's grouped candidate form: the index kernel (warps per block, 1 to
+// kWarps), then the dense kernel over the items it listed; warps 0 runs the
+// dense kernel on every item. work: max_items ints, n_work two u64 of
+// scratch, routes as for tiresias_match_votes_aligned; items of up to g
+// (<= kGroup5) queries.
+extern "C" int tiresias_match_votes_aligned_group(
+    const void* db, const void* q, const void* ent, const void* pos,
+    const void* n_live, int t_len, int n_coefs, int coefs, int f_len,
+    int chunk, int n_chunks, float tol, float share, float share_small,
+    int shared_min, int warps, int n_cand, int g, const void* slots,
+    const void* items, const void* n_items, int max_items, void* votes,
+    void* work, void* n_work, void* routes, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long smem = aligned_smem(chunk, f_len, warps);
+  if (g < 1 || g > kGroup5 || max_items < 1 || warps < 0 ||
+      warps > kWarps || (warps && (smem > kMaxSmem || chunk % 2))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  unsigned long long* nw = (unsigned long long*)n_work;
+  cudaError_t err = cudaMemsetAsync(nw, 0, 2 * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
+  const int resident =
+      coefs > 2 ? group_dense_grid<true>() : group_dense_grid<false>();
+  const int grid = max_items < resident ? max_items : resident;
+  if (warps > 0) {
+    err = cudaFuncSetAttribute(match_votes_aligned_group_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    match_votes_aligned_group_kernel<<<(unsigned)max_items, warps * 32,
+                                       (size_t)smem, st>>>(
+        (const float*)db, (const float*)q, (const float2*)ent,
+        (const short*)pos, (const int*)n_live, t_len, n_coefs, coefs, f_len,
+        chunk, n_chunks, tol, share, share_small, shared_min, n_cand,
+        (const int*)slots, (const int4*)items, (const int*)n_items,
+        (int*)votes, (int*)work, nw, (unsigned long long*)routes);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto dense = coefs > 2 ? match_votes_aligned_group_dense_kernel<true>
+                         : match_votes_aligned_group_dense_kernel<false>;
+  dense<<<grid, kThreads5, 0, st>>>(
+      (const float*)db, (const float*)q, t_len, n_coefs, coefs, f_len, tol,
+      n_cand, (const int*)slots, (const int4*)items, (const int*)n_items,
+      warps > 0 ? (const int*)work : nullptr, nw, (int*)votes);
+  return (int)cudaGetLastError();
 }

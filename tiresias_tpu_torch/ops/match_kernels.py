@@ -20,8 +20,14 @@ The certified strict/aligned prefilter (:func:`aligned_prefiltered_votes`,
 PARITY.md D17/D20) bounds every row's votes with K3' on the view's uint8
 bound maps, takes the ``PREFILTER_K`` rows of highest bound per query
 (exact ``torch.topk``), and rescores them with the kernels' candidate form
-(:func:`match_votes_cand`: one (query, candidate row) item per block, its
-own row's index chunks staged for it alone).
+(:func:`match_votes_cand`). The candidates of a batch share rows, so the
+form groups them by row on the device first (:func:`group_candidates`, a
+counting sort; :func:`group_candidates_plain` is its twin): one block per
+work item of one row and up to ``CAND_GROUP`` of the queries that chose
+it, the row's index chunks (K5's dense window) staged once for all of
+them. The first design, one block per (query, candidate) item, stays as
+the forced route ``"per_item"``, which batch 1 takes (no row is shared
+there).
 
 Operand convention (the store's layout): ``db [A, T, C]`` holds PAD_VALUE
 in every frame that does not exist — past an audio's end, in padding rows
@@ -59,18 +65,32 @@ _K4_ITEMS = 512  # (query, 32-frame group) items per K4 block (kMaxItems)
 # queries a block has fewer items than warps (K4) or one warp per stored
 # row (K5), and one lane walking a long band is slower than the warp
 # sweeping the chunk (K4) or the dense kernel's 128 threads per item (K5),
-# so the dense route takes over sooner there. The candidate form has one
-# query per block (one warp per item in K5), so it takes the small-batch
-# shares at any batch: on chip_smoke's catalog candidates (bands 21% of a
-# row) at batch 64 with the batch-64 share, K5 sent all but one item to
-# the index route and took 3.484 ms, its dense route 2.471 (H100 80GB
-# HBM3, 700 W).
+# so the dense route takes over sooner there. The per-item candidate form
+# has one query per block (one warp per item in K5), so it takes the
+# small-batch shares at any batch: on chip_smoke's catalog candidates
+# (bands 21% of a row) at batch 64 with the batch-64 share, K5 sent all but
+# one item to the index route and took 3.484 ms, its dense route 2.471
+# (H100 80GB HBM3, 700 W). The grouped form takes the batch-64 share for a
+# work item of >= CAND_SHARED queries, the small-batch share for a row only
+# one query chose: on catalog rows (bands ~22% of a row) K5's index route,
+# a query's warps splitting its frames, beat its dense route from 2
+# queries per item on and lost at 1 (chip_smoke's sharing sweep, PERF.md);
+# K4's items fill its 8 warps from 2 queries of 4 x 32-frame groups.
 DENSE_SHARE = {"bag": 0.5, "aligned": 0.35, "bag_small_batch": 0.125,
                "aligned_small_batch": 0.125}
 SMALL_BATCH = 8
+CAND_SHARED = 2
 # route: "auto" (per item, by DENSE_SHARE); "dense" and "index" force one
-# route for every item, to measure and test each.
+# route for every item, to measure and test each. The candidate form also
+# takes "grouped" (the grouped form whatever the batch) and "per_item" (the
+# per-item form, auto routes).
 _FORCED = {"dense": -1.0, "index": float("inf")}
+_CAND_FORMS = ("grouped", "per_item")
+# Queries per grouped work item, at most (kGroup4 / kGroup5 in match.cu):
+# a row chosen by all 64 queries of a batch makes 4 (8) items, not one
+# long block; K4 fills its 8 warps with 4 x 32-frame groups a query, and
+# K5's dense kernel stages each item's queries in 2 KB each.
+CAND_GROUP = {"bag": 16, "aligned": 8}
 _ROUTES: dict[torch.device, torch.Tensor] = {}
 # Candidates the strict/aligned prefilter rescores (the engine takes it above
 # 2 x this many rows per view).
@@ -121,14 +141,131 @@ def match_votes_cand_plain(db, q, active, use2, tolerance, cand,
     return votes
 
 
+def group_candidates_plain(cand: torch.Tensor, rows: int, g: int):
+    """The candidate form's work list in plain torch (the twin of
+    :func:`group_candidates`): ``(slots, items, n_items)``. ``slots`` int32
+    holds every slot ``s = b * k + j`` whose row ``cand[b, j]`` lies in
+    ``[0, rows)``, once, grouped by row (rows ascending, slots ascending
+    within a row); ``items [n, 4]`` int32 cuts each row's slots into work
+    items of at most ``g``: (row, first slot in ``slots``, count, 0);
+    ``n_items`` int32 ``[1]`` holds n."""
+    if g < 1:
+        raise ValueError("g must be >= 1")
+    flat = cand.reshape(-1).to(torch.int64)
+    slot = torch.arange(flat.numel(), device=cand.device)
+    ok = (flat >= 0) & (flat < rows)
+    row, slot = flat[ok], slot[ok]
+    order = torch.argsort(row, stable=True)
+    row, slot = row[order], slot[order]
+    counts = torch.bincount(row, minlength=rows)
+    first = torch.cumsum(counts, 0) - counts
+    pieces = (counts + g - 1) // g
+    item_row = torch.repeat_interleave(
+        torch.arange(rows, device=cand.device), pieces)
+    n = int(pieces.sum())
+    k = torch.arange(n, device=cand.device) - torch.repeat_interleave(
+        torch.cumsum(pieces, 0) - pieces, pieces)
+    items = torch.stack([
+        item_row, first[item_row] + k * g,
+        torch.clamp(counts[item_row] - k * g, max=g),
+        torch.zeros_like(item_row)], dim=1).to(torch.int32)
+    return (slot.to(torch.int32), items,
+            torch.tensor([n], dtype=torch.int32, device=cand.device))
+
+
+def max_group_items(batch: int, n_cand: int, rows: int, g: int) -> int:
+    """An upper bound of the work items (one row's slots, ceil(count / g)
+    items a row): the launches' grid, known without a host sync."""
+    slots = batch * n_cand
+    return min(rows, slots) + -(-slots // g)
+
+
+def group_candidates(cand: torch.Tensor, rows: int, g: int):
+    """The work list of ``cand [B, k]`` int32 (contiguous): on the card a
+    counting sort over rows in three small kernels (counts, one block's
+    scan, scatter) with no host sync, giving ``slots [B * k]`` (the first
+    n_valid used; a row's slots in the atomics' order), ``items
+    [max_group_items, 4]`` and ``n_items [1]`` on the device; on the CPU
+    :func:`group_candidates_plain`. Every vote is the same whatever the
+    order of a row's slots."""
+    if cand.device.type == "cpu":
+        return group_candidates_plain(cand, rows, g)
+    if cand.dtype != torch.int32 or cand.ndim != 2 or (
+            not cand.is_contiguous()) or g < 1:
+        raise ValueError(
+            f"group_candidates needs contiguous cand [B, k] int32 and g >= 1 "
+            f"(got {tuple(cand.shape)} {cand.dtype}, g {g})")
+    b, k = cand.shape
+    if b * k > _MAX_BLOCKS or rows > _MAX_BLOCKS:
+        raise ValueError(f"group_candidates: {b} x {k} slots exceed one list")
+    dev = cand.device
+    counts = torch.empty(max(rows, 1), dtype=torch.int32, device=dev)
+    slots = torch.empty(max(b * k, 1), dtype=torch.int32, device=dev)
+    items = torch.empty((max_group_items(b, k, rows, g), 4),
+                        dtype=torch.int32, device=dev)
+    n_items = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = build.kernel_library().tiresias_group_candidates(
+        cand.data_ptr(), b, k, rows, g, counts.data_ptr(), slots.data_ptr(),
+        items.data_ptr(), n_items.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check("group_candidates", rc)
+    return slots, items, n_items
+
+
+def cand_group_size(aligned: bool, f: int) -> int:
+    """Queries per work item of the grouped candidate form for ``f``-frame
+    queries: ``CAND_GROUP``, and for K4 no more than one block's
+    ``_K4_ITEMS`` (query, 32-frame group) items hold."""
+    if aligned:
+        return CAND_GROUP["aligned"]
+    return max(1, min(CAND_GROUP["bag"], _K4_ITEMS // max(1, -(-f // 32))))
+
+
+def _cand_grouped(lib, db, rows_q, index, cand, b, f, coefs, tol, aligned,
+                  route, votes, stream):
+    """K4/K5's grouped candidate form into ``votes [B, k]`` (zeroed)."""
+    a, t, c = db.shape
+    n_cand = cand.shape[1]
+    mode = "aligned" if aligned else "bag"
+    share = _FORCED.get(route, DENSE_SHARE[mode])
+    share_small = _FORCED.get(route, DENSE_SHARE[mode + "_small_batch"])
+    g = cand_group_size(aligned, f)
+    slots, items, n_items = group_candidates(cand, a, g)
+    routes = route_counts(db.device)
+    common = (db.data_ptr(), rows_q.data_ptr(), index.entries.data_ptr(),
+              index.pos.data_ptr(), index.n_live.data_ptr(), t, c, coefs, f,
+              index.chunk, index.n_chunks, tol, share, share_small,
+              CAND_SHARED)
+    work_list = (slots.data_ptr(), items.data_ptr(), n_items.data_ptr(),
+                 items.shape[0], votes.data_ptr())
+    if not aligned:
+        rc = lib.tiresias_match_votes_group(
+            *common, n_cand, g, *work_list, routes.data_ptr(), stream)
+        build.check("match_votes_cand", rc)
+        return
+    warps = lib.tiresias_match_aligned_warps(index.chunk, f, min(b, g))
+    work = torch.empty(items.shape[0], dtype=torch.int32, device=db.device)
+    n_work = torch.empty(2, dtype=torch.int64, device=db.device)
+    rc = lib.tiresias_match_votes_aligned_group(
+        *common, warps, n_cand, g, *work_list, work.data_ptr(),
+        n_work.data_ptr(), routes.data_ptr() + 2 * routes.element_size(),
+        stream)
+    if warps:
+        build.check("match_votes_aligned_cand", rc)
+    build.check("match_votes_aligned_cand_dense", rc)
+
+
 def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
            index: MatchIndex | None = None, route: str = "auto",
            cand: torch.Tensor | None = None):
     a, t, c = db.shape
     if coefs < 1 or coefs > c:
         raise ValueError(f"coefs must be in [1, {c}]")
-    if route != "auto" and route not in _FORCED:
-        raise ValueError("route must be 'auto', 'dense' or 'index'")
+    if route != "auto" and route not in _FORCED and (
+            cand is None or route not in _CAND_FORMS):
+        raise ValueError(
+            "route must be 'auto', 'dense' or 'index'"
+            + ("" if cand is None else ", 'grouped' or 'per_item'"))
     tol = float(np.float32(tolerance))
     if db.device.type == "cpu":
         if cand is not None:
@@ -169,8 +306,14 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
             f"{tuple(cand.shape)} {cand.dtype})"
         )
     n_cand = 0 if cand is None else cand.shape[1]
+    # the per-item candidate form: forced, or at batch 1, where no row is
+    # shared and the grouping would only add its own launches
+    per_item = cand is not None and (
+        route == "per_item" or (route == "auto" and b == 1))
+    suffix = "_per_item" if per_item else ""
     items = b * -(-f // 32)  # K4's work items: 32-frame query groups
-    blocks = a if cand is None else b * n_cand
+    blocks = (a if cand is None else b * n_cand if per_item
+              else max_group_items(b, n_cand, a, 1))
     if blocks > _MAX_BLOCKS or (aligned and b * a > _MAX_BLOCKS) or (
             not aligned and cand is None
             and -(-items // _K4_ITEMS) > _MAX_GRID_Y):
@@ -187,6 +330,10 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
     rows = query_rows(q.to(torch.float32), active, use2, coefs)
     lib = build.kernel_library()
     stream = torch.cuda.current_stream(db.device).cuda_stream
+    if cand is not None and not per_item:
+        _cand_grouped(lib, db, rows, index, cand, b, f, coefs, tol, aligned,
+                      route, votes, stream)
+        return votes
     routes = route_counts(db.device)
     key = ("aligned" if aligned else "bag") + (
         "" if b >= SMALL_BATCH and cand is None else "_small_batch")
@@ -199,7 +346,7 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
         rc = lib.tiresias_match_votes(
             db.data_ptr(), rows.data_ptr(), *common, *cand_args,
             votes.data_ptr(), routes.data_ptr(), stream)
-        build.check(name, rc)
+        build.check(name + suffix, rc)
         return votes
     # K5: the index kernel, then the dense kernel over the items it put on
     # the work list (every item when the offset histogram does not fit in
@@ -215,8 +362,8 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
         votes.data_ptr(), work.data_ptr(), n_work.data_ptr(),
         routes.data_ptr() + 2 * routes.element_size(), stream)
     if warps:
-        build.check(name, rc)
-    build.check(name + "_dense", rc)
+        build.check(name + suffix, rc)
+    build.check(name + "_dense" + suffix, rc)
     return votes
 
 
@@ -251,8 +398,11 @@ def match_votes_cand(db, q, active, use2, tolerance, cand, coefs: int = 1,
     """K4 (K5 with ``aligned``) over candidate rows: ``votes [B, k]`` int32,
     query b's votes against row ``cand[b, j]`` (``cand [B, k]`` int32 row
     ids into ``db``; duplicates allowed), equal to the full kernel's votes
-    at those rows. Each item stages its own row's index chunks; arguments
-    otherwise as :func:`match_votes_fused`."""
+    at those rows. ``route``: ``"auto"`` takes the grouped form (one block
+    per row and up to ``CAND_GROUP`` of its queries) at batch > 1 and the
+    per-item form at batch 1; ``"grouped"`` and ``"per_item"`` force a
+    form, ``"dense"`` and ``"index"`` a route of the grouped form (tests and
+    measurements). Arguments otherwise as :func:`match_votes_fused`."""
     return _votes(db, q, active, use2, tolerance, coefs, aligned, index,
                   route, cand=cand)
 

@@ -41,14 +41,20 @@ NVCC_FLAGS = (
 # match_votes_aligned_dense (the dense kernel over its work list); the work
 # items of each route are counted on the device
 # (ops/match_kernels.py::route_counts). lattice_votes_u8 is K3' on a uint8
-# map (the prefilters' bound scans); the *_cand names are K4/K5's candidate
-# form (the strict/aligned prefilter's rescore).
+# map (the prefilters' bound scans); the *_cand names are K4/K5's grouped
+# candidate form (the strict/aligned prefilter's rescore) and
+# group_candidates its work list (three kernels, one launch count); the
+# *_per_item names the per-item candidate form (the forced "per_item" route,
+# and batch 1).
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
     "mfcc_framed_dft": 0, "lattice_votes": 0, "lattice_votes_u8": 0,
     "match_votes": 0, "match_votes_aligned": 0,
-    "match_votes_aligned_dense": 0, "match_votes_cand": 0,
-    "match_votes_aligned_cand": 0, "match_votes_aligned_cand_dense": 0,
+    "match_votes_aligned_dense": 0, "group_candidates": 0,
+    "match_votes_cand": 0, "match_votes_aligned_cand": 0,
+    "match_votes_aligned_cand_dense": 0, "match_votes_cand_per_item": 0,
+    "match_votes_aligned_cand_per_item": 0,
+    "match_votes_aligned_cand_dense_per_item": 0,
 }
 
 _P = ctypes.c_void_p
@@ -92,6 +98,23 @@ _SIGNATURES = {
     ],
     # chunk, f_len, batch
     "tiresias_match_aligned_warps": [_I, _I, _I],
+    # cand, batch, n_cand, rows, queries per item, counts, slots, items,
+    # n_items, stream
+    "tiresias_group_candidates": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # db, query_rows, entries, pos, n_live, t_len, n_coefs, coefs, f_len,
+    # chunk, n_chunks, tol, share, small-batch share, queries for the
+    # share, n_cand, queries per item, slots, items, n_items, max items,
+    # votes, routes, stream
+    "tiresias_match_votes_group": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+        _P, _P, _P, _I, _P, _P, _P,
+    ],
+    # the same with the warps per block before n_cand, and the work list
+    # and its length after votes
+    "tiresias_match_votes_aligned_group": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+        _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+    ],
 }
 
 _lock = threading.Lock()
