@@ -162,33 +162,106 @@ def call_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
+_FLUSH = {}
+# the clock of each device_ms call, in order: "profiler", or "events" where
+# torch.profiler recorded no device time and the call timed with CUDA events
+CLOCKS: list = []
+
+
+def clocks_since(n0: int) -> str:
+    """The clocks the device_ms calls since ``CLOCKS[n0]`` timed with:
+    "profiler", "events", or "events+profiler" where they differed."""
+    return "+".join(sorted(set(CLOCKS[n0:]))) or "none"
+
+
+def flush_buffer():
+    """A 128 MB int32 buffer (2.6 times the 50 MB L2) whose
+    ``bitwise_not_`` flushes the L2 cache."""
+    import torch
+
+    dev = torch.cuda.current_device()
+    if dev not in _FLUSH:
+        _FLUSH[dev] = torch.zeros(32 * 2**20, dtype=torch.int32, device=dev)
+    return _FLUSH[dev]
+
+
+def events_ms(fn, reps: int = 20, flush: bool = False) -> float:
+    """Device time per call from CUDA events around each call, with the host
+    ahead of the card: a ~2 ms spin kernel before each call keeps the card
+    busy while the host queues the call's launches, so the events see the
+    call's kernels and the gaps between them, not the launch overhead (a
+    call whose host work takes longer shows that too). With ``flush``, the
+    L2 cache is flushed before each call."""
+    import torch
+
+    buf = flush_buffer() if flush else None
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        if buf is not None:
+            buf.bitwise_not_()
+        torch.cuda._sleep(4_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def device_ms(fn, reps: int = 20, attempts: int = 3, flush: bool = False,
+              names: tuple | None = None):
     """Device time per call: the CUDA kernel and memory-op time
-    torch.profiler records over ``reps`` calls, divided by ``reps``. A
-    profile that records no device activity at all (CUPTI occasionally
-    delivers none for a short window) is taken again; the run fails when
-    ``attempts`` profiles in a row record none."""
+    torch.profiler records over ``reps`` calls, divided by ``reps``. With
+    ``names``, a dict of each kernel name that contains one of them (the
+    share of each launch of a pair). With ``flush``, the L2 cache is
+    flushed before each call, and the flush is left out of the sum. A
+    profile that records none of the summed time (CUPTI occasionally
+    delivers none for a short window) is taken again, up to ``attempts``
+    profiles (one while the previous call's profiles were all empty); then
+    this call times with CUDA events instead (:func:`events_ms`), and a split
+    by ``names`` is unknown (None). The clock used is appended to
+    ``CLOCKS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if CLOCKS and CLOCKS[-1] == "events":
+        attempts = 1
+    buf = flush_buffer() if flush else None
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
         with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)  # per-cycle note
+            warnings.simplefilter("ignore", UserWarning)  # per-cycle
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
+                    if buf is not None:
+                        buf.bitwise_not_()
                     fn()
                 torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0)
-                       for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / 1e3 / reps
-        say(f"[profiler] no CUDA device time recorded over {reps} calls; "
-            f"profiling again")
-    fail(f"torch.profiler recorded no CUDA device time in {attempts} "
-         f"profiles in a row")
+        per = {n: 0.0 for n in names or ("",)}
+        for e in prof.key_averages():
+            if buf is not None and "bitwise_not" in e.key:
+                continue
+            us = getattr(e, "self_device_time_total", 0)
+            for n in per:
+                if n in e.key:
+                    per[n] += us / 1e3 / reps
+        if sum(per.values()) > 0:
+            CLOCKS.append("profiler")
+            return per if names else per[""]
+        say(f"[profiler] no CUDA device time recorded over {reps} calls")
+    say(f"[profiler] no CUDA device time in {attempts} profile(s) in a "
+        f"row: this call times with CUDA events (events_ms)")
+    CLOCKS.append("events")
+    if names:
+        return dict.fromkeys(names)
+    return events_ms(fn, reps, flush)
 
 
 def stream_ms(fn, reps: int = 10) -> float:
@@ -634,7 +707,8 @@ def phase_kernels(device, dsp) -> list[dict]:
         "library": "no single PyTorch call computes the tolerance-hit count",
         "shape": f"dense counts, B=64 x {rows} rows x 640 buckets",
     })
-    # K3' on a uint8 map (the prefilters' bound scans): the same shapes on
+    # K3' on a uint8 map (hit_votes' route for uint8 maps; the prefilters'
+    # bound goes through bound_scan): the same shapes on
     # floor(d * 64) distances, the padding rows on the 255 sentinel
     vmq = ml.quantize_value_map(vm * 0.5)
     u8_times = {}
@@ -674,6 +748,28 @@ def phase_kernels(device, dsp) -> list[dict]:
                  f"buckets",
         "ms_b1": u8_times[1]["ms"],
     })
+    # bound_scan on the same uint8 map from raw query values: 1,920 frames a
+    # query, three in every bucket (dense counts), and two NaN and an
+    # out-of-lattice frame in the last query
+    inf = float("inf")
+    ctx = torch.randint(0, 3, (rows,), generator=g, device=device,
+                        dtype=torch.int32)
+    for b in (64, 1):
+        q0 = (torch.arange(3 * ml.K_SIZE, device=device) % ml.K_SIZE
+              + ml.K_MIN + 0.5).float().repeat(b, 1)
+        q0[-1, :3] = torch.tensor([float("nan"), inf, 1e9], device=device)
+        valid = torch.ones_like(q0, dtype=torch.bool)
+        for tol in (0.001, 0.5, 3.984375, 10.0):
+            check_scan(f"dialplan dense B={b} tol {tol}",
+                       ml.dialplan_scan(tol, -inf, inf), (vmq,), q0, valid,
+                       ctx_ids=ctx, ctx_id=1)
+        SCAN[f"dialplan dense B={b}"] = time_scan(
+            f"dialplan dense [{b}, {q0.shape[1]}] frames x [{rows}, 640] "
+            f"uint8 B={b} tol 0.5", ml.dialplan_scan(0.5, -inf, inf), (vmq,),
+            q0, valid)
+    say("[kernels] bound_scan dialplan dense: bound and histogram exact "
+        "against the twin and the unfused route at tol 0.001, 0.5, 3.984375 "
+        "(saturation) and 10, with and without a context")
     out += phase_match_kernels(device)
     return out
 
@@ -791,24 +887,158 @@ def band_stats(index, q, active, use2, tol: float, cand=None) -> dict:
             "cand_bytes": 0 if cand is None else 4 * cand.numel()}
 
 
-def bound_votes_plain(specs, maps, q, active, use2, tol):
-    """``match_lattice.bound_votes`` with K3''s plain twin in place of the
-    kernel: the coefficients' clipped-scaled lattice votes, coefficient 1's
-    bypass credit, the minimum."""
+def k3u8_route(scans, maps, q, active, use2=None, ctx_ids=None,
+               ctx_id=None):
+    """The prefilters' bound stage unfused, held beside ``bound_scan``:
+    per map the torch histogram and K3'-u8 (``hit_votes`` on the uint8 map),
+    then the bypass credit, ``torch.minimum`` and the context
+    ``torch.where``, each a launch of its own."""
     import torch
 
     from tiresias_tpu_torch.ops import match_lattice as ml
 
-    inf = float("inf")
+    q3 = q if q.ndim == 3 else q[..., None]
     out = None
-    for (c, s, lo, hi, k_min, k_size), m in zip(specs, maps):
-        act_c = active & use2 if c == 1 else active
-        v = ml.lattice_votes_reference(
-            ml.histogram(torch.clamp(q[..., c], lo, hi) * s, act_c, -inf, inf,
-                         k_min, k_size), m, ml.bound_threshold(s, tol))
-        if c == 1:
+    for sp, m, c in zip(scans, maps,
+                        ml.scan_histograms(scans, q3, active, use2)):
+        v = ml.hit_votes(c, m, sp.threshold, max_count=q3.shape[1])
+        if sp.bypass:
             v = v + (active & ~use2).sum(dim=1, dtype=torch.int32)[:, None]
         out = v if out is None else torch.minimum(out, v)
+    if ctx_ids is not None:
+        out = torch.where((ctx_ids == ctx_id)[None, :], out, -1)
+    return out
+
+
+def scan_bound(scans, maps, q, active, use2=None, ctx_ids=None) -> dict:
+    """``bound_scan``'s bounds from this run's inputs (bytes), of the pair
+    and of each kernel: the map bytes across the 32-bucket steps some query
+    counts in (the kernel reads no other map byte), the query column each
+    map buckets, ``active`` once, ``use2`` once where a map bypasses, the
+    context ids when given, the int32 bound written once; the prologue
+    writes and the vote kernel reads the u8 planes of those steps. The
+    steps come from the twin's histograms."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    q3 = q if q.ndim == 3 else q[..., None]
+    b, f = active.shape
+    planes = ml.count_planes(f)
+    steps = []
+    for sp, c in zip(scans, ml.scan_histograms(scans, q3, active, use2)):
+        n = -(-sp.k_size // ml.STEP)
+        flagged = torch.nn.functional.pad(c.any(dim=0),
+                                          (0, n * ml.STEP - sp.k_size))
+        steps.append(int(flagged.reshape(n, ml.STEP).any(dim=1).sum()))
+    q_bytes = (4 * b * f * len(scans) + b * f
+               + (b * f if any(sp.bypass for sp in scans) else 0))
+    map_bytes = sum(min(ml.STEP * n, sp.k_size) * m.shape[0]
+                    for n, sp, m in zip(steps, scans, maps))
+    plane_bytes = planes * b * ml.STEP * sum(steps)
+    votes = 4 * b * maps[0].shape[0]
+    ctx = 0 if ctx_ids is None else ctx_ids.numel() * ctx_ids.element_size()
+    return {"pair": bound(q_bytes + map_bytes + ctx + votes, 0),
+            "planes": bound(q_bytes + plane_bytes, 0),
+            "votes": bound(map_bytes + plane_bytes + ctx + votes, 0),
+            "steps": steps, "map_bytes": map_bytes}
+
+
+# bound_scan's timings by case, filled by the phases that run them
+SCAN: dict = {}
+
+
+def check_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
+               ctx_id=None) -> None:
+    """``bound_scan`` == its twin (bound and first-map histogram) and ==
+    the unfused route, int32 for int32, with and without the context."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    for cid in ((None, ctx_id) if ctx_ids is not None else (None,)):
+        ids = None if cid is None else ctx_ids
+        got, c = ml.bound_scan(scans, maps, q, active, use2, ids, cid, True)
+        want, want_c = ml.bound_scan_reference(scans, maps, q, active, use2,
+                                               ids, cid, True)
+        if not (torch.equal(got, want) and torch.equal(c, want_c)):
+            fail(f"bound_scan != its twin: {label} ctx {cid}")
+        if not torch.equal(got, k3u8_route(scans, maps, q, active, use2, ids,
+                                           cid)):
+            fail(f"bound_scan != the unfused route: {label} ctx {cid}")
+
+
+def time_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
+              ctx_id=None, reps: int = 20) -> dict:
+    """``bound_scan`` against the unfused route (torch histogram, K3'-u8,
+    torch credit, min and where) in turns (old, new, new, old): device ms
+    (profiler; the pair's two kernels summed per profile), stream ms (CUDA
+    events over back-to-back calls) and device ms with the L2 flushed before
+    each call (:func:`events_ms`); the twin's device time, whole and by its
+    two stages (the histograms; the votes, credit, min and mask); the split
+    between the pair's two kernels; the clock the device times came from
+    (:data:`CLOCKS`); and the bound from these inputs. Each call masks the
+    context when ``ctx_ids`` is given."""
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    n0 = len(CLOCKS)
+
+    def new():
+        return ml.bound_scan(scans, maps, q, active, use2, ctx_ids, ctx_id)
+
+    def old():
+        return k3u8_route(scans, maps, q, active, use2, ctx_ids, ctx_id)
+
+    # the pair's device time is the sum of its two kernels in each profile
+    names = ("bound_scan_planes_kernel", "bound_scan_kernel")
+    turns = {"new": [], "old": []}
+    splits = []
+    for who, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+        if who == "new":
+            splits.append(device_ms(new, reps, names=names))
+            dev = (sum(splits[-1].values()) if None not in
+                   splits[-1].values() else events_ms(new, reps))
+        else:
+            dev = device_ms(fn, reps)
+        turns[who].append((dev, stream_ms(fn, reps),
+                           events_ms(fn, reps // 2, flush=True)))
+    med = {who: [float(np.median([t[i] for t in v])) for i in range(3)]
+           for who, v in turns.items()}
+    split = {n: (float(np.median([sp[n] for sp in splits]))
+                 if None not in [sp[n] for sp in splits] else None)
+             for n in names}
+    twin = device_ms(lambda: ml.bound_scan_reference(
+        scans, maps, q, active, use2, ctx_ids, ctx_id), 5)
+    q3 = q if q.ndim == 3 else q[..., None]
+    counts = ml.scan_histograms(scans, q3, active, use2)
+    twin_planes = device_ms(lambda: ml.scan_histograms(scans, q3, active,
+                                                       use2), 5)
+    twin_votes = device_ms(lambda: ml.scan_votes_reference(
+        scans, maps, counts, active, use2, ctx_ids, ctx_id), 5)
+    bd = scan_bound(scans, maps, q, active, use2, ctx_ids)
+    out = {"ms": med["new"][0], "stream_ms": med["new"][1],
+           "cold_ms": med["new"][2], "old_ms": med["old"][0],
+           "old_stream_ms": med["old"][1], "old_cold_ms": med["old"][2],
+           "planes_ms": split["bound_scan_planes_kernel"],
+           "votes_ms": split["bound_scan_kernel"], "plain_ms": twin,
+           "plain_planes_ms": twin_planes, "plain_votes_ms": twin_votes,
+           "clock": clocks_since(n0),
+           **bd["pair"], "planes_bound_ms": bd["planes"]["bound_ms"],
+           "votes_bound_ms": bd["votes"]["bound_ms"], "steps": bd["steps"],
+           "map_bytes": bd["map_bytes"],
+           "turns": {who: [list(t) for t in v] for who, v in turns.items()}}
+    say(f"[kernels] bound_scan {label}: device {out['ms']} ms (planes "
+        f"{out['planes_ms']}, votes {out['votes_ms']}), stream "
+        f"{out['stream_ms']} ms, L2 flushed {out['cold_ms']} ms; the unfused "
+        f"route (histogram + K3'-u8 + min/where) device {out['old_ms']} ms, "
+        f"stream {out['old_stream_ms']} ms, L2 flushed {out['old_cold_ms']} "
+        f"ms; twin {twin} ms (histograms {twin_planes}, votes {twin_votes}); "
+        f"device clock {out['clock']}; bound {out['bound_ms']:.6f} ms "
+        f"({out['bound_by']}: {bd['map_bytes']} map bytes in "
+        f"{bd['steps']} flagged steps, queries, votes), "
+        f"{100 * out['bound_ms'] / out['ms']:.1f}% of it warm, "
+        f"{100 * out['bound_ms'] / out['cold_ms']:.1f}% flushed; turns "
+        f"(device, stream, flushed) {out['turns']}")
     return out
 
 
@@ -1025,13 +1255,25 @@ def phase_match_kernels(device) -> list[dict]:
         f"({len(maps)} x [{m.shape[0]}, {m.shape[1]}] uint8, built in "
         f"{maps_ms} ms of device time) with 64 queries' histograms: votes "
         f"exact at tol 0.01, 0.1 and 0.5")
-    if not torch.equal(
-            ml.bound_votes(specs, maps, qq, act, use2, STRICT_TOL),
-            bound_votes_plain(specs, maps, qq, act, use2, STRICT_TOL)):
-        fail("bound_votes on K3'-u8 != its plain twin")
-    timed("K3'-u8 bound_votes (2 bound maps) B=64",
-          lambda: ml.bound_votes(specs, maps, qq, act, use2, STRICT_TOL),
-          lambda: bound_votes_plain(specs, maps, qq, act, use2, STRICT_TOL))
+    # bound_scan, the strict prefilter's bound stage, on the same maps and
+    # queries: the twin and the unfused route at every tolerance, context or
+    # not, then timed against the unfused route (the K-a row's 0.0906 ms case)
+    g = torch.Generator(device=device).manual_seed(107)
+    ctx = torch.randint(0, 3, (db.shape[0],), generator=g, device=device,
+                        dtype=torch.int32)
+    for tol in (0.01, STRICT_TOL, 0.5, 2.0):
+        for b in (64, 1):
+            check_scan(f"synthetic bound maps B={b} tol {tol}",
+                       ml.strict_scan(specs, tol), maps, qq[:b], act[:b],
+                       use2[:b], ctx, 1)
+    say(f"[kernels] bound_scan on the bound maps ({len(maps)} x "
+        f"{list(maps[0].shape)} uint8) with 64 and 1 synthetic queries: "
+        f"bound and histogram exact against the twin and the unfused route at "
+        f"tol 0.01, 0.1, 0.5 and 2.0 (past saturation), with and without a "
+        f"context")
+    SCAN["strict synthetic B=64"] = time_scan(
+        f"strict synthetic 2 x {list(maps[0].shape)} B=64 tol 0.1",
+        ml.strict_scan(specs, STRICT_TOL), maps, qq, act, use2)
     del maps
     # every live stored frame (10,000 rows x 938) against each of the 94
     # active frames of 64 queries: a subtract and a compare per coefficient
@@ -1240,6 +1482,17 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
     fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
     specs, maps = eng.store.bound_maps_for(view, 2)
     rows = view.db.shape[0]
+    # bound_scan on the catalog's bound maps with the search queries
+    ctx = eng.store.ctx_ids_for(view)
+    for b in (64, 1):
+        for tol in (0.01, STRICT_TOL, 0.5):
+            check_scan(f"catalog bound maps B={b} tol {tol}",
+                       ml.strict_scan(specs, tol), maps, q[:b], active[:b],
+                       use2[:b], ctx, int(ctx[0]))
+        SCAN[f"strict catalog B={b}"] = time_scan(
+            f"strict catalog 2 x {list(maps[0].shape)} B={b} tol 0.1",
+            ml.strict_scan(specs, STRICT_TOL), maps, q[:b], active[:b],
+            use2[:b])
     cases = []
     for b in (64, 1):
         idx, _ = ml.select_candidates(
@@ -1333,7 +1586,7 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
             st_ms = [float(np.median([t[i][1] for i in ii]))
                      for ii in ((1, 2), (0, 3))]
             say(f"[prefilter] {mode} ops B={b} tol {STRICT_TOL}: prefiltered "
-                f"{dev[0]} ms device, {st_ms[0]} ms on the stream (K3'-u8 "
+                f"{dev[0]} ms device, {st_ms[0]} ms on the stream (bound_scan "
                 f"bound, top-1024, candidate form); full scan {dev[1]} ms "
                 f"device, {st_ms[1]} ms on the stream; certified "
                 f"{int(cert.sum())}/{b}")
@@ -1684,9 +1937,9 @@ def phase_lattice_real(vm, q0, valid) -> dict:
             timed(f"K3' lattice_votes real {name}",
                   lambda: ml.hit_votes(counts, vm, 1.0, bound),
                   lambda: ml.lattice_votes_reference(counts, vm, 1.0))
-    # the dialplan prefilter on the same traffic: K3'-u8 against the
-    # catalog's quantized map, then the ops-level prefiltered and full-scan
-    # votes in turns, and the two steps that are library calls
+    # the dialplan prefilter on the same traffic: K3'-u8 and bound_scan
+    # against the catalog's quantized map, then the ops-level prefiltered
+    # and full-scan votes in turns, and the two steps that are library calls
     vmq = ml.quantize_value_map(vm)
     for name, (counts, bound) in cases.items():
         for tol in (0.001, 1.0):
@@ -1697,6 +1950,21 @@ def phase_lattice_real(vm, q0, valid) -> dict:
     say(f"[kernels] K3'-u8 lattice_votes_u8 real B=72/B=64/B=1/long x "
         f"[{vmq.shape[0]}, 640] uint8: votes exact at tol 0.001 and 1.0")
     inf = float("inf")
+    # bound_scan, the dialplan prefilter's bound stage, on the same traffic
+    raw = {"B=72": (q0, valid), "B=64": (q0[:N_EXCERPTS], valid[:N_EXCERPTS]),
+           "B=1": (q0[:1], valid[:1]),
+           "long B=1": (q0.reshape(1, -1), valid.reshape(1, -1))}
+    for name, (qb, vb) in raw.items():
+        for tol in (0.001, 1.0):
+            check_scan(f"dialplan real {name} tol {tol}",
+                       ml.dialplan_scan(tol, lo, hi), (vmq,), qb, vb)
+    say(f"[kernels] bound_scan dialplan real B=72/B=64/B=1/long x "
+        f"[{vmq.shape[0]}, 640] uint8: bound and histogram exact against the "
+        f"twin and the unfused route at tol 0.001 and 1.0")
+    for name in ("B=64", "B=1"):
+        SCAN[f"dialplan real {name}"] = time_scan(
+            f"dialplan real {name} x [{vmq.shape[0]}, 640] uint8 tol 0.001",
+            ml.dialplan_scan(0.001, lo, hi), (vmq,), *raw[name])
     for b in (64, 1):
         qb, vb = q0[:b], valid[:b]
         for tol in (0.001, 1.0):
@@ -1713,11 +1981,12 @@ def phase_lattice_real(vm, q0, valid) -> dict:
                                                       inf), t_full)):
                 acc.append(device_ms(fn, 10))
             say(f"[prefilter] dialplan ops B={b} tol {tol}: prefiltered "
-                f"{float(np.median(t_pf))} ms (K3'-u8 bound, top-256, "
+                f"{float(np.median(t_pf))} ms (bound_scan, top-256, "
                 f"rescore), full scan {float(np.median(t_full))} ms, device; "
                 f"certified {int(cert.sum())}/{b}")
-    c = ml.histogram(q0[:N_EXCERPTS], valid[:N_EXCERPTS], -inf, inf)
-    bound64 = ml.hit_votes(c, vmq, ml.bound_threshold(None, 1.0), f)
+    bound64, c = ml.bound_scan(ml.dialplan_scan(1.0, -inf, inf), (vmq,),
+                               q0[:N_EXCERPTS], valid[:N_EXCERPTS],
+                               with_counts=True)
     idx, _ = ml.select_candidates(bound64, ml.LATTICE_PREFILTER_K)
     library = {
         f"rescore_rows {list(idx.shape) + [vm.shape[1]]}": device_ms(
@@ -2419,9 +2688,19 @@ def phase_prefilter(device, tmp: str) -> dict:
     valid = (torch.arange(qfp.shape[1], device=device)[None, :]
              < torch.from_numpy(n_frames.astype(np.int64)).to(device)[:, None])
     inf = float("inf")
-    c = ml.histogram(qfp[..., 0].contiguous(), valid, -inf, inf)
-    bound100k = ml.hit_votes(c, view.value_map_q,
-                             ml.bound_threshold(None, 0.001), qfp.shape[1])
+    q0 = qfp[..., 0].contiguous()
+    scan = ml.dialplan_scan(0.001, -inf, inf)
+    bound100k, c = ml.bound_scan(scan, (view.value_map_q,), q0, valid,
+                                 with_counts=True)
+    ctx = store.ctx_ids_for(view)
+    for b in (64, 1):
+        for tol in (0.001, 1.0):
+            check_scan(f"100,096 rows B={b} tol {tol}",
+                       ml.dialplan_scan(tol, -inf, inf), (view.value_map_q,),
+                       q0[:b], valid[:b], ctx_ids=ctx, ctx_id=int(ctx[0]))
+        SCAN[f"dialplan {view.db.shape[0]} rows B={b}"] = time_scan(
+            f"dialplan real B={b} x {list(view.value_map_q.shape)} uint8 tol "
+            f"0.001", scan, (view.value_map_q,), q0[:b], valid[:b])
     library = topk_ms(bound100k)
     idx, _ = ml.select_candidates(bound100k, ml.LATTICE_PREFILTER_K)
     library[f"rescore_rows {list(idx.shape) + [view.value_map.shape[1]]}"] = (
@@ -2429,6 +2708,8 @@ def phase_prefilter(device, tmp: str) -> dict:
     library[f"K3'-u8 bound scan {list(bound100k.shape)}"] = device_ms(
         lambda: ml.hit_votes(c, view.value_map_q,
                              ml.bound_threshold(None, 0.001), qfp.shape[1]))
+    library[f"bound_scan {list(bound100k.shape)}"] = SCAN[
+        f"dialplan {view.db.shape[0]} rows B=64"]["ms"]
     library[f"K3' full scan {list(bound100k.shape)}"] = device_ms(
         lambda: ml.hit_votes(c, view.value_map, 0.001, qfp.shape[1]))
     for name, ms in library.items():
@@ -2665,6 +2946,51 @@ def brute_force_votes(db0: np.ndarray, q0: np.ndarray, tol: float):
     return votes
 
 
+def tag_clock(entries: list[dict], n0: int) -> list[dict]:
+    """Gives each kernels-line entry that has none the clocks of the
+    device_ms calls since ``CLOCKS[n0]`` (the phase that timed it)."""
+    for e in entries:
+        e.setdefault("clock", clocks_since(n0))
+    return entries
+
+
+def scan_entries() -> list[dict]:
+    """The kernels line's entries of ``bound_scan``'s two kernels, each
+    timed alone inside the pair (profiler) at the K-a row's case (the strict
+    bound maps, 64 synthetic queries, tol 0.1), with the pair's time, the
+    unfused route and every other case beside them."""
+    main = SCAN["strict synthetic B=64"]
+    cases = {k: {f: v[f] for f in ("ms", "stream_ms", "cold_ms", "old_ms",
+                                   "old_stream_ms", "old_cold_ms", "plain_ms",
+                                   "bound_ms", "planes_ms", "votes_ms",
+                                   "clock")}
+             for k, v in SCAN.items()}
+    common = {
+        "route": "cuda", "source": "tiresias_tpu_torch/csrc/lattice.cu",
+        "max_abs_err": 0.0, "library_ms": None,
+        "library": "no single PyTorch call computes the bound",
+        "shape": "strict bound maps 2 x [10112, 768] uint8, B=64 synthetic "
+                 "queries x 128 frames, tol 0.1",
+        "pair_ms": main["ms"], "pair_bound_ms": main["bound_ms"],
+        "pair_plain_ms": main["plain_ms"], "unfused_route_ms": main["old_ms"],
+        "clock": main["clock"],
+    }
+    return [
+        {"name": "bound_scan_planes", **common,
+         "replaces": "tiresias_tpu/ops/match_lattice.py:583",
+         "ms": main["planes_ms"], "plain_ms": main["plain_planes_ms"],
+         "plain": "the twin's histograms (scan_histograms)",
+         "bound_ms": main["planes_bound_ms"], "bound_by": "bytes"},
+        {"name": "bound_scan", **common,
+         "replaces": "tiresias_tpu/ops/match_lattice.py:304",
+         "ms": main["votes_ms"], "plain_ms": main["plain_votes_ms"],
+         "plain": "the twin's votes, credit, min and mask "
+                  "(scan_votes_reference)",
+         "bound_ms": main["votes_bound_ms"], "bound_by": "bytes",
+         "cases": cases},
+    ]
+
+
 def run(device) -> dict:
     import torch
 
@@ -2679,7 +3005,9 @@ def run(device) -> dict:
 
     card = phase_card(device)
     phase_build()
+    n0 = len(CLOCKS)
     kernels = phase_kernels(device, TiresiasConfig().dsp)
+    tag_clock(kernels, n0)
     took("[kernels]")
     tmp = tempfile.mkdtemp(prefix="tiresias_chip_smoke_")
     try:
@@ -2715,7 +3043,7 @@ def run(device) -> dict:
         say(f"[search] max_memory_allocated {search_peak} B during the "
             f"searches, {max(run_peak, search_peak)} B over the run")
         for name in ("mfcc_rows", "mfcc_framed", "lattice_votes",
-                     "lattice_votes_u8"):
+                     "bound_scan_planes", "bound_scan"):
             if launches[name] <= 0:
                 fail(f"the main path never launched {name}")
         say(f"[launches] main path: {launches}")
@@ -2738,24 +3066,32 @@ def run(device) -> dict:
                        "match_votes_cand_per_item",
                        "match_votes_aligned_cand_per_item",
                        "match_votes_aligned_cand_dense_per_item")
-        for name in match_names + ("lattice_votes_u8",):
+        scan_names = ("bound_scan_planes", "bound_scan")
+        for name in match_names + scan_names:
             if strict_launches[name] <= 0:
                 fail(f"the strict path never launched {name}")
+        for where, counts in (("main", launches),
+                              ("strict", strict_launches)):
+            if counts["lattice_votes_u8"] != 0:
+                fail(f"the {where} path launched K3'-u8: the prefilters' "
+                     f"bound goes through bound_scan")
         if routes[0] <= 0 or routes[2] <= 0:
             fail(f"the strict path never took the index route: {routes}")
         say(f"[launches] strict path: {strict_launches}; work items (K4 "
             f"index, K4 dense, K5 index, K5 dense): {routes}")
         launches.update({k: strict_launches[k] for k in match_names})
-        launches["lattice_votes_u8"] += strict_launches["lattice_votes_u8"]
+        for name in scan_names:
+            launches[name] += strict_launches[name]
         took("[strict]")
         phase_verify_strict(device, eng, queries, strict)
         took("[verify] [strict]")
-        kernels += phase_match_real(device, eng, queries)
+        n0 = len(CLOCKS)
+        kernels += tag_clock(phase_match_real(device, eng, queries), n0)
         took("the catalog's K4/K5 and candidate forms")
         torch.cuda.synchronize(device)
         build.reset_launch_counts()  # --- the serve path starts here ---
         serve_launches = phase_serve(device, eng, cfg, queries)
-        for names in (("mfcc_rows",), ("lattice_votes", "lattice_votes_u8"),
+        for names in (("mfcc_rows",), ("lattice_votes", "bound_scan"),
                       ("match_votes_aligned", "match_votes_aligned_cand")):
             if sum(serve_launches[n] for n in names) <= 0:
                 fail(f"the serve path never launched {' or '.join(names)}")
@@ -2770,13 +3106,17 @@ def run(device) -> dict:
         took("[cli]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    kernels += scan_entries()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_serve"] = serve_launches[k["name"]]
+    clocks = {c: CLOCKS.count(c) for c in ("profiler", "events")}
+    say(f"[clocks] device_ms calls by clock: {clocks}")
     return {"kernels": kernels, "card": card["card"], "ingest_rate": rate,
             "p50": p50, "strict_p50": strict_p50,
             "summary": {"search": search_info, "strict": strict_info,
-                        "library_ms": library, "prefilter": prefilter}}
+                        "library_ms": library, "prefilter": prefilter,
+                        "bound_scan": SCAN, "clocks": clocks}}
 
 
 def main() -> int:

@@ -224,6 +224,7 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
                               "mfcc_rows_dft": 0, "mfcc_framed_dft": 0,
                               "lattice_votes": 1, "lattice_votes_u8": 0,
+                              "bound_scan_planes": 0, "bound_scan": 0,
                               "match_votes": 1, "match_votes_aligned": 1,
                               "match_votes_aligned_dense": 1,
                               "group_candidates": 0,
@@ -245,6 +246,12 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
                      torch.zeros((128, ml.K_SIZE), device=dev), 1.0)
     with pytest.raises(ValueError):  # a CPU query against a card db
         tk.match_votes_fused(db, q.cpu(), flags.cpu(), flags.cpu(), 0.1, 2)
+    specs, maps = ml.build_bound_maps(db, flags.new_ones((16, 128)), 2)
+    with pytest.raises(ValueError):  # masks on the CPU, queries on the card
+        ml.bound_votes(specs, maps, q, flags.cpu(), flags.cpu(), 0.1)
+    with pytest.raises(ValueError):  # a float32 map
+        ml.bound_scan(ml.dialplan_scan(0.1, -1.0, 1.0, -384, 768),
+                      (maps[0].float(),), q[..., 0], flags)
     with pytest.raises(ValueError):
         tk.match_votes_fused(db.double(), q, flags, flags, 0.1, 2)
 
@@ -277,6 +284,86 @@ def test_lattice_votes_u8_match_twin_exactly(dev, b, k_size):
             assert (got[:, [7, 11, 17]] == 0).all()
     assert build.LAUNCHES["lattice_votes_u8"] == 30
     assert build.LAUNCHES["lattice_votes"] == 0
+
+
+# thresholds of test_lattice_votes_u8_match_twin_exactly
+U8_THRESHOLDS = (0.0, 0.5, 6.4, 63.99, 64.0, 89.6, 254.0, 254.99, 255.0,
+                 300.0, float("inf"), -1.0, float("nan"),
+                 ml.bound_threshold(None, 0.5), ml.bound_threshold(8.0, 0.1))
+
+
+def _scan_case(dev, b, kind):
+    """Scans, uint8 maps (rows 7, 11, 17 on the 255 sentinel, row 20 a ramp)
+    and queries for bound_scan against its twin, from a seed: NaN, +-inf and
+    out-of-lattice frames, inactive and bypass frames, query 0 with more
+    than 255 frames in one bucket (two planes; "long": more than 65,535,
+    three planes and 32-query tiles, at batch 1), context ids."""
+    g = np.random.default_rng(b * 11 + len(kind))
+    inf = float("inf")
+    rows = 20000 if kind == "many_rows" else 301
+    f = 66000 if kind == "long" else 300
+    if kind.startswith("strict"):
+        scans = ml.strict_scan(ml.bound_specs(int(kind[-1])), 0.1)
+        q = g.normal(0.0, 30.0, (b, f, 3)).astype(np.float32)
+        q[0, :290] = 3.3
+    else:
+        k_min, k_size = (-50, 99) if kind == "k99" else (ml.K_MIN, ml.K_SIZE)
+        band = (-30.0, 40.0) if kind == "k99" else (-inf, inf)
+        scans = ml.dialplan_scan(0.5, *band, k_min, k_size)
+        q = g.uniform(k_min - 20, k_min + k_size + 20, (b, f)).astype(
+            np.float32)
+        # query 0's crowded bucket inside the band
+        q[0, : 65600 if kind == "long" else 290] = max(k_min, -30) + 3.7
+    q[b - 1, :4] = np.array([np.nan, np.inf, -np.inf, 1e30]).reshape(
+        (4,) + (1,) * (q.ndim - 2))
+    active = g.random((b, f)) < 0.9
+    use2 = g.random((b, f)) < 0.7
+    active[0, : 65600 if kind == "long" else 290] = True
+    use2[0, :290] = True
+    maps = []
+    for sp in scans:
+        m = g.integers(0, 256, (rows, sp.k_size)).astype(np.uint8)
+        m[[7, 11, 17]] = 255
+        m[20, :64] = np.arange(64)
+        maps.append(torch.from_numpy(m).to(dev))
+    ctx = torch.from_numpy(g.integers(0, 3, rows).astype(np.int32)).to(dev)
+    return (scans, tuple(maps), torch.from_numpy(q).to(dev),
+            torch.from_numpy(active).to(dev), torch.from_numpy(use2).to(dev),
+            ctx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kind", [
+    (b, kind) for kind in ("dialplan", "k99", "many_rows", "long", "strict1",
+                           "strict2", "strict3")
+    for b in (1, 64, 70) if kind != "long" or b == 1])
+def test_bound_scan_matches_twin_exactly(dev, b, kind):
+    """bound_scan == bound_scan_reference int32 for int32, bound and
+    histogram: the dialplan map (640 buckets; 99, unaligned rows, with a
+    band; 20,000 rows, where a warp takes several row tiles), the strict
+    bound maps of coefficients (0,), (0, 1) and (1, 2) (768 buckets), at the
+    thresholds of the K3'-u8 test, with and without a context; two launches
+    a scan and none of K3'-u8."""
+    scans, maps, q, active, use2, ctx = _scan_case(dev, b, kind)
+    build.reset_launch_counts()
+    calls = 0
+    for thr in U8_THRESHOLDS:
+        sc = tuple(sp._replace(threshold=thr) for sp in scans)
+        for ctx_id in (None, 1):
+            ids = None if ctx_id is None else ctx
+            want, want_c = ml.bound_scan_reference(sc, maps, q, active, use2,
+                                                   ids, ctx_id, True)
+            got, got_c = ml.bound_scan(sc, maps, q, active, use2, ids,
+                                       ctx_id, True)
+            calls += 1
+            assert torch.equal(got, want), (thr, ctx_id)
+            assert torch.equal(got_c, want_c), (thr, ctx_id)
+            if thr < 255 and ctx_id is None and not sc[0].bypass:
+                assert (got[:, [7, 11, 17]] == 0).all()
+    assert int(want_c.max()) > (65535 if kind == "long" else 255)
+    assert build.LAUNCHES["bound_scan_planes"] == calls
+    assert build.LAUNCHES["bound_scan"] == calls
+    assert build.LAUNCHES["lattice_votes_u8"] == 0
 
 
 def _match_case(dev, seed, rows, t, c, b, f):
@@ -573,6 +660,41 @@ def test_prefilters_on_card_equal_full_scans(dev, aligned):
     lf = ml.lattice_votes(vm, q0, valid, 0.5, float("-inf"), float("inf"))
     assert lc.any()
     assert torch.equal(lv.max(dim=1).values[lc], lf.max(dim=1).values[lc])
+
+
+@pytest.mark.cuda
+def test_prefilters_take_bound_scan(dev):
+    """Both prefilters reach their bound through bound_scan, two launches a
+    scan, context mask included, and never through K3'-u8; the bounds equal
+    the CPU twin's."""
+    g = np.random.default_rng(5)
+    rows, t = 600, 64
+    db = g.normal(-20.0, 12.0, (rows, t, 2)).astype(np.float32)
+    db[:, 50:] = PAD_VALUE
+    db = torch.from_numpy(db).to(dev)
+    mask = db[..., 0] != PAD_VALUE
+    q = (db[:8, 3:40] + 0.02).contiguous()
+    qq, act, use2 = tm.prepare_query(q, None, -1, -1, trunc_coef1=False)
+    specs, maps = ml.build_bound_maps(db, mask, 2)
+    ctx = torch.arange(rows, device=dev, dtype=torch.int32) % 3
+    index = mi.build_match_index(db)
+    build.reset_launch_counts()
+    for aligned in (False, True):
+        tk.aligned_prefiltered_votes(db, maps, qq, act, use2, 0.1,
+                                     specs=specs, coefs=2, k=64, ctx_ids=ctx,
+                                     ctx_id=1, aligned=aligned, index=index)
+    vm = ml.build_value_map(db[..., 0], mask)
+    vmq = ml.quantize_value_map(vm)
+    ml.lattice_prefiltered_votes(vm, vmq, torch.trunc(qq[..., 0]), act, 0.5,
+                                 float("-inf"), float("inf"), k=64,
+                                 ctx_ids=ctx, ctx_id=1)
+    assert build.LAUNCHES["bound_scan_planes"] == 3
+    assert build.LAUNCHES["bound_scan"] == 3
+    assert build.LAUNCHES["lattice_votes_u8"] == 0
+    got = ml.bound_votes(specs, maps, qq, act, use2, 0.1, ctx, 1)
+    want = ml.bound_votes(specs, tuple(m.cpu() for m in maps), qq.cpu(),
+                          act.cpu(), use2.cpu(), 0.1, ctx.cpu(), 1)
+    assert torch.equal(got.cpu(), want) and (want == -1).any()
 
 
 @pytest.mark.cuda

@@ -426,12 +426,12 @@ def aligned_prefiltered_votes(
     """Aligned (or, ``aligned=False``, strict bag) votes by a CERTIFIED
     two-stage search (``match_pallas.aligned_prefiltered_votes``, PARITY.md
     D17/D20): the bound ``min_c`` of each bound coefficient's clipped-scaled
-    lattice votes (:func:`match_lattice.bound_votes`, K3' on the uint8
-    ``maps``), which no row's bag votes, and so no row's aligned votes,
-    exceed; the ``k`` rows of highest bound; their exact votes by K5 (K4)'s
-    candidate form over the view's sorted ``index``; and the certificate,
-    that the ``top``-th best rescored score strictly beats the highest
-    unselected bound.
+    lattice votes (:func:`match_lattice.bound_votes`: the ``bound_scan``
+    kernel pair over the uint8 ``maps``, context mask included), which no
+    row's bag votes, and so no row's aligned votes, exceed; the ``k`` rows
+    of highest bound; their exact votes by K5 (K4)'s candidate form over
+    the view's sorted ``index``; and the certificate, that the ``top``-th
+    best rescored score strictly beats the highest unselected bound.
 
     Out-of-context rows (``ctx_ids != ctx_id``) get bound -1 and, if
     selected, score 0. Returns ``(votes [B, A] int32 — candidate scores
@@ -450,11 +450,9 @@ def aligned_prefiltered_votes(
     # the band is already inside `active` (prepare_query); the bound's
     # lattice band stays open, or a band-edge frame could leave the bound
     # but not the votes
-    bound = ml.bound_votes(specs, maps, q, active, use2, tolerance)
-    keep = None
-    if ctx_ids is not None:
-        keep = ctx_ids == ctx_id
-        bound = torch.where(keep[None, :], bound, -1)
+    bound = ml.bound_votes(specs, maps, q, active, use2, tolerance, ctx_ids,
+                           ctx_id)
+    keep = None if ctx_ids is None else ctx_ids == ctx_id
     idx, unselected_max = ml.select_candidates(bound, k)
     votes_k = match_votes_cand(db, q, active, use2, tolerance,
                                idx.to(torch.int32), coefs, index,

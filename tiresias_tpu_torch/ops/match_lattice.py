@@ -12,10 +12,16 @@ vote factorizes exactly (PARITY.md section 3):
 The map build is plain torch (the JAX package left it to XLA); the vote is
 the hand-written kernel ``csrc/lattice.cu`` behind :func:`hit_votes` (u8
 tensor-core products that skip the buckets no query of a tile uses), with
-:func:`lattice_votes_reference` as its plain twin.
+:func:`lattice_votes_reference` as its plain twin. The certified
+prefilters' bound stage, from the raw query values to the final bound, is
+the kernel pair :func:`bound_scan` (plain twin :func:`bound_scan_reference`).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -255,9 +261,10 @@ def lattice_votes(
 # ---- certified prefilters (PARITY.md D17/D19/D20) ------------------------ #
 #
 # A prefilter bounds every row's votes from above with the quantized maps
-# below (K3' on uint8), rescores the ``k`` rows of highest bound exactly, and
-# certifies the result when the ``top``-th best rescored score strictly beats
-# the highest bound left unselected; the engine full-scans otherwise.
+# below (:func:`bound_scan`), rescores the ``k`` rows of highest bound
+# exactly, and certifies the result when the ``top``-th best rescored score
+# strictly beats the highest bound left unselected; the engine full-scans
+# otherwise.
 
 # Distances in the uint8 maps are ``floor(d * BOUND_Q)``, saturating at
 # BOUND_FAR (dead, tombstoned and padding rows hold it). Floor only
@@ -343,26 +350,224 @@ def bound_threshold(scale: float | None, tolerance: float) -> float:
     return float((f32(scale) * tol + f32(1.0)) * f32(BOUND_Q))
 
 
-def bound_votes(specs: tuple, maps: tuple, q: torch.Tensor,
-                active: torch.Tensor, use2: torch.Tensor,
-                tolerance: float) -> torch.Tensor:
-    """Upper bound ``[B, A]`` int32 on every row's strict bag (and so
-    aligned) votes: the minimum over the bound coefficients of that
-    coefficient's clipped-scaled lattice votes (K3' on the uint8 map). A
-    frame whose q1 lies outside the band (``use2`` False) bypasses the
-    coefficient-1 test in the matcher, so it is credited to that
-    coefficient unconditionally."""
-    neg, pos = float("-inf"), float("inf")
+class ScanMap(NamedTuple):
+    """How a bound scan buckets the query's values onto one uint8 map, and
+    the threshold the map's distances are compared with (float32).
+    ``clip``: ``(lo, hi, scale)`` of a strict bound coefficient's clipped,
+    scaled values, or None (the dialplan map: the values themselves).
+    ``bypass``: count only ``active & use2`` frames and credit every
+    ``active & ~use2`` one (coefficient 1 of the strict bound)."""
+
+    coef: int
+    clip: tuple | None
+    k_min: int
+    k_size: int
+    band_lo: float
+    band_hi: float
+    bypass: bool
+    threshold: float
+
+
+@functools.lru_cache(maxsize=256)
+def strict_scan(specs: tuple, tolerance: float) -> tuple:
+    """The strict/aligned bound's scan of its bound maps (one per spec of
+    :func:`bound_specs`); the lattice band stays open."""
+    inf = float("inf")
+    return tuple(
+        ScanMap(c, (lo, hi, s), k_min, k_size, -inf, inf, c == 1,
+                bound_threshold(s, tolerance))
+        for c, s, lo, hi, k_min, k_size in specs
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def dialplan_scan(tolerance: float, band_lo: float, band_hi: float,
+                  k_min: int = K_MIN, k_size: int = K_SIZE) -> tuple:
+    """The dialplan prefilter's scan of the quantized value map."""
+    return (ScanMap(0, None, k_min, k_size, band_lo, band_hi, False,
+                    bound_threshold(None, tolerance)),)
+
+
+def _scan_checked(scans, maps, q, active, use2):
+    if not scans or len(scans) != len(maps):
+        raise ValueError(f"bound_scan: {len(scans)} scans for {len(maps)} "
+                         f"maps")
+    if use2 is None and any(sp.bypass for sp in scans):
+        raise ValueError("bound_scan: a bypass map needs use2")
+    return q if q.ndim == 3 else q[..., None]
+
+
+def scan_histograms(scans: tuple, q: torch.Tensor, active: torch.Tensor,
+                    use2: torch.Tensor | None = None) -> list:
+    """Per :class:`ScanMap`, the histogram ``[B, k_size]`` int32 of the
+    query's bucketed values (``q``: ``[B, F, C]``): column ``coef``, clipped
+    and scaled, counted over ``active`` (``active & use2`` on a bypass
+    map) by :func:`histogram`."""
+    out = []
+    for sp in scans:
+        qc = q[..., sp.coef]
+        if sp.clip is not None:
+            lo, hi, s = sp.clip
+            qc = torch.clamp(qc, lo, hi) * s
+        act_c = active & use2 if sp.bypass else active
+        out.append(histogram(qc, act_c, sp.band_lo, sp.band_hi, sp.k_min,
+                             sp.k_size))
+    return out
+
+
+def bound_scan_reference(scans: tuple, maps: tuple, q: torch.Tensor,
+                         active: torch.Tensor,
+                         use2: torch.Tensor | None = None,
+                         ctx_ids: torch.Tensor | None = None,
+                         ctx_id: int | None = None,
+                         with_counts: bool = False):
+    """:func:`bound_scan`'s plain twin: per map the histogram of its bucketed
+    query values and :func:`lattice_votes_reference` against the map, the
+    bypass credit, the minimum over the maps, then -1 on every row whose
+    ``ctx_ids`` is not ``ctx_id``."""
+    counts = scan_histograms(scans, _scan_checked(scans, maps, q, active,
+                                                  use2), active, use2)
+    out = scan_votes_reference(scans, maps, counts, active, use2, ctx_ids,
+                               ctx_id)
+    return (out, counts[0]) if with_counts else out
+
+
+def scan_votes_reference(scans: tuple, maps: tuple, counts: list,
+                         active: torch.Tensor,
+                         use2: torch.Tensor | None = None,
+                         ctx_ids: torch.Tensor | None = None,
+                         ctx_id: int | None = None) -> torch.Tensor:
+    """:func:`bound_scan_reference`'s stage after the histograms ``counts``
+    (one per map): the votes, the bypass credit, the minimum and the
+    context mask."""
     out = None
-    for (c, s, lo, hi, k_min, k_size), m in zip(specs, maps):
-        act_c = (active & use2) if c == 1 else active
-        qc = torch.clamp(q[..., c], lo, hi) * s
-        v = lattice_votes(m, qc, act_c, bound_threshold(s, tolerance),
-                          neg, pos, k_min=k_min, k_size=k_size)
-        if c == 1:
+    for sp, m, c in zip(scans, maps, counts):
+        v = lattice_votes_reference(c, m, sp.threshold)
+        if sp.bypass:
             v = v + (active & ~use2).sum(dim=1, dtype=torch.int32)[:, None]
         out = v if out is None else torch.minimum(out, v)
+    if ctx_ids is not None:
+        out = torch.where((ctx_ids == ctx_id)[None, :], out, -1)
     return out
+
+
+def bound_scan(scans: tuple, maps: tuple, q: torch.Tensor,
+               active: torch.Tensor, use2: torch.Tensor | None = None,
+               ctx_ids: torch.Tensor | None = None,
+               ctx_id: int | None = None, with_counts: bool = False):
+    """A certified prefilter's bound ``[B, A]`` int32 from the raw query
+    values: for each of the one or two uint8 ``maps`` the votes of the
+    query's values bucketed as its :class:`ScanMap` says, the bypass
+    credit, the minimum over the maps, and -1 on rows outside the context
+    (``ctx_ids != ctx_id``). ``q``: ``[B, F, C]`` (or ``[B, F]``, one
+    column) float32; ``active``, ``use2``: ``[B, F]`` bool. With
+    ``with_counts``, also the first map's histogram ``[B, k_size]`` int32
+    (the dialplan rescore's).
+
+    On a CUDA tensor: the ``bound_scan`` kernel pair of ``csrc/lattice.cu``
+    (the planes prologue, then the votes with the min, credit and mask in
+    the epilogue); on a CPU tensor: :func:`bound_scan_reference`."""
+    if q.device.type == "cpu":
+        return bound_scan_reference(scans, maps, q, active, use2, ctx_ids,
+                                    ctx_id, with_counts)
+    q3 = _scan_checked(scans, maps, q, active, use2)
+    dev = q.device
+    b, f = active.shape
+    rows = maps[0].shape[0]
+    ok = (dev.type == "cuda" and q3.dtype == torch.float32
+          and q3.shape[:2] == (b, f) and active.dtype == torch.bool
+          and active.device == dev and len(maps) <= 2
+          and (use2 is None or (use2.shape == (b, f)
+                                and use2.dtype == torch.bool
+                                and use2.device == dev))
+          and (ctx_ids is None or (ctx_ids.shape == (rows,)
+                                   and ctx_ids.device == dev)))
+    for sp, m in zip(scans, maps):
+        ok = ok and (m.device == dev and m.dtype == torch.uint8
+                     and m.shape == (rows, sp.k_size) and m.is_contiguous()
+                     and 0 <= sp.coef < q3.shape[2])
+    if not ok:
+        raise ValueError(
+            f"bound_scan needs float32 queries [B, F(, C)], bool masks "
+            f"[B, F] and one or two contiguous uint8 maps [A, k_size] on "
+            f"one CUDA device (got q {tuple(q.shape)} {q.dtype} on {dev}, "
+            f"maps {[(tuple(m.shape), m.dtype, str(m.device)) for m in maps]})"
+        )
+    votes = torch.empty((b, rows), dtype=torch.int32, device=dev)
+    counts = (torch.empty((b, scans[0].k_size), dtype=torch.int32,
+                          device=dev) if with_counts else None)
+    if b and rows:
+        _bound_scan_launch(scans, maps, q3.contiguous(), active.contiguous(),
+                           None if use2 is None else use2.contiguous(),
+                           ctx_ids, ctx_id, votes, counts)
+    elif with_counts:
+        counts.zero_()
+    return (votes, counts) if with_counts else votes
+
+
+@functools.lru_cache(maxsize=256)
+def _scan_args(scans: tuple):
+    """The kernels' host arrays of a scan: ints ``(coef, k_min, k_size,
+    bypass)`` and floats ``(lo, hi, scale, band_lo, band_hi, threshold)``
+    per map, and the widest map's bucket count."""
+    ints = (ctypes.c_int * (4 * len(scans)))(*[
+        v for sp in scans for v in (sp.coef, sp.k_min, sp.k_size,
+                                    int(sp.bypass))])
+    floats = (ctypes.c_float * (6 * len(scans)))(*[
+        v for sp in scans
+        for v in (sp.clip or (float("-inf"), float("inf"), 1.0))
+        + (sp.band_lo, sp.band_hi, sp.threshold)])
+    return ints, floats, max(sp.k_size for sp in scans)
+
+
+@functools.lru_cache(maxsize=1024)
+def _scan_scratch_bytes(n_maps: int, max_k: int, batch: int,
+                        planes: int) -> int:
+    return build.kernel_library().tiresias_bound_scan_scratch(
+        n_maps, max_k, batch, planes)
+
+
+def _bound_scan_launch(scans, maps, q3, active, use2, ctx_ids, ctx_id,
+                       votes, counts) -> None:
+    b, f, n_coefs = q3.shape
+    n = len(scans)
+    ints, floats, max_k = _scan_args(scans)
+    planes = count_planes(f)  # a bucket holds at most every frame
+    lib = build.kernel_library()
+    scratch = torch.empty(_scan_scratch_bytes(n, max_k, b, planes),
+                          dtype=torch.uint8, device=q3.device)
+    if ctx_ids is not None:
+        if not -2**31 <= int(ctx_id) < 2**31:
+            raise ValueError(f"bound_scan: ctx_id {ctx_id} is not an int32")
+        ctx_ids = ctx_ids.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(q3.device).cuda_stream
+    rc = lib.tiresias_bound_scan_planes(
+        q3.data_ptr(), active.data_ptr(),
+        (active if use2 is None else use2).data_ptr(), b, f, n_coefs, n,
+        ints, floats, planes, scratch.data_ptr(),
+        None if counts is None else counts.data_ptr(), stream)
+    build.check("bound_scan_planes", rc)
+    rc = lib.tiresias_bound_scan(
+        (ctypes.c_void_p * n)(*[m.data_ptr() for m in maps]), n, ints,
+        floats, b, votes.shape[1], planes, scratch.data_ptr(),
+        None if ctx_ids is None else ctx_ids.data_ptr(),
+        0 if ctx_ids is None else int(ctx_id), votes.data_ptr(), stream)
+    build.check("bound_scan", rc)
+
+
+def bound_votes(specs: tuple, maps: tuple, q: torch.Tensor,
+                active: torch.Tensor, use2: torch.Tensor,
+                tolerance: float, ctx_ids: torch.Tensor | None = None,
+                ctx_id: int | None = None) -> torch.Tensor:
+    """Upper bound ``[B, A]`` int32 on every row's strict bag (and so
+    aligned) votes: the minimum over the bound coefficients of that
+    coefficient's clipped-scaled lattice votes on its uint8 map
+    (:func:`bound_scan`). A frame whose q1 lies outside the band (``use2``
+    False) bypasses the coefficient-1 test in the matcher, so it is
+    credited to that coefficient unconditionally. With ``ctx_ids``, rows
+    whose context is not ``ctx_id`` get -1."""
+    return bound_scan(strict_scan(specs, tolerance), maps, q, active, use2,
+                      ctx_ids, ctx_id)
 
 
 def bound_tol_ok(specs_or_coefs, tolerance: float) -> bool:
@@ -440,7 +645,8 @@ def lattice_prefiltered_votes(
     k_size: int = K_SIZE,
 ):
     """CERTIFIED two-stage dialplan search (PARITY.md D19): the uint8 bound
-    scan (K3' on ``value_map_q``), the ``k`` rows of highest bound, their
+    scan (:func:`bound_scan` of ``value_map_q``, which also gives the query
+    histograms), the ``k`` rows of highest bound, their
     exact votes on the float32 map, and the certificate.
 
     Returns ``(votes [B, A] int32 — candidate scores scattered, zeros
@@ -454,13 +660,11 @@ def lattice_prefiltered_votes(
     k = min(int(k), n_rows)
     if top > k:
         raise ValueError(f"top={top} exceeds the candidate budget k={k}")
-    c = histogram(q0, active, band_lo, band_hi, k_min, k_size)
-    bound = hit_votes(c, value_map_q, bound_threshold(None, tolerance),
-                      max_count=q0.shape[1])
-    keep = None
-    if ctx_ids is not None:
-        keep = ctx_ids == ctx_id
-        bound = torch.where(keep[None, :], bound, -1)
+    bound, c = bound_scan(
+        dialplan_scan(tolerance, band_lo, band_hi, k_min, k_size),
+        (value_map_q,), q0, active, ctx_ids=ctx_ids, ctx_id=ctx_id,
+        with_counts=True)
+    keep = None if ctx_ids is None else ctx_ids == ctx_id
     idx, unselected_max = select_candidates(bound, k)
     votes_k = rescore_rows(value_map, c, idx, tolerance)
     if keep is not None:

@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 # match_votes_aligned_dense (the dense kernel over its work list); the work
 # items of each route are counted on the device
 # (ops/match_kernels.py::route_counts). lattice_votes_u8 is K3' on a uint8
-# map (the prefilters' bound scans); the *_cand names are K4/K5's grouped
+# map; bound_scan_planes and bound_scan are the prefilters' bound stage (its
+# planes prologue and its votes); the *_cand names are K4/K5's grouped
 # candidate form (the strict/aligned prefilter's rescore) and
 # group_candidates its work list (three kernels, one launch count); the
 # *_per_item names the per-item candidate form (the forced "per_item" route,
@@ -49,6 +50,7 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
     "mfcc_framed_dft": 0, "lattice_votes": 0, "lattice_votes_u8": 0,
+    "bound_scan_planes": 0, "bound_scan": 0,
     "match_votes": 0, "match_votes_aligned": 0,
     "match_votes_aligned_dense": 0, "group_candidates": 0,
     "match_votes_cand": 0, "match_votes_aligned_cand": 0,
@@ -83,6 +85,15 @@ _SIGNATURES = {
     "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     # the same over a uint8 map
     "tiresias_lattice_votes_u8": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+    # n_maps, max k_size, batch, n_planes -> scratch bytes
+    "tiresias_bound_scan_scratch": [_I, _I, _I, _I],
+    # q, active, use2, batch, frames, n_coefs, n_maps, ints (host), floats
+    # (host), n_planes, scratch, counts (or null), stream
+    "tiresias_bound_scan_planes": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I,
+                                   _P, _P, _P],
+    # maps (host array of device pointers), n_maps, ints, floats, batch,
+    # rows, n_planes, scratch, ctx_ids (or null), ctx_id, votes, stream
+    "tiresias_bound_scan": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
     # db, query_rows, entries, pos, n_live, batch, rows, t_len, n_coefs,
     # coefs, f_len, chunk, n_chunks, tol, dense share, cand (or null),
     # n_cand, votes, routes, stream
