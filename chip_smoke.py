@@ -707,48 +707,10 @@ def phase_kernels(device, dsp) -> list[dict]:
         "library": "no single PyTorch call computes the tolerance-hit count",
         "shape": f"dense counts, B=64 x {rows} rows x 640 buckets",
     })
-    # K3' on a uint8 map (hit_votes' route for uint8 maps; the prefilters'
-    # bound goes through bound_scan): the same shapes on
-    # floor(d * 64) distances, the padding rows on the 255 sentinel
+    # the dialplan prefilter's uint8 map of the same distances: padding
+    # rows on the 255 sentinel
     vmq = ml.quantize_value_map(vm * 0.5)
-    u8_times = {}
-    for b in (1, 64):
-        counts = torch.randint(0, 6, (b, ml.K_SIZE), generator=g,
-                               device=device, dtype=torch.int32)
-        counts[0, :3] = torch.tensor([300, 256, 255], device=device)
-        for thr in (ml.bound_threshold(None, 0.001),
-                    ml.bound_threshold(None, 0.5),
-                    ml.bound_threshold(8.0, 0.1), 254.5, 255.0, 300.0):
-            for cap in (300, None):
-                if not torch.equal(ml.hit_votes(counts, vmq, thr, cap),
-                                   ml.lattice_votes_reference(counts, vmq,
-                                                              thr)):
-                    fail(f"K3'-u8 lattice_votes_u8 != twin at B={b} "
-                         f"thr={thr} max_count={cap}")
-        counts[0, :3] = 1
-        say(f"[kernels] K3'-u8 lattice_votes_u8 [{b}, 640] x [{rows}, 640] "
-            f"uint8 dense counts: votes exact at thresholds 0.064 to 300 "
-            f"(past the 255 sentinel), 2 and 4 planes")
-        u8_times[b] = timed(
-            f"K3'-u8 lattice_votes_u8 dense B={b}",
-            lambda: ml.hit_votes(counts, vmq, 32.0, 5),
-            lambda: ml.lattice_votes_reference(counts, vmq, 32.0),
-        )
-    out.append({
-        "name": "lattice_votes_u8", "route": "cuda",
-        "source": "tiresias_tpu_torch/csrc/lattice.cu",
-        "replaces": "tiresias_tpu/ops/match_lattice.py:588",
-        "max_abs_err": 0.0, "ms": u8_times[64]["ms"],
-        "plain_ms": u8_times[64]["plain_ms"],
-        **bound(rows * ml.K_SIZE + 4 * (64 * ml.K_SIZE + 64 * rows),
-                2 * 64 * rows * ml.K_SIZE, INT8_OPS_S),
-        "library_ms": None,
-        "library": "no single PyTorch call computes the tolerance-hit count",
-        "shape": f"uint8 map, dense counts, B=64 x {rows} rows x 640 "
-                 f"buckets",
-        "ms_b1": u8_times[1]["ms"],
-    })
-    # bound_scan on the same uint8 map from raw query values: 1,920 frames a
+    # bound_scan on that uint8 map from raw query values: 1,920 frames a
     # query, three in every bucket (dense counts), and two NaN and an
     # out-of-lattice frame in the last query
     inf = float("inf")
@@ -768,8 +730,8 @@ def phase_kernels(device, dsp) -> list[dict]:
             f"uint8 B={b} tol 0.5", ml.dialplan_scan(0.5, -inf, inf), (vmq,),
             q0, valid)
     say("[kernels] bound_scan dialplan dense: bound and histogram exact "
-        "against the twin and the unfused route at tol 0.001, 0.5, 3.984375 "
-        "(saturation) and 10, with and without a context")
+        "against the twin at tol 0.001, 0.5, 3.984375 (saturation) and 10, "
+        "with and without a context")
     out += phase_match_kernels(device)
     return out
 
@@ -887,29 +849,6 @@ def band_stats(index, q, active, use2, tol: float, cand=None) -> dict:
             "cand_bytes": 0 if cand is None else 4 * cand.numel()}
 
 
-def k3u8_route(scans, maps, q, active, use2=None, ctx_ids=None,
-               ctx_id=None):
-    """The prefilters' bound stage unfused, held beside ``bound_scan``:
-    per map the torch histogram and K3'-u8 (``hit_votes`` on the uint8 map),
-    then the bypass credit, ``torch.minimum`` and the context
-    ``torch.where``, each a launch of its own."""
-    import torch
-
-    from tiresias_tpu_torch.ops import match_lattice as ml
-
-    q3 = q if q.ndim == 3 else q[..., None]
-    out = None
-    for sp, m, c in zip(scans, maps,
-                        ml.scan_histograms(scans, q3, active, use2)):
-        v = ml.hit_votes(c, m, sp.threshold, max_count=q3.shape[1])
-        if sp.bypass:
-            v = v + (active & ~use2).sum(dim=1, dtype=torch.int32)[:, None]
-        out = v if out is None else torch.minimum(out, v)
-    if ctx_ids is not None:
-        out = torch.where((ctx_ids == ctx_id)[None, :], out, -1)
-    return out
-
-
 def scan_bound(scans, maps, q, active, use2=None, ctx_ids=None) -> dict:
     """``bound_scan``'s bounds from this run's inputs (bytes), of the pair
     and of each kernel: the map bytes across the 32-bucket steps some query
@@ -950,8 +889,8 @@ SCAN: dict = {}
 
 def check_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
                ctx_id=None) -> None:
-    """``bound_scan`` == its twin (bound and first-map histogram) and ==
-    the unfused route, int32 for int32, with and without the context."""
+    """``bound_scan`` == its twin (bound and first-map histogram), int32
+    for int32, with and without the context."""
     import torch
 
     from tiresias_tpu_torch.ops import match_lattice as ml
@@ -963,19 +902,15 @@ def check_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
                                                ids, cid, True)
         if not (torch.equal(got, want) and torch.equal(c, want_c)):
             fail(f"bound_scan != its twin: {label} ctx {cid}")
-        if not torch.equal(got, k3u8_route(scans, maps, q, active, use2, ids,
-                                           cid)):
-            fail(f"bound_scan != the unfused route: {label} ctx {cid}")
 
 
 def time_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
               ctx_id=None, reps: int = 20) -> dict:
-    """``bound_scan`` against the unfused route (torch histogram, K3'-u8,
-    torch credit, min and where) in turns (old, new, new, old): device ms
-    (profiler; the pair's two kernels summed per profile), stream ms (CUDA
-    events over back-to-back calls) and device ms with the L2 flushed before
-    each call (:func:`events_ms`); the twin's device time, whole and by its
-    two stages (the histograms; the votes, credit, min and mask); the split
+    """``bound_scan`` timed twice: device ms (profiler; the pair's two
+    kernels summed per profile), stream ms (CUDA events over back-to-back
+    calls) and device ms with the L2 flushed before each call
+    (:func:`events_ms`); the twin's device time, whole and by its two
+    stages (the histograms; the votes, credit, min and mask); the split
     between the pair's two kernels; the clock the device times came from
     (:data:`CLOCKS`); and the bound from these inputs. Each call masks the
     context when ``ctx_ids`` is given."""
@@ -986,24 +921,17 @@ def time_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
     def new():
         return ml.bound_scan(scans, maps, q, active, use2, ctx_ids, ctx_id)
 
-    def old():
-        return k3u8_route(scans, maps, q, active, use2, ctx_ids, ctx_id)
-
     # the pair's device time is the sum of its two kernels in each profile
     names = ("bound_scan_planes_kernel", "bound_scan_kernel")
-    turns = {"new": [], "old": []}
+    turns = []
     splits = []
-    for who, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
-        if who == "new":
-            splits.append(device_ms(new, reps, names=names))
-            dev = (sum(splits[-1].values()) if None not in
-                   splits[-1].values() else events_ms(new, reps))
-        else:
-            dev = device_ms(fn, reps)
-        turns[who].append((dev, stream_ms(fn, reps),
-                           events_ms(fn, reps // 2, flush=True)))
-    med = {who: [float(np.median([t[i] for t in v])) for i in range(3)]
-           for who, v in turns.items()}
+    for _ in range(2):
+        splits.append(device_ms(new, reps, names=names))
+        dev = (sum(splits[-1].values()) if None not in splits[-1].values()
+               else events_ms(new, reps))
+        turns.append((dev, stream_ms(new, reps),
+                      events_ms(new, reps // 2, flush=True)))
+    med = [float(np.median([t[i] for t in turns])) for i in range(3)]
     split = {n: (float(np.median([sp[n] for sp in splits]))
                  if None not in [sp[n] for sp in splits] else None)
              for n in names}
@@ -1016,9 +944,7 @@ def time_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
     twin_votes = device_ms(lambda: ml.scan_votes_reference(
         scans, maps, counts, active, use2, ctx_ids, ctx_id), 5)
     bd = scan_bound(scans, maps, q, active, use2, ctx_ids)
-    out = {"ms": med["new"][0], "stream_ms": med["new"][1],
-           "cold_ms": med["new"][2], "old_ms": med["old"][0],
-           "old_stream_ms": med["old"][1], "old_cold_ms": med["old"][2],
+    out = {"ms": med[0], "stream_ms": med[1], "cold_ms": med[2],
            "planes_ms": split["bound_scan_planes_kernel"],
            "votes_ms": split["bound_scan_kernel"], "plain_ms": twin,
            "plain_planes_ms": twin_planes, "plain_votes_ms": twin_votes,
@@ -1026,13 +952,11 @@ def time_scan(label: str, scans, maps, q, active, use2=None, ctx_ids=None,
            **bd["pair"], "planes_bound_ms": bd["planes"]["bound_ms"],
            "votes_bound_ms": bd["votes"]["bound_ms"], "steps": bd["steps"],
            "map_bytes": bd["map_bytes"],
-           "turns": {who: [list(t) for t in v] for who, v in turns.items()}}
+           "turns": [list(t) for t in turns]}
     say(f"[kernels] bound_scan {label}: device {out['ms']} ms (planes "
         f"{out['planes_ms']}, votes {out['votes_ms']}), stream "
-        f"{out['stream_ms']} ms, L2 flushed {out['cold_ms']} ms; the unfused "
-        f"route (histogram + K3'-u8 + min/where) device {out['old_ms']} ms, "
-        f"stream {out['old_stream_ms']} ms, L2 flushed {out['old_cold_ms']} "
-        f"ms; twin {twin} ms (histograms {twin_planes}, votes {twin_votes}); "
+        f"{out['stream_ms']} ms, L2 flushed {out['cold_ms']} ms; twin "
+        f"{twin} ms (histograms {twin_planes}, votes {twin_votes}); "
         f"device clock {out['clock']}; bound {out['bound_ms']:.6f} ms "
         f"({out['bound_by']}: {bd['map_bytes']} map bytes in "
         f"{bd['steps']} flagged steps, queries, votes), "
@@ -1230,8 +1154,8 @@ def phase_match_kernels(device) -> list[dict]:
                     f"({bd['bound_by']}) from this run's bands, "
                     f"{100 * bd['bound_ms'] / t['auto']:.1f}% of it")
     del narrow
-    # K3'-u8 on the strict/aligned prefilter's bound maps (10,112 x 768 per
-    # coefficient) with the B=64 queries' own clipped, scaled histograms
+    # the strict/aligned prefilter's bound maps (10,112 x 768 per
+    # coefficient) and 64 queries
     from tiresias_tpu_torch.ops import match_lattice as ml
 
     _, q, _ = match_case(device, 301 + 64, 256, 256, 2, 64, 128)
@@ -1239,25 +1163,11 @@ def phase_match_kernels(device) -> list[dict]:
                                      trunc_coef1=False)
     specs, maps = ml.build_bound_maps(db, mask, 2)
     maps_ms = device_ms(lambda: ml.build_bound_maps(db, mask, 2), 3)
-    inf = float("inf")
-    for (c, s, lo, hi, k_min, k_size), m in zip(specs, maps):
-        act_c = act & use2 if c == 1 else act
-        qc = torch.clamp(qq[..., c], lo, hi) * s
-        for tol in (0.01, STRICT_TOL, 0.5):
-            thr = ml.bound_threshold(s, tol)
-            got = ml.lattice_votes(m, qc, act_c, thr, -inf, inf, k_min,
-                                   k_size)
-            want = ml.lattice_votes_reference(
-                ml.histogram(qc, act_c, -inf, inf, k_min, k_size), m, thr)
-            if not torch.equal(got, want):
-                fail(f"K3'-u8 != twin on the bound map of coef {c} tol {tol}")
-    say(f"[kernels] K3'-u8 lattice_votes_u8 on the bound maps "
-        f"({len(maps)} x [{m.shape[0]}, {m.shape[1]}] uint8, built in "
-        f"{maps_ms} ms of device time) with 64 queries' histograms: votes "
-        f"exact at tol 0.01, 0.1 and 0.5")
-    # bound_scan, the strict prefilter's bound stage, on the same maps and
-    # queries: the twin and the unfused route at every tolerance, context or
-    # not, then timed against the unfused route (the K-a row's 0.0906 ms case)
+    say(f"[kernels] bound maps {len(maps)} x {list(maps[0].shape)} uint8 "
+        f"built in {maps_ms} ms of device time")
+    # bound_scan, the strict prefilter's bound stage, on those maps and
+    # queries: the twin at every tolerance, context or not, then timed (the
+    # K-a row's case)
     g = torch.Generator(device=device).manual_seed(107)
     ctx = torch.randint(0, 3, (db.shape[0],), generator=g, device=device,
                         dtype=torch.int32)
@@ -1268,9 +1178,8 @@ def phase_match_kernels(device) -> list[dict]:
                        use2[:b], ctx, 1)
     say(f"[kernels] bound_scan on the bound maps ({len(maps)} x "
         f"{list(maps[0].shape)} uint8) with 64 and 1 synthetic queries: "
-        f"bound and histogram exact against the twin and the unfused route at "
-        f"tol 0.01, 0.1, 0.5 and 2.0 (past saturation), with and without a "
-        f"context")
+        f"bound and histogram exact against the twin at tol 0.01, 0.1, 0.5 "
+        f"and 2.0 (past saturation), with and without a context")
     SCAN["strict synthetic B=64"] = time_scan(
         f"strict synthetic 2 x {list(maps[0].shape)} B=64 tol 0.1",
         ml.strict_scan(specs, STRICT_TOL), maps, qq, act, use2)
@@ -1937,18 +1846,10 @@ def phase_lattice_real(vm, q0, valid) -> dict:
             timed(f"K3' lattice_votes real {name}",
                   lambda: ml.hit_votes(counts, vm, 1.0, bound),
                   lambda: ml.lattice_votes_reference(counts, vm, 1.0))
-    # the dialplan prefilter on the same traffic: K3'-u8 and bound_scan
-    # against the catalog's quantized map, then the ops-level prefiltered
-    # and full-scan votes in turns, and the two steps that are library calls
+    # the dialplan prefilter on the same traffic: bound_scan against the
+    # catalog's quantized map, then the ops-level prefiltered and full-scan
+    # votes in turns, and the two steps that are library calls
     vmq = ml.quantize_value_map(vm)
-    for name, (counts, bound) in cases.items():
-        for tol in (0.001, 1.0):
-            thr = ml.bound_threshold(None, tol)
-            if not torch.equal(ml.hit_votes(counts, vmq, thr, bound),
-                               ml.lattice_votes_reference(counts, vmq, thr)):
-                fail(f"K3'-u8 != twin on real histograms {name} tol {tol}")
-    say(f"[kernels] K3'-u8 lattice_votes_u8 real B=72/B=64/B=1/long x "
-        f"[{vmq.shape[0]}, 640] uint8: votes exact at tol 0.001 and 1.0")
     inf = float("inf")
     # bound_scan, the dialplan prefilter's bound stage, on the same traffic
     raw = {"B=72": (q0, valid), "B=64": (q0[:N_EXCERPTS], valid[:N_EXCERPTS]),
@@ -1960,7 +1861,7 @@ def phase_lattice_real(vm, q0, valid) -> dict:
                        ml.dialplan_scan(tol, lo, hi), (vmq,), qb, vb)
     say(f"[kernels] bound_scan dialplan real B=72/B=64/B=1/long x "
         f"[{vmq.shape[0]}, 640] uint8: bound and histogram exact against the "
-        f"twin and the unfused route at tol 0.001 and 1.0")
+        f"twin at tol 0.001 and 1.0")
     for name in ("B=64", "B=1"):
         SCAN[f"dialplan real {name}"] = time_scan(
             f"dialplan real {name} x [{vmq.shape[0]}, 640] uint8 tol 0.001",
@@ -2557,6 +2458,10 @@ def phase_serve(device, eng, cfg, queries) -> dict:
     after = c.admin("search", pcm=b64(windows[0]), **SERVE_ALIGNED)["result"]
     if after.get("TIRFILEUUID") == victim or eng.get_audio(victim):
         fail(f"[serve] the removed audio is still found: {after}")
+    (view,) = eng.store.search_views()
+    if view.value_map is None or not view.dead_rows:
+        fail("[serve] remove_audio rebuilt the view in full: the delete "
+             "must mask its row off the previous view")
     if c.admin("compact") != {"compacted": True}:
         fail("[serve] compact")
     (view,) = eng.store.search_views()
@@ -2573,7 +2478,8 @@ def phase_serve(device, eng, cfg, queries) -> dict:
         f"search (single, a batch of 8), top=5 in dialplan and aligned mode "
         f"== search_pcm_topk == a numpy brute-force ranking over "
         f"{len(names)} tracks with the D5 tiebreak (2 queries per mode, "
-        f"{brute_s:.1f} s), remove_audio (no longer found), compact, save, "
+        f"{brute_s:.1f} s), remove_audio (no longer found; its row masked "
+        f"off the previous view, the maps carried), compact, save, "
         f"stats (generation {stats['generation']}, search_p50_ms "
         f"{stats['search_p50_ms']})")
 
@@ -2705,9 +2611,6 @@ def phase_prefilter(device, tmp: str) -> dict:
     idx, _ = ml.select_candidates(bound100k, ml.LATTICE_PREFILTER_K)
     library[f"rescore_rows {list(idx.shape) + [view.value_map.shape[1]]}"] = (
         device_ms(lambda: ml.rescore_rows(view.value_map, c, idx, 0.001)))
-    library[f"K3'-u8 bound scan {list(bound100k.shape)}"] = device_ms(
-        lambda: ml.hit_votes(c, view.value_map_q,
-                             ml.bound_threshold(None, 0.001), qfp.shape[1]))
     library[f"bound_scan {list(bound100k.shape)}"] = SCAN[
         f"dialplan {view.db.shape[0]} rows B=64"]["ms"]
     library[f"K3' full scan {list(bound100k.shape)}"] = device_ms(
@@ -2822,9 +2725,386 @@ def phase_prefilter(device, tmp: str) -> dict:
         f"over all {len(d0)} tracks for 2 queries x (dialplan at tol 0.001 "
         f"and 1.0, bag, aligned): {checked} checks "
         f"({time.perf_counter() - t0:.1f} s)")
+    out["mutate"] = phase_mutate(
+        device, eng, "100k",
+        {f"pf{t:06d}.wav": x for t, x in excerpts.items()}, 4002)
     eng.close()
     del eng, store, view
     torch.cuda.empty_cache()
+    return out
+
+
+# The [mutate] phase: live appends and deletes against a serving catalog.
+# The host link of the H100 SXM is PCIe Gen5 x16 (NVIDIA data sheet: 128
+# GB/s both ways, 64 GB/s host to device); an update's bound is its new rows
+# over the link plus its copy-on-write bytes over HBM.
+LINK_BYTES_S = 64e9
+N_MUTATE_ROUNDS = 5  # in-turns rounds of the update's wall time
+N_FIRST_ROUNDS = 2  # in-turns rounds of the first search after a mutation
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality (float32 compared as its bits: NaN and -0.0)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def view_votes(store, view, qq, act, use2, cand) -> dict:
+    """K3', bound_scan (the dialplan and the strict bound, with and without
+    a context), K4, K5 and the candidate forms (grouped and per item) of
+    the same queries on one view."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_kernels as tk
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    inf = float("inf")
+    specs, maps = store.bound_maps_for(view, 2)
+    index = store.match_index_for(view)
+    ctx = store.ctx_ids_for(view)
+    q0 = torch.trunc(qq[..., 0]).contiguous()
+    out = {
+        "K3'": ml.lattice_votes(store.value_map_for(view), q0, act, 0.001,
+                                -inf, inf),
+        "bound_scan dialplan": ml.bound_scan(
+            ml.dialplan_scan(0.001, -inf, inf),
+            (store.value_map_q_for(view),), q0, act),
+        "bound_scan strict": ml.bound_votes(specs, maps, qq, act, use2,
+                                            STRICT_TOL),
+        "bound_scan strict ctx": ml.bound_votes(specs, maps, qq, act, use2,
+                                                STRICT_TOL, ctx, 0),
+    }
+    for aligned in (False, True):
+        fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+        k = f"K{4 + aligned}"
+        out[k] = fn(view.db, qq, act, use2, STRICT_TOL, 2, index=index)
+        for route in ("grouped", "per_item"):
+            out[f"{k} cand {route}"] = tk.match_votes_cand(
+                view.db, qq, act, use2, STRICT_TOL, cand, 2, index=index,
+                route=route, aligned=aligned)
+    return out
+
+
+def phase_mutate(device, eng, label: str, probes: dict, seed: int) -> list:
+    """Live mutations of a serving engine's catalog, each after the maps
+    were warm (``warm_search_maps`` in the dialplan and in the aligned
+    configuration): appends up to the view's 128-row bucket edge, an append
+    across it (the full rebuild the JAX rule takes there), appends of 1, 8
+    and 64, deletes of 1 and 64, an append deleted before the next build,
+    and a delete of a track appended since the last build. Per mutation:
+    the route the update took (told from the returned view: an updated view
+    carries the old one's derived tensors, a full build none), the wall ms
+    of ``search_views()`` + both warms in turns against a forced full
+    rebuild of the same store state, the update's device ms, its bound, the
+    peak memory across it, and the first search after it (dialplan at batch
+    1, aligned at batch 64) against the same search after a full rebuild;
+    every tensor of the updated view bitwise equal to a full build's (the
+    context ids on live rows), K3', bound_scan, K4, K5 and the candidate
+    forms int32-equal on both views, TIR* equal, appended tracks FOUND,
+    deleted ones never, and the old view's tensors unchanged. ``probes``:
+    ``{name: excerpt}`` of catalog tracks."""
+    import dataclasses
+
+    import torch
+
+    from tiresias_tpu_torch import MatchConfig
+    from tiresias_tpu_torch.ops import match as tm
+    from tiresias_tpu_torch.ops.mfcc import (
+        fingerprint_padded_batch,
+        pad_frames_bucket,
+    )
+
+    store = eng.store
+    live_names = {e.name for e in store.iter_entries()}
+    probes = {n: x for n, x in probes.items() if n in live_names}
+    dial_cfg = eng.config
+    aligned_cfg = dataclasses.replace(dial_cfg,
+                                      match=MatchConfig(**SERVE_ALIGNED))
+    tag = f"[mutate] {label}"
+
+    def warm_both():
+        eng.warm_search_maps()
+        eng.config = aligned_cfg
+        try:
+            eng.warm_search_maps()
+        finally:
+            eng.config = dial_cfg
+
+    def snapshot():
+        return (store._views, {t: (tier.view_clean_from,
+                                   set(tier.view_dead_pending))
+                               for t, tier in store._tiers.items()})
+
+    def restore(snap):
+        views, tiers = snap
+        for t, (clean, pending) in tiers.items():
+            store._tiers[t].view_clean_from = clean
+            store._tiers[t].view_dead_pending = set(pending)
+        store._views, store._dirty = views, True
+
+    def update(snap, full: bool):
+        """One update from the snapshot's views (``full``: from none), the
+        maps warmed; returns wall ms and the route of the view."""
+        if full:
+            store._views, store._dirty = None, True
+        else:
+            restore(snap)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        (view,) = store.search_views()
+        route = ("incremental" if view.value_map is not None
+                 or view.match_index is not None else "full")
+        warm_both()
+        torch.cuda.synchronize(device)
+        return 1e3 * (time.perf_counter() - t0), route
+
+    rng = np.random.default_rng(seed)
+    appended: list = []  # (name, uuid, excerpt)
+    deleted: set = set()
+    n_new = [0]
+
+    def append(n: int) -> list:
+        pcm = synth_tracks(n, TRACK_S, seed + 7919 * n_new[0], device)
+        pcm = pcm.cpu().numpy()
+        out = []
+        for p in pcm:
+            name = f"{label}-new{n_new[0]:04d}.wav"
+            n_new[0] += 1
+            e = eng.add_audio_pcm("media", name, p, SR)
+            if e is None:
+                fail(f"{tag}: add_audio_pcm deduplicated {name}")
+            s = HOP * int(rng.integers(1, (TRACK_S * SR - EXCERPT) // HOP))
+            appended.append((name, e.uuid, p[s : s + EXCERPT].copy()))
+            out.append(e.uuid)
+        return out
+
+    def delete(uuids) -> None:
+        names = {e.uuid: e.name for e in store.iter_entries()}
+        if eng.store.delete_audios(uuids) != len(uuids):
+            fail(f"{tag}: a delete removed fewer tracks than asked")
+        deleted.update(names[u] for u in uuids)
+
+    def delete_catalog(n: int) -> None:
+        # the probes' tracks first (their excerpts are queried), then
+        # others spread over the catalog
+        live = [e for e in store.iter_entries()
+                if e.name not in deleted and "-new" not in e.name]
+        queried = [e.uuid for e in live if e.name in probes][: min(n, 8)]
+        rest = [e.uuid for e in live if e.uuid not in queried]
+        pick = np.linspace(0, len(rest) - 1, n - len(queried)).astype(int)
+        delete(queried + [rest[i] for i in pick])
+
+    (view0,) = store.search_views()
+    edge = view0.db.shape[0] - view0.n_audios
+    mutations = (
+        (f"append {edge} (to the 128-row bucket edge)",
+         lambda: append(edge), "incremental"),
+        ("append 1 (across the bucket edge)", lambda: append(1), "full"),
+        ("append 1", lambda: append(1), "incremental"),
+        ("append 8", lambda: append(8), "incremental"),
+        ("append 64", lambda: append(64), "incremental"),
+        ("delete 1", lambda: delete_catalog(1), "incremental"),
+        ("delete 64", lambda: delete_catalog(64), "incremental"),
+        ("append 1 and delete it before the build",
+         lambda: delete(append(1)), "incremental"),
+        ("delete a track appended since the last build",
+         lambda: delete([appended[-3][1]]), "incremental"),
+    )
+    cand_g = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    t_phase = time.perf_counter()
+    for what, mutate, want_route in mutations:
+        warm_both()
+        (old,) = store.search_views()
+        before = {k: x.clone() for k, x in old.tensors().items()}
+        mutate()
+        snap = snapshot()  # the old views and the mutated tiers' state
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        mem0 = torch.cuda.memory_allocated(device)
+        first_ms, route = update(snap, full=False)
+        peak = torch.cuda.max_memory_allocated(device)
+        if route != want_route:
+            fail(f"{tag} {what}: the update took the {route} route, the "
+                 f"JAX rule takes the {want_route} one")
+        (new,) = store.search_views()
+        # the bound: the new rows over the link, every new tensor read from
+        # the old view and written once (copy on write); a full build: the
+        # whole matrix over the link and every tensor written once
+        a_new = new.n_audios - (0 if route == "full" else old.n_audios)
+        row_b = new.tier_frames * new.db.shape[2] * 4
+        h2d = a_new * (row_b + 8 + 8 + 4) + 8 * len(
+            new.dead_rows - old.dead_rows)
+        old_t, new_t = old.tensors(), new.tensors()
+        dev_b = sum((1 if route == "full" else 2) * x.numel()
+                    * x.element_size() for k, x in new_t.items()
+                    if x is not old_t.get(k))
+        bound_ms = 1e3 * (h2d / LINK_BYTES_S + dev_b / HBM_BYTES_S)
+        # wall ms in turns against a forced full rebuild
+        walls = {"incremental": [], "full": []}
+        for r in range(N_MUTATE_ROUNDS):
+            for full in ((False, True) if r % 2 == 0 else (True, False)):
+                ms, rt = update(snap, full)
+                walls["full" if full else "incremental"].append(ms)
+                if full and rt != "full":
+                    fail(f"{tag} {what}: a forced rebuild carried maps")
+        n0 = len(CLOCKS)
+        dev_ms, h2d_ms = {}, {}
+        for path, reps in (("incremental", 3), ("full", 1)):
+            def fn():
+                return update(snap, path == "full")
+
+            split = device_ms(fn, reps, names=("Memcpy HtoD", ""))
+            h2d_ms[path] = split["Memcpy HtoD"]
+            # timed with CUDA events where the profiler saw nothing: no split
+            dev_ms[path] = (split[""] if split[""] is not None
+                            else events_ms(fn, reps))
+        clock = clocks_since(n0)
+        # the first search after the mutation, in turns with a full rebuild
+        live_new = [(n, x) for n, u, x in appended if n not in deleted]
+        dead_new = [(n, x) for n, u, x in appended if n in deleted]
+        gone = [(n, probes[n]) for n in sorted(deleted) if n in probes]
+        batch = (live_new[::-1][:16] + dead_new[::-1][:8] + gone[:8])
+        batch += [(n, x) for n, x in probes.items()
+                  if n not in deleted][: 64 - len(batch)]
+        names = [n for n, _ in batch]
+        pcms = [x for _, x in batch]
+        firsts = {"incremental": {"dialplan": [], "aligned": []},
+                  "full": {"dialplan": [], "aligned": []}}
+        got = {}
+        for r in range(N_FIRST_ROUNDS):
+            for path in (("incremental", "full") if r % 2 == 0
+                         else ("full", "incremental")):
+                for mode, qs, kw in (("dialplan", pcms[:1], {}),
+                                     ("aligned", pcms, SERVE_ALIGNED)):
+                    if path == "full":
+                        store._views, store._dirty = None, True
+                    else:
+                        restore(snap)
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    res = eng.search_pcm_batch(None, qs, SR, **kw)
+                    firsts[path][mode].append(
+                        1e3 * (time.perf_counter() - t0))
+                    tir = [x.to_channel_vars() for x in res]
+                    if got.setdefault(mode, tir) != tir:
+                        fail(f"{tag} {what}: {mode} TIR* after the {path} "
+                             f"update differs")
+                    if mode == "aligned":
+                        results = res
+        for n, r in zip(names, results):
+            if n in deleted and r.name == n:
+                fail(f"{tag} {what}: the deleted track {n} was found")
+            if n not in deleted and not (r.found and r.name == n):
+                fail(f"{tag} {what}: {n} not FOUND ({r})")
+        # the updated view against a full build of the same state
+        update(snap, False)
+        (inc,) = store.search_views()
+        for k, x in old.tensors().items():
+            if not same_bits(x, before[k]):
+                fail(f"{tag} {what}: the update wrote into the old view's "
+                     f"{k}")
+        del before
+        tier = store._tiers[inc.tier_frames]
+        full = store._build_view(tier, len(tier.entries))
+        for fn in (store.value_map_q_for, store.match_index_for,
+                   store.seq_for, store.ctx_ids_for):
+            fn(full)
+        store.bound_maps_for(full, 2)
+        got_t, want_t = inc.tensors(), full.tensors()
+        if set(got_t) != set(want_t):
+            fail(f"{tag} {what}: tensors {sorted(got_t)} != "
+                 f"{sorted(want_t)}")
+        live = torch.ones(inc.db.shape[0], dtype=torch.bool, device=device)
+        live[sorted(inc.dead_rows)] = False
+        for k in want_t:
+            a, b = got_t[k], want_t[k]
+            if k == "ctx_dev":  # a dead row keeps its id, as in JAX
+                a, b = a[live], b[live]
+            if not same_bits(a, b):
+                fail(f"{tag} {what}: {k} of the updated view != a full "
+                     f"build's")
+        padded, n_frames = pad_frames_bucket(pcms, HOP)
+        qfp = fingerprint_padded_batch(padded, SR, eng.config.dsp,
+                                       device=device)
+        qq, act, use2 = tm.prepare_query(qfp, n_frames, -1, -1,
+                                         trunc_coef1=False)
+        cand = torch.randint(0, inc.db.shape[0], (len(pcms), 33),
+                             generator=cand_g, device=device,
+                             dtype=torch.int32)
+        va = view_votes(store, inc, qq, act, use2, cand)
+        vb = view_votes(store, full, qq, act, use2, cand)
+        for k in va:
+            a, b = va[k], vb[k]
+            if k.endswith("ctx"):
+                a, b = a[:, live], b[:, live]
+            if a.dtype != torch.int32 or not torch.equal(a, b):
+                fail(f"{tag} {what}: {k} votes differ between the updated "
+                     f"and the rebuilt view")
+        del full, va, vb
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        first = {p: {m: float(np.median(v)) for m, v in d.items()}
+                 for p, d in firsts.items()}
+        rec = {"mutation": what, "route": route, "rows": inc.n_audios,
+               "view_rows": int(inc.db.shape[0]),
+               "dead_rows": len(inc.dead_rows),
+               "wall_ms": med, "first_update_ms": first_ms,
+               "turns": walls, "device_ms": dev_ms,
+               "h2d_device_ms": h2d_ms, "clock": clock,
+               "bound_ms": bound_ms, "h2d_bytes": h2d, "device_bytes": dev_b,
+               "max_memory_allocated": peak, "memory_before": mem0,
+               "first_search_ms": first}
+        out.append(rec)
+        say(f"{tag} {what}: route {route} ({inc.n_audios} rows in "
+            f"{inc.db.shape[0]}, {len(inc.dead_rows)} dead); search_views + "
+            f"warm maps wall {med['incremental']:.3f} ms (median of "
+            f"{N_MUTATE_ROUNDS}) against a full rebuild's "
+            f"{med['full']:.3f} ms, in turns; device {dev_ms['incremental']}"
+            f" ms ({h2d_ms['incremental']} ms of it host-to-device copies) "
+            f"against {dev_ms['full']} ms ({h2d_ms['full']} ms) ({clock}); "
+            f"bound "
+            f"{bound_ms:.6f} ms ({h2d} B over the link at 64 GB/s, {dev_b} B "
+            f"at 3.35 TB/s); max_memory_allocated {peak} B "
+            f"({mem0} B before); first search after it: dialplan B=1 "
+            f"{first['incremental']['dialplan']:.3f} ms, aligned B=64 "
+            f"{first['incremental']['aligned']:.3f} ms; after a full "
+            f"rebuild {first['full']['dialplan']:.3f} / "
+            f"{first['full']['aligned']:.3f} ms; every tensor bitwise equal "
+            f"to a full build's, the votes of K3', bound_scan, K4, K5 and the "
+            f"candidate forms int32-equal, TIR* equal, the old view "
+            f"unchanged; {sum(n not in deleted for n in names)} probes FOUND, "
+            f"{sum(n in deleted for n in names)} deleted never")
+    # TIR* of the final catalog against the numpy brute force: 2 queries per
+    # mode (an appended track's excerpt and a catalog track's)
+    t0 = time.perf_counter()
+    d0, d1 = host_coefs(store)
+    names = [e.name for e in store.entries]
+    qs = [next(x for n, _, x in appended[::-1] if n not in deleted),
+          next(x for n, x in probes.items() if n not in deleted)]
+    padded, n_frames = pad_frames_bucket(qs, HOP)
+    qfp = fingerprint_padded_batch(padded, SR, eng.config.dsp,
+                                   device=device).cpu().numpy()
+    dial = eng.search_pcm_batch(None, qs, SR, tolerance=0.001)
+    ali = eng.search_pcm_batch(None, qs, SR, **SERVE_ALIGNED)
+    for i in range(2):
+        qi = qfp[i, : n_frames[i], :2]
+        for mode, votes, r in (
+                ("dialplan", brute_force_votes(d0, qi[:, 0], 0.001), dial[i]),
+                ("aligned", brute_force_strict(d0, d1, qi, STRICT_TOL)[1],
+                 ali[i])):
+            best = int(np.argmax(votes))
+            want = ((names[best], int(votes[best])) if votes[best] > 0
+                    else (None, 0))
+            if (r.name, r.match_count) != want:
+                fail(f"{tag} {mode} query {i}: engine {r} != brute force "
+                     f"{want}")
+    say(f"[verify] {tag}: TIR* == a brute-force numpy search over all "
+        f"{len(d0)} live tracks for 2 queries x (dialplan tol 0.001, aligned "
+        f"tol 0.1) ({time.perf_counter() - t0:.1f} s); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2957,11 +3237,10 @@ def tag_clock(entries: list[dict], n0: int) -> list[dict]:
 def scan_entries() -> list[dict]:
     """The kernels line's entries of ``bound_scan``'s two kernels, each
     timed alone inside the pair (profiler) at the K-a row's case (the strict
-    bound maps, 64 synthetic queries, tol 0.1), with the pair's time, the
-    unfused route and every other case beside them."""
+    bound maps, 64 synthetic queries, tol 0.1), with the pair's time and
+    every other case beside them."""
     main = SCAN["strict synthetic B=64"]
-    cases = {k: {f: v[f] for f in ("ms", "stream_ms", "cold_ms", "old_ms",
-                                   "old_stream_ms", "old_cold_ms", "plain_ms",
+    cases = {k: {f: v[f] for f in ("ms", "stream_ms", "cold_ms", "plain_ms",
                                    "bound_ms", "planes_ms", "votes_ms",
                                    "clock")}
              for k, v in SCAN.items()}
@@ -2972,8 +3251,7 @@ def scan_entries() -> list[dict]:
         "shape": "strict bound maps 2 x [10112, 768] uint8, B=64 synthetic "
                  "queries x 128 frames, tol 0.1",
         "pair_ms": main["ms"], "pair_bound_ms": main["bound_ms"],
-        "pair_plain_ms": main["plain_ms"], "unfused_route_ms": main["old_ms"],
-        "clock": main["clock"],
+        "pair_plain_ms": main["plain_ms"], "clock": main["clock"],
     }
     return [
         {"name": "bound_scan_planes", **common,
@@ -3070,11 +3348,6 @@ def run(device) -> dict:
         for name in match_names + scan_names:
             if strict_launches[name] <= 0:
                 fail(f"the strict path never launched {name}")
-        for where, counts in (("main", launches),
-                              ("strict", strict_launches)):
-            if counts["lattice_votes_u8"] != 0:
-                fail(f"the {where} path launched K3'-u8: the prefilters' "
-                     f"bound goes through bound_scan")
         if routes[0] <= 0 or routes[2] <= 0:
             fail(f"the strict path never took the index route: {routes}")
         say(f"[launches] strict path: {strict_launches}; work items (K4 "
@@ -3097,11 +3370,16 @@ def run(device) -> dict:
                 fail(f"the serve path never launched {' or '.join(names)}")
         say(f"[launches] serve path: {serve_launches}")
         took("[serve]")
+        mutate = {"10k": phase_mutate(
+            device, eng, "10k",
+            {f"gen{t:05d}.wav": x for t, x in excerpts.items()}, 4001)}
+        took("[mutate] 10k")
         eng.close()
         del eng
         torch.cuda.empty_cache()
         prefilter = phase_prefilter(device, tmp)
-        took("[prefilter]")
+        mutate["100k"] = prefilter.pop("mutate")
+        took("[prefilter] and [mutate] 100k")
         phase_cli(device, tmp)
         took("[cli]")
     finally:
@@ -3116,6 +3394,7 @@ def run(device) -> dict:
             "p50": p50, "strict_p50": strict_p50,
             "summary": {"search": search_info, "strict": strict_info,
                         "library_ms": library, "prefilter": prefilter,
+                        "mutate": mutate,
                         "bound_scan": SCAN, "clocks": clocks}}
 
 

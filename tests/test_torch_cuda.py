@@ -223,7 +223,7 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2)
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
                               "mfcc_rows_dft": 0, "mfcc_framed_dft": 0,
-                              "lattice_votes": 1, "lattice_votes_u8": 0,
+                              "lattice_votes": 1,
                               "bound_scan_planes": 0, "bound_scan": 0,
                               "match_votes": 1, "match_votes_aligned": 1,
                               "match_votes_aligned_dense": 1,
@@ -256,37 +256,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
         tk.match_votes_fused(db.double(), q, flags, flags, 0.1, 2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k_size", [640, 768])
-@pytest.mark.parametrize("b", [1, 64, 70])
-def test_lattice_votes_u8_match_twin_exactly(dev, b, k_size):
-    """K3' on a uint8 map (the prefilters' bound scans) == its twin: K 640
-    (the dialplan map) and 768 (the bound maps), counts >= 256 in a bucket
-    (two planes), rows of the 255 sentinel, and thresholds below, at and
-    past the saturation (255), negative and NaN."""
-    g = np.random.default_rng(b + k_size)
-    counts = g.integers(0, 4, (b, k_size)) * (g.random((b, k_size)) < 0.1)
-    counts[0, :5] = [300, 0, 256, 255, 1]
-    vm = g.integers(0, 256, (300, k_size)).astype(np.uint8)
-    vm[[7, 11, 17]] = 255
-    vm[20, :64] = np.arange(64)
-    counts = torch.from_numpy(counts.astype(np.int32)).to(dev)
-    vm = torch.from_numpy(vm).to(dev)
-    build.reset_launch_counts()
-    for thr in (0.0, 0.5, 6.4, 63.99, 64.0, 89.6, 254.0, 254.99, 255.0, 300.0,
-                float("inf"), -1.0, float("nan"),
-                ml.bound_threshold(None, 0.5), ml.bound_threshold(8.0, 0.1)):
-        want = ml.lattice_votes_reference(counts, vm, thr)
-        for max_count in (300, None):
-            got = ml.hit_votes(counts, vm, thr, max_count)
-            assert torch.equal(got, want), (thr, max_count)
-        if thr < 255:
-            assert (got[:, [7, 11, 17]] == 0).all()
-    assert build.LAUNCHES["lattice_votes_u8"] == 30
-    assert build.LAUNCHES["lattice_votes"] == 0
-
-
-# thresholds of test_lattice_votes_u8_match_twin_exactly
+# thresholds of the uint8 maps' tests: below, at and past the saturation
+# (255), negative and NaN
 U8_THRESHOLDS = (0.0, 0.5, 6.4, 63.99, 64.0, 89.6, 254.0, 254.99, 255.0,
                  300.0, float("inf"), -1.0, float("nan"),
                  ml.bound_threshold(None, 0.5), ml.bound_threshold(8.0, 0.1))
@@ -341,9 +312,9 @@ def test_bound_scan_matches_twin_exactly(dev, b, kind):
     """bound_scan == bound_scan_reference int32 for int32, bound and
     histogram: the dialplan map (640 buckets; 99, unaligned rows, with a
     band; 20,000 rows, where a warp takes several row tiles), the strict
-    bound maps of coefficients (0,), (0, 1) and (1, 2) (768 buckets), at the
-    thresholds of the K3'-u8 test, with and without a context; two launches
-    a scan and none of K3'-u8."""
+    bound maps of coefficients (0,), (0, 1) and (1, 2) (768 buckets), at
+    ``U8_THRESHOLDS``, with and without a context; two launches a scan and
+    none of K3'."""
     scans, maps, q, active, use2, ctx = _scan_case(dev, b, kind)
     build.reset_launch_counts()
     calls = 0
@@ -363,7 +334,7 @@ def test_bound_scan_matches_twin_exactly(dev, b, kind):
     assert int(want_c.max()) > (65535 if kind == "long" else 255)
     assert build.LAUNCHES["bound_scan_planes"] == calls
     assert build.LAUNCHES["bound_scan"] == calls
-    assert build.LAUNCHES["lattice_votes_u8"] == 0
+    assert build.LAUNCHES["lattice_votes"] == 0
 
 
 def _match_case(dev, seed, rows, t, c, b, f):
@@ -665,7 +636,7 @@ def test_prefilters_on_card_equal_full_scans(dev, aligned):
 @pytest.mark.cuda
 def test_prefilters_take_bound_scan(dev):
     """Both prefilters reach their bound through bound_scan, two launches a
-    scan, context mask included, and never through K3'-u8; the bounds equal
+    scan, context mask included, and never through K3'; the bounds equal
     the CPU twin's."""
     g = np.random.default_rng(5)
     rows, t = 600, 64
@@ -690,7 +661,7 @@ def test_prefilters_take_bound_scan(dev):
                                  ctx_ids=ctx, ctx_id=1)
     assert build.LAUNCHES["bound_scan_planes"] == 3
     assert build.LAUNCHES["bound_scan"] == 3
-    assert build.LAUNCHES["lattice_votes_u8"] == 0
+    assert build.LAUNCHES["lattice_votes"] == 0
     got = ml.bound_votes(specs, maps, qq, act, use2, 0.1, ctx, 1)
     want = ml.bound_votes(specs, tuple(m.cpu() for m in maps), qq.cpu(),
                           act.cpu(), use2.cpu(), 0.1, ctx.cpu(), 1)
@@ -899,3 +870,124 @@ def test_server_round_trip_on_card(dev, tmp_path):
     assert served["mfcc_rows"] > 0 and served["lattice_votes"] > 0
     assert metrics.snapshot()["counters"].get(
         "serve.search_errors", 0) == errors0
+
+
+def _view_tensors(view) -> dict:
+    """Every tensor of a store view, by name (float32 as its bits, so NaN
+    and -0.0 compare exactly)."""
+    return {k: x.view(torch.int32) if x.dtype == torch.float32 else x
+            for k, x in view.tensors().items()}
+
+
+def _view_votes(store, view, qq, act, use2, cand):
+    """K3', bound_scan (the dialplan and the strict bound, with and without
+    a context), K4, K5 and the candidate forms on one view."""
+    inf = float("inf")
+    vm, vmq = store.value_map_for(view), store.value_map_q_for(view)
+    specs, maps = store.bound_maps_for(view, 2)
+    index = store.match_index_for(view)
+    ctx = store.ctx_ids_for(view)
+    q0 = torch.trunc(qq[..., 0]).contiguous()
+    out = {
+        "K3'": ml.lattice_votes(vm, q0, act, 0.5, -inf, inf),
+        "bound_scan dialplan": ml.bound_scan(
+            ml.dialplan_scan(0.5, -inf, inf), (vmq,), q0, act),
+        "bound_scan strict": ml.bound_votes(specs, maps, qq, act, use2, 0.1),
+        "bound_scan strict ctx": ml.bound_votes(specs, maps, qq, act, use2,
+                                                0.1, ctx, 1),
+    }
+    for aligned in (False, True):
+        fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+        out[f"K{4 + aligned}"] = fn(view.db, qq, act, use2, 0.1, 2,
+                                    index=index)
+        for route in ("grouped", "per_item"):
+            out[f"K{4 + aligned} cand {route}"] = tk.match_votes_cand(
+                view.db, qq, act, use2, 0.1, cand, 2, index=index,
+                route=route, aligned=aligned)
+    return out
+
+
+@pytest.mark.cuda
+def test_incremental_views_equal_a_full_rebuild(dev, monkeypatch):
+    """The store's views updated row by row on the card (a tier of 1,024
+    frames) equal a full rebuild of the same store state bitwise after each
+    step of the mutation script (appends of 1 and 8 tracks, deletes of 1
+    and 3, an append deleted before the next build, a delete of an appended
+    row); the old view's tensors are untouched; K3', bound_scan, K4, K5 and
+    the candidate forms give int32-equal votes on both views (the context
+    ids on live rows: a dead row keeps its stale id)."""
+    from tiresias_tpu_torch.store.fingerprint_store import FingerprintStore
+
+    g = np.random.default_rng(21)
+    store = FingerprintStore(n_coefs=2, device=dev)
+    for ctx in ("a", "b"):
+        store.create_context(ctx)
+    uuids = []
+
+    def add(ctx="a"):
+        n = int(g.integers(520, 1025))
+        fp = np.stack([g.normal(-25.0, 15.0, n), g.normal(0.0, 8.0, n)], 1)
+        e = store.add_audio(f"x{len(uuids)}", ctx, fp.astype(np.float32),
+                            f"h{len(uuids)}")
+        uuids.append(e.uuid)
+        return e.uuid
+
+    def warm(v):
+        store.value_map_q_for(v)
+        store.bound_maps_for(v, 2)
+        store.match_index_for(v)
+        store.seq_for(v)
+        store.ctx_ids_for(v)
+        return v
+
+    for i in range(40):
+        add("ab"[i % 2])
+    warm(*store.search_views())
+    build_view = store._build_view
+    steps = (
+        lambda: add(),
+        lambda: [add("ab"[i % 2]) for i in range(8)],
+        lambda: store.delete_audio(uuids[3]),
+        lambda: store.delete_audios(uuids[10:13]),
+        lambda: store.delete_audio(add("b")),
+        lambda: store.delete_audio(uuids[41]),
+    )
+    for step, mutate in enumerate(steps):
+        (old,) = store.search_views()
+        before = {k: x.clone() for k, x in _view_tensors(old).items()}
+        mutate()
+        monkeypatch.setattr(store, "_build_view", lambda *a: pytest.fail(
+            "an update rebuilt the view in full"))
+        (view,) = store.search_views()
+        monkeypatch.undo()
+        assert view is not old and view.gen != old.gen
+        assert set(_view_tensors(view)) == set(before)  # all carried
+        for k, x in _view_tensors(old).items():
+            assert torch.equal(x, before[k]), (step, k)
+        tier = store._tiers[view.tier_frames]
+        full = warm(build_view(tier, len(tier.entries)))
+        got, want = _view_tensors(view), _view_tensors(full)
+        live = torch.tensor([i not in view.dead_rows
+                             for i in range(view.db.shape[0])], device=dev)
+        for k in want:
+            if k == "ctx_dev":
+                assert torch.equal(got[k][live], want[k][live]), step
+            else:
+                assert torch.equal(got[k], want[k]), (step, k)
+        live_rows = [i for i in range(view.n_audios)
+                     if i not in view.dead_rows]
+        rows = torch.tensor(live_rows[-4:], device=dev)
+        q = (view.db[rows, 100:260] + 0.02).contiguous()
+        qq, act, use2 = tm.prepare_query(q, None, -1, -1, trunc_coef1=False)
+        cand = torch.randint(0, view.db.shape[0], (4, 33), device=dev,
+                             dtype=torch.int32)
+        cand[:, 0] = rows.to(torch.int32)
+        a_votes = _view_votes(store, view, qq, act, use2, cand)
+        b_votes = _view_votes(store, full, qq, act, use2, cand)
+        for k, v in a_votes.items():
+            if k.endswith("ctx"):
+                v, w = v[:, live], b_votes[k][:, live]
+            else:
+                w = b_votes[k]
+            assert v.dtype == torch.int32 and torch.equal(v, w), (step, k)
+        assert (a_votes["K5"].gather(1, cand[:, :1].long()) > 0).all()

@@ -147,8 +147,14 @@ def test_dead_rows_hold_pad_value_like_jax(segmented, monkeypatch):
     for row, fp in zip(live, (fps[0], fps[2])):
         np.testing.assert_array_equal(db[row, : len(fp)], fp)
         assert mask[row].sum() == len(fp)
+    # the view updated row by row keeps the dead audio's segment group, as
+    # the JAX store's does (its rows have no vote to merge); a full build
+    # drops it
     followers, heads = store.segment_rows_for(view)
-    assert followers.numel() == heads.numel() == 0  # the split audio is gone
+    want = ([2, 3], [1, 1]) if segmented else ([], [])
+    assert (followers.tolist(), heads.tolist()) == want
+    full = store._build_view(store._tiers[view.tier_frames], view.n_audios)
+    assert full.segments == ()
 
 
 def test_incremental_save_rewrites_only_dirty_segments(tmp_path, monkeypatch):

@@ -486,9 +486,10 @@ class Tiresias:
         lattice value map (dialplan configuration) or K4/K5's sorted index
         (every other), with the uint8 map of the dialplan prefilter or, in
         the aligned configuration, the bound maps wherever the prefilter's
-        gate would admit the view. A restored or just-mutated serving store
-        otherwise pays the build on the next request. Already-built maps
-        cost nothing."""
+        gate would admit the view. A restored serving store otherwise pays
+        the build on the next request. Already-built maps cost nothing,
+        and a view updated after a mutation carries the maps of the view
+        before it."""
         mc = self.config.match
         lattice_mode = mc.coefs == 1 and mc.trunc_coef1 and not mc.aligned
         # the tolerance real requests run at (a negative one means the

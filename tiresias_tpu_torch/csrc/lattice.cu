@@ -42,15 +42,11 @@
 // 32-bit wrapping shifts, exact wherever the int32 result is. NaN and +inf
 // never satisfy <= tol.
 //
-// The same kernel, templated on the map's element type, runs the certified
-// prefilters' bound scans (tiresias_tpu/ops/match_lattice.py:588, the
-// dialplan bound _hit_matmul(c, vm_q, tol * BOUND_Q), and :304 bound_votes
-// over the per-coefficient maps) on uint8 maps of floor(d * 64) distances:
-// a lane reads its 8 buckets of a row as one 8-byte load (a quarter of the
-// float32 bytes, the bound scan's whole cost) and turns them into 0/1 hits
+// The vote step is templated on the map's element type (MapStep): besides
+// float, bound_scan below reads uint8 maps of floor(d * 64) distances with
+// it, a lane's 8 buckets of a row as one 8-byte load, turned into 0/1 hits
 // with one __vcmpleu4 against floor(tol): for an integer m and tol >= 0,
-// (float)m <= tol is m <= floor(tol), so the test is exact. hit_votes keeps
-// that route for uint8 maps; the prefilters take bound_scan, below.
+// (float)m <= tol is m <= floor(tol), so the test is exact.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -907,14 +903,4 @@ extern "C" int tiresias_lattice_votes(const void* counts,
                                       void* votes, void* stream) {
   return lattice_votes<float>(counts, value_map, batch, rows, k_size, tol,
                               n_planes, scratch, votes, stream);
-}
-
-// The same over a uint8 map (hit_votes on a uint8 map).
-extern "C" int tiresias_lattice_votes_u8(const void* counts,
-                                         const void* value_map, int batch,
-                                         int rows, int k_size, float tol,
-                                         int n_planes, void* scratch,
-                                         void* votes, void* stream) {
-  return lattice_votes<uint8_t>(counts, value_map, batch, rows, k_size, tol,
-                                n_planes, scratch, votes, stream);
 }

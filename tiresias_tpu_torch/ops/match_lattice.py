@@ -180,12 +180,7 @@ def hit_votes(
     as float32. ``max_count`` bounds every count (see :func:`count_planes`);
     it picks the kernel's plane count and never needs a readback. The
     kernel stages a query tile's counts in shared memory, which holds
-    ``K * planes`` up to about 3,600.
-
-    ``value_map`` is float32 (the exact map) or uint8 (the prefilters'
-    quantized maps, :func:`quantize_value_map` and :func:`build_bound_maps`:
-    K3' then reads a quarter of the bytes and tests ``(float)m <= tol``,
-    exact because uint8 converts to float32 losslessly)."""
+    ``K * planes`` up to about 3,600."""
     tol = float(np.float32(tol))
     planes = count_planes(max_count)
     if counts.device.type == "cpu":
@@ -195,8 +190,7 @@ def hit_votes(
             f"hit_votes: counts on {counts.device}, map on {value_map.device}"
         )
     if (
-        counts.dtype != torch.int32
-        or value_map.dtype not in (torch.float32, torch.uint8)
+        counts.dtype != torch.int32 or value_map.dtype != torch.float32
         or not counts.is_contiguous() or not value_map.is_contiguous()
         or counts.ndim != 2 or value_map.ndim != 2
         or counts.shape[1] != value_map.shape[1]
@@ -204,7 +198,7 @@ def hit_votes(
     ):
         raise ValueError(
             "hit_votes needs contiguous counts [B, K] int32 and a 16-byte "
-            "aligned value_map [A, K] float32 or uint8 (got "
+            "aligned value_map [A, K] float32 (got "
             f"{tuple(counts.shape)} {counts.dtype}, "
             f"{tuple(value_map.shape)} {value_map.dtype})"
         )
@@ -220,15 +214,12 @@ def hit_votes(
         planes * b * steps * STEP + -(-b // QUERY_TILE) * steps,
         dtype=torch.uint8, device=counts.device,
     )
-    lib = build.kernel_library()
-    u8 = value_map.dtype == torch.uint8
-    fn = lib.tiresias_lattice_votes_u8 if u8 else lib.tiresias_lattice_votes
-    rc = fn(
+    rc = build.kernel_library().tiresias_lattice_votes(
         counts.data_ptr(), value_map.data_ptr(), b, a, k, tol, planes,
         scratch.data_ptr(), votes.data_ptr(),
         torch.cuda.current_stream(counts.device).cuda_stream,
     )
-    build.check("lattice_votes_u8" if u8 else "lattice_votes", rc)
+    build.check("lattice_votes", rc)
     return votes
 
 
@@ -316,27 +307,30 @@ def bound_specs(n_coefs: int) -> tuple:
     return tuple(out)
 
 
+def build_bound_map(db: torch.Tensor, db_mask: torch.Tensor,
+                    spec: tuple) -> torch.Tensor:
+    """One spec's uint8 ``[A, k_size]`` bound map: the value map of
+    ``clip(db[..., c], lo, hi) * s`` quantized as :func:`quantize_value_map`,
+    built in row blocks where ``db`` lies."""
+    c, s, lo, hi, k_min, k_size = spec
+    parts = [
+        quantize_value_map(_build_block(
+            torch.clamp(db[r0 : r0 + BUILD_CHUNK, :, c], lo, hi) * s,
+            db_mask[r0 : r0 + BUILD_CHUNK], k_min, k_size,
+        ))
+        for r0 in range(0, db.shape[0], BUILD_CHUNK)
+    ]
+    return torch.cat(parts) if len(parts) != 1 else parts[0]
+
+
 def build_bound_maps(db: torch.Tensor, db_mask: torch.Tensor,
                      coefs: int | None = None) -> tuple:
-    """``(specs, maps)``: one uint8 ``[A, k_size]`` map per spec, the value
-    map of ``clip(db[..., c], lo, hi) * s`` quantized as
-    :func:`quantize_value_map` (``coefs``: how many coefficients the search
-    tests; default every stored one). Built in row blocks where ``db``
-    lies."""
+    """``(specs, maps)``: one :func:`build_bound_map` per spec (``coefs``:
+    how many coefficients the search tests; default every stored one)."""
     if coefs is None:
         coefs = db.shape[2]
     specs = bound_specs(min(coefs, db.shape[2]))
-    maps = []
-    for c, s, lo, hi, k_min, k_size in specs:
-        parts = [
-            quantize_value_map(_build_block(
-                torch.clamp(db[r0 : r0 + BUILD_CHUNK, :, c], lo, hi) * s,
-                db_mask[r0 : r0 + BUILD_CHUNK], k_min, k_size,
-            ))
-            for r0 in range(0, db.shape[0], BUILD_CHUNK)
-        ]
-        maps.append(torch.cat(parts) if len(parts) != 1 else parts[0])
-    return specs, tuple(maps)
+    return specs, tuple(build_bound_map(db, db_mask, sp) for sp in specs)
 
 
 def bound_threshold(scale: float | None, tolerance: float) -> float:

@@ -9,11 +9,15 @@ tombstone rows and compact past a waste threshold; audios longer than the
 top tier are split into consecutive segment rows of one catalog entry.
 
 Device side, each non-empty tier has a :class:`TierView` of torch tensors
-(rows padded to multiples of 128). Any mutation rebuilds the views on the
-next search; the lattice distance map, the certified prefilters' uint8 maps
-(the quantized distance map and the strict/aligned bound maps), K4/K5's
-sorted index, the per-row insertion seqs and the per-row context ids are
-derived lazily per view.
+(rows padded to multiples of 128). The lattice distance map, the certified
+prefilters' uint8 maps (the quantized distance map and the strict/aligned
+bound maps), K4/K5's sorted index, the per-row insertion seqs and the
+per-row context ids are derived lazily per view. After a mutation the next
+search updates the previous views row by row, as the JAX store does: an
+append uploads only the new rows and builds their derived rows, a delete
+tombstones its rows on the device; both write into new tensors, so a
+search in flight keeps the views it started with. Only capacity growth past
+a 128-row bucket and compaction rebuild a view in full.
 
 The checkpoint is the JAX package's version-4 format — ``catalog.json``
 plus immutable per-tier ``.npy`` segment files, committed by an atomic
@@ -38,7 +42,9 @@ from tiresias_tpu_torch.utils.hashing import generate_uuid
 from tiresias_tpu_torch.utils.logging import get_logger
 from tiresias_tpu_torch.ops.match_index import MatchIndex, build_match_index
 from tiresias_tpu_torch.ops.match_lattice import (
+    BOUND_FAR,
     bound_coef_indices,
+    build_bound_map,
     build_bound_maps,
     build_value_map,
     quantize_value_map,
@@ -191,8 +197,13 @@ class _Tier:
         self.rows: dict[str, int] = {}  # uuid -> FIRST matrix row
         self.uuid_rows: dict[str, list[int]] = {}  # multi-row audios only
         self.dead: set[int] = set()  # tombstoned rows
+        self.view_dead_pending: set[int] = set()  # dead since the last view
         # first row changed since the last checkpoint save
         self.dirty_from = 0
+        # the same relative to the last device-view build: appends keep it
+        # at the old row count (incremental update), compaction drops it
+        # below (full rebuild)
+        self.view_clean_from = 0
 
     def ensure_capacity(self, n_rows: int) -> None:
         cap = self.matrix.shape[0]
@@ -214,6 +225,7 @@ class _Tier:
         self.entries.append(entry)
         self.row_frames.append(int(chunk.shape[0]))
         self.dirty_from = min(self.dirty_from, row)
+        self.view_clean_from = min(self.view_clean_from, row)
         return row
 
     def add(self, entry: AudioEntry, fingerprint: np.ndarray) -> None:
@@ -238,7 +250,9 @@ class _Tier:
         for first, u in doomed:
             removed.append(self.entries[first])
             self.rows.pop(u, None)
-            self.dead.update(self.uuid_rows.pop(u, [first]))
+            rows = self.uuid_rows.pop(u, [first])
+            self.dead.update(rows)
+            self.view_dead_pending.update(rows)
         return removed
 
     def should_compact(self) -> bool:
@@ -270,7 +284,9 @@ class _Tier:
             if u in self.rows
         }
         self.dead.clear()
+        self.view_dead_pending.clear()
         self.dirty_from = min(self.dirty_from, doomed[0])
+        self.view_clean_from = min(self.view_clean_from, doomed[0])
 
 
 @dataclasses.dataclass
@@ -286,6 +302,9 @@ class TierView:
     n_audios: int  # view rows, including tombstoned ones
     entries: list[AudioEntry]
     dead_rows: frozenset = frozenset()
+    # per-row frame counts (an auto-split audio's segment rows repeat one
+    # entry, so a row's count can differ from its entry's n_frames)
+    row_frames: tuple = ()
     segments: tuple = ()  # row groups of auto-split audios
     value_map: torch.Tensor | None = None  # [A_pad, K], lazily built
     # the certified prefilters' uint8 maps, lazily: the dialplan map
@@ -297,8 +316,24 @@ class TierView:
     seq_dev: torch.Tensor | None = None  # [A_pad] int64, lazily built
     ctx_dev: torch.Tensor | None = None  # [A_pad] int32, lazily built
     seg_dev: tuple | None = None  # (followers, heads) int64, lazily built
-    # process-unique: the key of the engine's adaptive prefilter gate
+    # process-unique, new on every view an update returns: the key of the
+    # engine's adaptive prefilter gate
     gen: int = dataclasses.field(default_factory=itertools.count().__next__)
+
+    def tensors(self) -> dict:
+        """Every device tensor the view holds, by name (the segment rows
+        left out: they are rebuilt lazily)."""
+        out = {"db": self.db, "mask": self.mask}
+        for name in ("value_map", "value_map_q", "seq_dev", "ctx_dev"):
+            if getattr(self, name) is not None:
+                out[name] = getattr(self, name)
+        for key, (_, maps) in (self.bound_maps or {}).items():
+            for i, m in enumerate(maps):
+                out[f"bound{key}[{i}]"] = m
+        if self.match_index is not None:
+            for name in ("entries", "pos", "n_live"):
+                out[f"index.{name}"] = getattr(self.match_index, name)
+        return out
 
 
 def _combine_segment_rows(vm: torch.Tensor, groups) -> torch.Tensor:
@@ -311,6 +346,13 @@ def _combine_segment_rows(vm: torch.Tensor, groups) -> torch.Tensor:
         if len(g) > 1:
             vm[rows[1:]] = torch.inf
     return vm
+
+
+def _with_rows(buf: torch.Tensor, lo: int, rows: torch.Tensor) -> torch.Tensor:
+    """A copy of ``buf`` with rows ``[lo, lo + len(rows))`` replaced."""
+    out = buf.clone()
+    out[lo : lo + rows.shape[0]] = rows.to(out.device)
+    return out
 
 
 class FingerprintStore:
@@ -507,40 +549,198 @@ class FingerprintStore:
 
     def search_views(self) -> list[TierView]:
         """Per-tier device views (tiers ascending), cached until the store
-        mutates; any mutation rebuilds them in full."""
+        mutates. After a mutation a tier's previous view is updated row by
+        row while its row count stays in the same 128-row bucket and no
+        compaction moved its rows: rows tombstoned since then are masked
+        off (:meth:`_mask_off_rows`), then the appended rows are added
+        (:meth:`_extend_view`). Otherwise the view is built in full
+        (:meth:`_build_view`). A tier no mutation touched keeps its view
+        object."""
         with self._lock:
             if not self._dirty and self._views is not None:
                 return self._views
-            views = []
+            prev = {v.tier_frames: v for v in self._views or ()}
+            views, built = [], []
             for t in sorted(self._tiers):
                 tier = self._tiers[t]
                 a = len(tier.entries)
                 if a == 0:
                     continue
-                a_pad = _bucket(a, AUDIO_BUCKET)
-                n_frames = np.zeros(a_pad, dtype=np.int64)
-                n_frames[:a] = tier.row_frames
-                if tier.dead:
-                    n_frames[sorted(tier.dead)] = 0
-                db = torch.full((a_pad, t, self.n_coefs), PAD_VALUE,
-                                device=self.device)
-                db[:a].copy_(torch.from_numpy(tier.matrix[:a]))
-                if tier.dead:
-                    # the vote kernels read values only: PAD_VALUE is the
-                    # tombstone (a dead row's stale fingerprint would vote)
-                    db[sorted(tier.dead)] = PAD_VALUE
-                frames = torch.arange(t, device=self.device)
-                mask = frames[None, :] < torch.from_numpy(n_frames).to(
-                    self.device)[:, None]
-                views.append(TierView(
-                    tier_frames=t, db=db, mask=mask, n_audios=a,
-                    entries=list(tier.entries),
-                    dead_rows=frozenset(tier.dead),
-                    segments=tuple(tuple(r) for r in tier.uuid_rows.values()),
-                ))
+                old = prev.get(t)
+                if (
+                    old is not None
+                    and old.db.shape[0] == _bucket(a, AUDIO_BUCKET)
+                    and a >= old.n_audios
+                    and tier.view_clean_from >= old.n_audios
+                ):
+                    view = old
+                    # rows >= old.n_audios arrive dead in the extension
+                    pending = {
+                        r for r in tier.view_dead_pending if r < old.n_audios
+                    }
+                    if pending:
+                        view = self._mask_off_rows(view, pending)
+                    if a > view.n_audios:
+                        view = self._extend_view(tier, view, a)
+                else:
+                    view = self._build_view(tier, a)
+                views.append(view)
+                built.append((tier, a))
+            # the bookkeeping moves only once every tier's view is built: an
+            # update that raises leaves every tier's pending rows to the
+            # next call, which starts again from the views kept here
+            for tier, a in built:
+                tier.view_clean_from = a
+                tier.view_dead_pending = set()
             self._views = views
             self._dirty = False
             return views
+
+    def _build_view(self, tier: _Tier, a: int) -> TierView:
+        """A tier's view built in full from the host matrix, its derived
+        data left to be built lazily."""
+        db, mask = self._host_rows(tier, 0, a, _bucket(a, AUDIO_BUCKET))
+        return TierView(
+            tier_frames=tier.t, db=db, mask=mask, n_audios=a,
+            entries=list(tier.entries),
+            dead_rows=frozenset(tier.dead),
+            row_frames=tuple(tier.row_frames),
+            segments=tuple(tuple(r) for r in tier.uuid_rows.values()),
+        )
+
+    def _host_rows(self, tier: _Tier, lo: int, a: int,
+                   n_rows: int | None = None) -> tuple:
+        """The device ``(db, mask)`` rows of the tier's rows ``[lo, a)``, the
+        only rows that cross host to device, padded to ``n_rows`` with
+        PAD_VALUE and all-False rows. A tombstoned row holds PAD_VALUE (the
+        vote kernels read values only: its stale fingerprint would vote)
+        and an all-False mask."""
+        n_rows = a - lo if n_rows is None else n_rows
+        dead = sorted(r - lo for r in tier.dead if lo <= r < a)
+        n_frames = np.zeros(n_rows, dtype=np.int64)
+        n_frames[: a - lo] = tier.row_frames[lo:a]
+        n_frames[dead] = 0
+        db = torch.full((n_rows, tier.t, self.n_coefs), PAD_VALUE,
+                        device=self.device)
+        db[: a - lo].copy_(torch.from_numpy(tier.matrix[lo:a]))
+        if dead:
+            db[dead] = PAD_VALUE
+        frames = torch.arange(tier.t, device=self.device)
+        mask = frames[None, :] < torch.from_numpy(n_frames).to(
+            self.device)[:, None]
+        return db, mask
+
+    def _mask_off_rows(self, old: TierView, rows: set[int]) -> TierView:
+        """``old`` with the tombstoned ``rows`` masked off, as a new view
+        (``old``'s tensors are never written): every convention a consumer
+        masks by is updated — ``mask`` rows False, ``db`` rows PAD_VALUE
+        (the vote kernels read values only), map rows at their far value
+        (+inf; the uint8 maps' sentinel BOUND_FAR), and K4/K5's index rows
+        rebuilt from the all-PAD rows (no live frame), equal to a full
+        build's. The seqs, context ids and segment rows carry over, as in
+        the JAX store: a dead row cannot vote (a deleted auto-split audio's
+        group stays in ``segments`` until an extension or a full build
+        drops it)."""
+        idx = torch.tensor(sorted(rows), dtype=torch.int64,
+                           device=self.device)
+
+        def far(m: torch.Tensor) -> torch.Tensor:
+            value = torch.inf if m.is_floating_point() else BOUND_FAR
+            return m.index_fill(0, idx, value)
+
+        db = old.db.index_fill(0, idx, PAD_VALUE)
+        index = old.match_index
+        if index is not None:
+            part = build_match_index(db.index_select(0, idx))
+            index = dataclasses.replace(
+                index,
+                entries=index.entries.index_copy(0, idx, part.entries),
+                pos=index.pos.index_copy(0, idx, part.pos),
+                n_live=index.n_live.index_copy(0, idx, part.n_live),
+            )
+        return TierView(
+            tier_frames=old.tier_frames, db=db,
+            mask=old.mask.index_fill(0, idx, False),
+            n_audios=old.n_audios, entries=old.entries,
+            dead_rows=old.dead_rows | frozenset(rows),
+            row_frames=old.row_frames, segments=old.segments,
+            value_map=None if old.value_map is None else far(old.value_map),
+            value_map_q=(None if old.value_map_q is None
+                         else far(old.value_map_q)),
+            bound_maps=None if old.bound_maps is None else {
+                key: (specs, tuple(far(m) for m in maps))
+                for key, (specs, maps) in old.bound_maps.items()
+            },
+            match_index=index,
+            seq_dev=old.seq_dev, ctx_dev=old.ctx_dev, seg_dev=old.seg_dev,
+        )
+
+    def _extend_view(self, tier: _Tier, old: TierView, a: int) -> TierView:
+        """``old`` with the tier's rows ``[old.n_audios, a)`` appended, as a
+        new view: only those rows cross host to device, and each derived
+        tensor the old view carries gets the new rows' part built alone
+        (every build is per row) and written into a copy (``old``'s tensors
+        are never written: a search in flight keeps its catalog). A row
+        appended and tombstoned since the last build arrives dead."""
+        lo = old.n_audios
+        db_rows, mask_rows = self._host_rows(tier, lo, a)
+        # segments are added under the store lock, so an auto-split audio's
+        # rows lie all inside [lo, a) or all before lo
+        segments = tuple(tuple(r) for r in tier.uuid_rows.values())
+        value_map = value_map_q = None
+        if old.value_map is not None:
+            vm_rows = _combine_segment_rows(
+                build_value_map(db_rows[..., 0], mask_rows),
+                [tuple(r - lo for r in g) for g in segments if g[0] >= lo],
+            )
+            value_map = _with_rows(old.value_map, lo, vm_rows)
+            if old.value_map_q is not None:
+                value_map_q = _with_rows(old.value_map_q, lo,
+                                         quantize_value_map(vm_rows))
+        bound_maps = None
+        if old.bound_maps is not None:
+            # no segment combining: the aligned prefilter bails out of a
+            # view that holds auto-split audios
+            bound_maps, rows_by_spec = {}, {}  # coef sets share specs
+            for key, (specs, maps) in old.bound_maps.items():
+                for spec in specs:
+                    if spec not in rows_by_spec:
+                        rows_by_spec[spec] = build_bound_map(
+                            db_rows, mask_rows, spec)
+                bound_maps[key] = (specs, tuple(
+                    _with_rows(m, lo, rows_by_spec[spec])
+                    for spec, m in zip(specs, maps)))
+        index = old.match_index
+        if index is not None:
+            part = build_match_index(db_rows)
+            if (part.chunk, part.t_len) != (index.chunk, index.t_len):
+                raise RuntimeError(
+                    f"match index chunk {part.chunk}/{part.t_len} != the "
+                    f"view's {index.chunk}/{index.t_len}")
+            index = dataclasses.replace(
+                index,
+                entries=_with_rows(index.entries, lo, part.entries),
+                pos=_with_rows(index.pos, lo, part.pos),
+                n_live=_with_rows(index.n_live, lo, part.n_live),
+            )
+        seq_dev = ctx_dev = None
+        if old.seq_dev is not None:
+            seq_dev = _with_rows(old.seq_dev, lo, torch.tensor(
+                [e.seq for e in tier.entries[lo:a]], dtype=torch.int64))
+        if old.ctx_dev is not None:
+            ctx_dev = _with_rows(old.ctx_dev, lo, torch.tensor(
+                [-1 if lo + i in tier.dead else self._ctx_id_alloc(e.context)
+                 for i, e in enumerate(tier.entries[lo:a])],
+                dtype=torch.int32))
+        return TierView(
+            tier_frames=tier.t, db=_with_rows(old.db, lo, db_rows),
+            mask=_with_rows(old.mask, lo, mask_rows), n_audios=a,
+            entries=list(tier.entries), dead_rows=frozenset(tier.dead),
+            row_frames=tuple(tier.row_frames), segments=segments,
+            value_map=value_map, value_map_q=value_map_q,
+            bound_maps=bound_maps, match_index=index, seq_dev=seq_dev,
+            ctx_dev=ctx_dev,
+        )
 
     def value_map_for(self, view: TierView) -> torch.Tensor:
         """Lattice distance map ``[A_pad, K]`` of one view, built on the
@@ -566,8 +766,8 @@ class FingerprintStore:
         """``(specs, maps)`` of the strict/aligned prefilter for a search
         testing ``coefs`` coefficients, built on the device from the view's
         own tensors (its mask leaves out dead and padding rows: sentinel
-        255) and cached on the view, one entry per coefficient set. Any
-        mutation rebuilds the views, and these maps with them."""
+        255) and cached on the view, one entry per coefficient set. A view
+        updated after a mutation carries them, updated row by row."""
         key = bound_coef_indices(min(coefs, self.n_coefs))
         with self._lock:
             if view.bound_maps is None:
@@ -581,7 +781,8 @@ class FingerprintStore:
         """K4/K5's sorted index of one view (``ops/match_index.py``), built
         on the device from the view's own (immutable) tensors and cached on
         it; dead and padding rows hold PAD_VALUE, so they have no live
-        frame. Any mutation rebuilds the views, and the index with them."""
+        frame. A view updated after a mutation carries it, updated row by
+        row."""
         with self._lock:
             if view.match_index is None:
                 view.match_index = build_match_index(view.db)

@@ -40,8 +40,8 @@ NVCC_FLAGS = (
 # K5 is two kernels: match_votes_aligned (the index kernel) and
 # match_votes_aligned_dense (the dense kernel over its work list); the work
 # items of each route are counted on the device
-# (ops/match_kernels.py::route_counts). lattice_votes_u8 is K3' on a uint8
-# map; bound_scan_planes and bound_scan are the prefilters' bound stage (its
+# (ops/match_kernels.py::route_counts). bound_scan_planes and bound_scan
+# are the prefilters' bound stage (its
 # planes prologue and its votes); the *_cand names are K4/K5's grouped
 # candidate form (the strict/aligned prefilter's rescore) and
 # group_candidates its work list (three kernels, one launch count); the
@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 # and batch 1).
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
-    "mfcc_framed_dft": 0, "lattice_votes": 0, "lattice_votes_u8": 0,
+    "mfcc_framed_dft": 0, "lattice_votes": 0,
     "bound_scan_planes": 0, "bound_scan": 0,
     "match_votes": 0, "match_votes_aligned": 0,
     "match_votes_aligned_dense": 0, "group_candidates": 0,
@@ -83,8 +83,6 @@ _SIGNATURES = {
     # counts, value_map, batch, rows, k_size, tol, n_planes, scratch,
     # votes, stream
     "tiresias_lattice_votes": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
-    # the same over a uint8 map
-    "tiresias_lattice_votes_u8": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     # n_maps, max k_size, batch, n_planes -> scratch bytes
     "tiresias_bound_scan_scratch": [_I, _I, _I, _I],
     # q, active, use2, batch, frames, n_coefs, n_maps, ints (host), floats
