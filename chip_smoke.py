@@ -3108,6 +3108,315 @@ def phase_mutate(device, eng, label: str, probes: dict, seed: int) -> list:
     return out
 
 
+SHARD_MESH = (4, 2)  # eight cells on the one card: 2,560 rows per shard
+SHARD_MODES = {
+    "dialplan": {},
+    **{m: {"tolerance": STRICT_TOL, **kw} for m, kw in STRICT_MODES.items()},
+}
+N_SHARD_REPS = 10  # in-turns timing rounds per engine, batch and mode
+
+
+def shard_expected(mode: str, path: str, certified: bool) -> dict:
+    """Launches of one batch-64 search on the (4, 2) mesh: each kernel of
+    the path once per cell (8); a prefiltered search that fell back adds
+    the full scan's."""
+    full = {"dialplan": ("lattice_votes",), "bag": ("match_votes",)}.get(
+        mode, ("match_votes_aligned",))
+    if path == "full":
+        return {k: 8 for k in full}
+    pf = ["bound_scan_planes", "bound_scan"]
+    if mode == "bag":
+        pf += ["group_candidates", "match_votes_cand"]
+    elif mode != "dialplan":
+        pf += ["group_candidates", "match_votes_aligned_cand"]
+    return {k: 8 for k in pf + ([] if certified else list(full))}
+
+
+def phase_shard(device, eng, cfg, media: str, queries, excerpts: dict,
+                card: str) -> dict:
+    """The sharded path (ROADMAP item 13) on the card: NCCL at world size 1,
+    the main 10,000-track checkpoint restored into a (4, 2) global mesh of
+    eight cells on this card (2,560 rows per shard, both prefilter gates
+    open), every search mode at batch 64 and 1 held to the unsharded engine
+    (TIR*), each kernel of the path launched once per cell per search, both
+    sharded prefilters at the ops level against the full scan, a meshed
+    sync() of the 256 WAVs against the unsharded catalog, the long-signal
+    fingerprint on one 30 s track, an append and a delete, and the p50 of
+    the meshed and the unsharded engine in turns. Returns the phase's
+    launches and numbers."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from tiresias_tpu_torch.api import Tiresias
+    from tiresias_tpu_torch.config import TiresiasConfig
+    from tiresias_tpu_torch.ops import match
+    from tiresias_tpu_torch.ops.match_lattice import band_thresholds
+    from tiresias_tpu_torch.ops.mfcc import (
+        fingerprint_padded_batch,
+        fingerprint_signal,
+        pad_frames_bucket,
+    )
+    from tiresias_tpu_torch.parallel import distributed as tdist
+    from tiresias_tpu_torch.parallel import sharding as sh
+    from tiresias_tpu_torch.utils import build
+
+    t_start = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.initialize_distributed(f"127.0.0.1:{port}", num_processes=1,
+                                 process_id=0,
+                                 local_device_ids=[device.index] * 8,
+                                 device=device)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"[shard] expected NCCL at world size 1, got "
+             f"{dist.get_backend()} x {dist.get_world_size()}")
+    mesh = tdist.global_mesh(*SHARD_MESH)
+    if not mesh.distributed or mesh.size != 8:
+        fail(f"[shard] the global mesh is {mesh}")
+    say(f"[shard] torch.distributed {dist.get_backend()} initialized at "
+        f"world size {dist.get_world_size()}; global mesh {mesh}")
+    out = {"mesh": list(SHARD_MESH)}
+    try:
+        torch.cuda.synchronize(device)
+        build.reset_launch_counts()  # --- the sharded path starts here ---
+        t0 = time.perf_counter()
+        meng = Tiresias(cfg, exclusive=False, mesh=mesh)
+        (view,) = meng.store.search_views()
+        restore_s = time.perf_counter() - t0
+        per = meng.store.shard_rows(view)
+        pf_open = {"lattice": meng._lattice_pf_ok(view, 0.001),
+                   "strict": meng._strict_pf_ok(view, 2, STRICT_TOL, 1,
+                                                True)}
+        say(f"[shard] restored {len(meng.store)} tracks into {view.rows} rows"
+            f" ({per} per shard, {len(view.shards)} shards on {device}) in "
+            f"{restore_s:.3f} s; prefilter gates open: {pf_open}")
+        if per != -(-N_TRACKS // 512) * 128 or not all(pf_open.values()):
+            fail("[shard] expected 2,560 rows per shard with both gates open")
+        notes = pf_notes(meng)
+        got = {}
+        for mode, kw in SHARD_MODES.items():
+            res = []
+            for lo in range(0, len(queries), 64):
+                res += meng.search_pcm_batch(None, queries[lo:lo + 64], SR,
+                                             **kw)
+            single = [meng.search_pcm(None, q, SR, **kw) for q in queries]
+            got[mode] = (res, single)
+        # a meshed sync of the 256 WAVs into a catalog of its own
+        sync_cfg = TiresiasConfig(
+            contexts=cfg.contexts,
+            data_dir=os.path.join(os.path.dirname(media), "shard-sync"))
+        t0 = time.perf_counter()
+        seng = Tiresias(sync_cfg, mesh=mesh)
+        report = seng.sync()
+        sync_s = time.perf_counter() - t0
+        # one 30 s track, its frames split over the eight cells
+        sig = synth_tracks(1, TRACK_S, 7002, device).cpu().numpy()[0].astype(
+            np.float32) / 32768.0
+        usable = len(sig) // (HOP * 8) * (HOP * 8)
+        long_fp = sh.sharded_fingerprint_long(mesh, sig[:usable], SR,
+                                              eng.config.dsp)
+        torch.cuda.synchronize(device)
+        launches = dict(build.LAUNCHES)  # --- the sharded path ends here ---
+        for name in ("mfcc_rows", "mfcc_framed", "bound_scan_planes",
+                     "bound_scan", "match_votes", "match_votes_aligned",
+                     "group_candidates", "match_votes_cand",
+                     "match_votes_aligned_cand"):
+            if launches[name] <= 0:
+                fail(f"the sharded path never launched {name}")
+        say(f"[launches] sharded path: {launches}")
+        out["launches"] = launches
+        cert = {m: list(v) for m, v in notes.items()}
+        say(f"[shard] prefilter certificates during the path (certified, "
+            f"fell back): {cert}")
+        # TIR* against the unsharded engine, batch 64 and batch 1
+        for mode, kw in SHARD_MODES.items():
+            want = []
+            for lo in range(0, len(queries), 64):
+                want += eng.search_pcm_batch(None, queries[lo:lo + 64], SR,
+                                             **kw)
+            want = [r.to_channel_vars() for r in want]
+            res, single = got[mode]
+            if [r.to_channel_vars() for r in res] != want or [
+                    r.to_channel_vars() for r in single] != want:
+                fail(f"[shard] {mode}: meshed TIR* differ from the unsharded "
+                     f"engine's")
+        found = sum(r.found for r in got["bag"][0][:N_EXCERPTS])
+        say(f"[shard] TIR* equal to the unsharded engine for {len(queries)} "
+            f"queries x {list(SHARD_MODES)} at batch 64 and 1 ({found}/"
+            f"{N_EXCERPTS} excerpts FOUND in bag mode)")
+        # each kernel once per cell per search
+        per_search = {}
+        for mode, kw in SHARD_MODES.items():
+            for path in ("prefilter", "full"):
+                meng._pf_misses.clear()  # the adaptive gate re-armed
+                fb0 = fallbacks()
+                with (gates_closed() if path == "full"
+                      else contextlib.nullcontext()):
+                    torch.cuda.synchronize(device)
+                    build.reset_launch_counts()
+                    meng.search_pcm_batch(None, queries[:64], SR, **kw)
+                    torch.cuda.synchronize(device)
+                    n = {k: v for k, v in build.LAUNCHES.items() if v}
+                want = shard_expected(mode, path, fallbacks() == fb0)
+                if any(n.get(k, 0) != v for k, v in want.items()):
+                    fail(f"[shard] {mode} {path}: launches {n}, each of "
+                         f"{want} once per cell expected")
+                per_search[f"{mode} {path}"] = n
+        say(f"[launches] sharded, one batch-64 search on 8 cells: "
+            f"{per_search}")
+        out["per_search"] = per_search
+        # the sharded prefilters at the ops level on the catalog's shards
+        padded, n_frames = pad_frames_bucket(queries, HOP)
+        qfp = fingerprint_padded_batch(padded, SR, eng.config.dsp,
+                                       device=device)
+        store = meng.store
+        ops = {}
+        lo_, hi_ = band_thresholds(-1, -1)
+        q0 = torch.trunc(qfp[..., 0]).contiguous()
+        valid = (torch.arange(qfp.shape[1], device=device)[None, :]
+                 < torch.from_numpy(n_frames).to(device)[:, None])
+        for tol in (0.001, 1.0):
+            vm = store.sharded(view, store.value_map_for)
+            votes, certs = sh.sharded_lattice_prefiltered(
+                mesh, vm, store.sharded(view, store.value_map_q_for), q0,
+                valid, tol, lo_, hi_)
+            full = sh.sharded_lattice_votes(mesh, vm, q0, valid, tol, lo_,
+                                            hi_)
+            ops[f"dialplan tol {tol}"] = shard_certs(votes, certs, full)
+        q, act, use2 = match.prepare_query(qfp, n_frames, -1, -1, False)
+        db = store.sharded(view, lambda part: part.db)
+        index = store.sharded(view, store.match_index_for)
+        for aligned in (False, True):
+            specs, maps = store.sharded_bound_maps(view, 2)
+            votes, certs = sh.sharded_aligned_prefiltered(
+                mesh, db, maps, q, act, use2, STRICT_TOL, specs, 2,
+                aligned=aligned, index=index)
+            full = sh.sharded_votes_kernels(mesh, db, q, act, use2,
+                                            STRICT_TOL, 2, aligned,
+                                            index=index)
+            ops["aligned" if aligned else "bag"] = shard_certs(votes, certs,
+                                                               full)
+        for label, v in ops.items():
+            say(f"[shard] ops {label}: per-shard certificates of "
+                f"{len(queries)} queries {v['per_shard']}, all shards "
+                f"{v['all']}; top-1 equal to the full scan wherever every "
+                f"shard certifies")
+        out["ops"] = ops
+        # the meshed sync against the unsharded catalog
+        if report.created != N_SYNC_FILES or report.failed:
+            fail(f"[shard] meshed sync created {report.created}")
+        worst, exact = 0.0, 0
+        for e in seng.get_audios("media"):
+            ref = next(x for x in eng.get_audios("media") if x.name == e.name)
+            a = torch.from_numpy(seng.store.get_fingerprint(e.uuid))
+            b = torch.from_numpy(eng.store.get_fingerprint(ref.uuid))
+            exact += bool(torch.equal(a, b))
+            worst = max(worst, fp_within_bound(a, b)[1])
+        if worst > 1.0:
+            fail(f"[shard] meshed sync fingerprints {worst:.3f}x the bound")
+        say(f"[shard] meshed sync() of {report.created} WAVs in {sync_s:.3f} "
+            f"s: {exact}/{report.created} fingerprints bitwise equal to the "
+            f"unsharded catalog's, worst {worst:.3f}x the twin bound")
+        seng.close()
+        # the long-signal fingerprint with its halo exchange, against K2
+        ref = torch.from_numpy(fingerprint_signal(sig[:usable], SR,
+                                                  eng.config.dsp,
+                                                  device=device))
+        err, ratio = fp_within_bound(long_fp.cpu(), ref)
+        if long_fp.shape != ref.shape or ratio > 1.0:
+            fail(f"[shard] sharded_fingerprint_long {tuple(long_fp.shape)}: "
+                 f"{ratio:.3f}x the bound")
+        say(f"[shard] sharded_fingerprint_long of one {TRACK_S} s track over "
+            f"8 cells (K1 per cell, halo {eng.config.dsp.buf_size - HOP} "
+            f"samples): {tuple(long_fp.shape)}, max |err| {err:.2e} dB vs the "
+            f"unsharded fingerprint ({ratio:.3f}x the bound)")
+        # p50, meshed and unsharded in turns
+        lat = {(e, b, m): [] for e in ("mesh", "flat") for b in (1, 64)
+               for m in ("dialplan", "aligned")}
+        engines = {"mesh": meng, "flat": eng}
+        for r in range(N_SHARD_REPS):
+            for name in (("mesh", "flat") if r % 2 == 0 else ("flat",
+                                                              "mesh")):
+                for m in ("dialplan", "aligned"):
+                    kw = SHARD_MODES[m]
+                    t1 = time.perf_counter()
+                    engines[name].search_pcm(None, queries[r], SR, **kw)
+                    lat[name, 1, m].append(time.perf_counter() - t1)
+                    t1 = time.perf_counter()
+                    engines[name].search_pcm_batch(None, queries[:64], SR,
+                                                   **kw)
+                    lat[name, 64, m].append((time.perf_counter() - t1) / 64)
+        p50 = {f"{e}_b{b}_{m}": 1e3 * float(np.median(v))
+               for (e, b, m), v in lat.items()}
+        for m in ("dialplan", "aligned"):
+            say(f"[shard] {m} p50 ms/query, meshed (4, 2) on one card vs "
+                f"unsharded, in turns: batch 1 {p50[f'mesh_b1_{m}']:.4f} vs "
+                f"{p50[f'flat_b1_{m}']:.4f}, batch 64 "
+                f"{p50[f'mesh_b64_{m}']:.4f} vs {p50[f'flat_b64_{m}']:.4f} "
+                f"({card})")
+        out["p50"] = p50
+        # an append and a delete on the meshed engine, then search
+        (old,) = meng.store.search_views()
+        probe_track = list(excerpts)[1]
+        probe = synth_tracks(1, TRACK_S, 7001, device).cpu().numpy()[0]
+        meng.add_audio_pcm("media", "shard-probe.wav", probe, SR)
+        gone = next(e for e in meng.get_audios("media")
+                    if e.name == f"gen{probe_track:05d}.wav")
+        meng.delete_audio(gone.uuid)
+        def no_full_build(*a, **k):
+            fail("[shard] the update rebuilt the meshed view in full")
+
+        t0 = time.perf_counter()
+        if old.n_audios < old.rows:  # the append stays in its bucket
+            meng.store._build_view = no_full_build
+        (new,) = meng.store.search_views()
+        meng.store.__dict__.pop("_build_view", None)
+        update_ms = 1e3 * (time.perf_counter() - t0)
+        touched = [s.index for s, o in zip(new.shards, old.shards)
+                   if s.view is not o.view]
+        # aligned: on this corpus bag votes tie many tracks at full votes
+        kw = SHARD_MODES["aligned"]
+        r_probe = meng.search_pcm(None, probe[SR:4 * SR], SR, **kw)
+        r_gone = meng.search_pcm(None, excerpts[probe_track], SR, **kw)
+        if r_probe.name != "shard-probe.wav" or r_gone.name == gone.name:
+            fail(f"[shard] after append + delete: probe -> {r_probe.name}, "
+                 f"deleted -> {r_gone.name}")
+        say(f"[shard] append + delete on the meshed engine: update "
+            f"{update_ms:.3f} ms touching shards {touched} of 4 (the rest "
+            f"keep their views); the appended track FOUND, the deleted one "
+            f"not ({r_gone.status} {r_gone.name})")
+        out["update_ms"] = update_ms
+        meng.close()
+    finally:
+        tdist.shutdown_distributed()
+    say(f"[shard] phase took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def shard_certs(votes, certs, full) -> dict:
+    """Per-shard and all-shard certificate counts of a sharded prefilter;
+    fails unless every query whose shards all certify has the full scan's
+    top-1 (votes and lowest row among the maxima)."""
+    import torch
+
+    ok = certs.all(dim=1)
+    cols = torch.arange(votes.shape[1], device=votes.device)
+
+    def top1(v):
+        m = v.max(dim=1).values
+        return m, torch.where(v == m[:, None], cols, v.shape[1]).min(
+            dim=1).values
+
+    for a, b in zip(top1(votes), top1(full)):
+        if not torch.equal(a[ok], b[ok]):
+            fail("[shard] a certified sharded prefilter's top-1 differs "
+                 "from the full scan")
+    return {"per_shard": certs.sum(dim=0).tolist(), "all": int(ok.sum())}
+
+
 def phase_cli(device, tmp: str) -> None:
     """``python3 -m tiresias_tpu_torch.cli`` in subprocesses against a
     small data directory: create, show contexts, search (one file, and
@@ -3361,6 +3670,10 @@ def run(device) -> dict:
         n0 = len(CLOCKS)
         kernels += tag_clock(phase_match_real(device, eng, queries), n0)
         took("the catalog's K4/K5 and candidate forms")
+        shard = phase_shard(device, eng, cfg, media, queries, excerpts,
+                            card["card"])
+        shard_launches = shard["launches"]
+        took("[shard]")
         torch.cuda.synchronize(device)
         build.reset_launch_counts()  # --- the serve path starts here ---
         serve_launches = phase_serve(device, eng, cfg, queries)
@@ -3388,13 +3701,14 @@ def run(device) -> dict:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_serve"] = serve_launches[k["name"]]
+        k["launches_shard"] = shard_launches[k["name"]]
     clocks = {c: CLOCKS.count(c) for c in ("profiler", "events")}
     say(f"[clocks] device_ms calls by clock: {clocks}")
     return {"kernels": kernels, "card": card["card"], "ingest_rate": rate,
             "p50": p50, "strict_p50": strict_p50,
             "summary": {"search": search_info, "strict": strict_info,
                         "library_ms": library, "prefilter": prefilter,
-                        "mutate": mutate,
+                        "mutate": mutate, "shard": shard,
                         "bound_scan": SCAN, "clocks": clocks}}
 
 

@@ -991,3 +991,103 @@ def test_incremental_views_equal_a_full_rebuild(dev, monkeypatch):
                 w = b_votes[k]
             assert v.dtype == torch.int32 and torch.equal(v, w), (step, k)
         assert (a_votes["K5"].gather(1, cand[:, :1].long()) > 0).all()
+
+
+def _card_mesh(dev):
+    from tiresias_tpu_torch.parallel import make_mesh
+
+    return make_mesh(4, 2, devices=[dev] * 8)
+
+
+def _clustered_rows(dev, rows=3001, t=128, seed=3):
+    g = np.random.default_rng(seed)
+    mu = g.uniform(-25, 20, (rows, 1, 1)).astype(np.float32)
+    db = (mu + g.normal(0, 1.5, (rows, t, 2))).astype(np.float32)
+    n = g.integers(t // 2, t + 1, rows)
+    db[np.arange(t)[None, :] >= n[:, None]] = PAD_VALUE
+    return db
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [False, True])
+def test_sharded_search_on_card_equals_unsharded(dev, aligned):
+    """K4/K5 per shard of a (4, 2) mesh whose eight cells all sit on the
+    card, gathered: int32-equal to the unsharded kernel (3,001 rows pad to
+    3,004, 63 queries to 64), one launch per cell."""
+    from tiresias_tpu_torch.parallel import shard_db, sharded_search
+
+    db = _clustered_rows(dev)
+    mask = db[..., 0] != PAD_VALUE
+    mesh = _card_mesh(dev)
+    db_s, mask_s, a = shard_db(mesh, db, mask)
+    tdb = torch.from_numpy(db).to(dev)
+    q = tdb[torch.arange(63, device=dev) * 40, 2:50].clone()
+    q[:, :, 1] += 0.01
+    nf = np.full(63, 48)
+    name = "match_votes_aligned" if aligned else "match_votes"
+    before = build.LAUNCHES[name]
+    _, _, votes = sharded_search(mesh, db_s, mask_s, q, nf, coefs=2,
+                                 tolerance=0.1, trunc_coef1=False,
+                                 aligned=aligned, n_audios=a)
+    torch.cuda.synchronize(dev)
+    assert build.LAUNCHES[name] - before == 8
+    qq, act, use2 = tm.prepare_query(q, nf, -1, -1, trunc_coef1=False)
+    fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+    assert torch.equal(votes, fn(tdb, qq, act, use2, 0.1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [False, True])
+def test_sharded_prefilters_on_card_equal_unsharded(dev, aligned):
+    """Both certified prefilters per shard of a (4, 2) mesh on the card:
+    the gathered votes and certificate columns equal the unsharded
+    prefilter run on each shard's rows, int32 for int32, and where every
+    shard certifies the top-1 equals the full scan's."""
+    from tiresias_tpu_torch.parallel import sharding as sh
+
+    db = _clustered_rows(dev, rows=3000)
+    tdb = torch.from_numpy(db).to(dev)
+    mask = tdb[..., 0] != PAD_VALUE
+    mesh = _card_mesh(dev)
+    q = tdb[torch.arange(64, device=dev) * 40, 2:50].clone()
+    q[:, :, 1] += 0.01
+    qq, act, use2 = tm.prepare_query(q, np.full(64, 48), -1, -1,
+                                     trunc_coef1=False)
+    specs, maps = ml.build_bound_maps(tdb, mask, 2)
+    votes, certs = sh.sharded_aligned_prefiltered(
+        mesh, tdb, maps, qq, act, use2, 0.1, specs, 2, k=128,
+        aligned=aligned)
+    vm = ml.build_value_map(tdb[..., 0], mask)
+    vmq = ml.quantize_value_map(vm)
+    q0 = torch.trunc(q[..., 0]) + 0.3
+    valid = torch.ones_like(act)
+    inf = float("inf")
+    lvotes, lcerts = sh.sharded_lattice_prefiltered(
+        mesh, vm, vmq, q0, valid, 0.5, -inf, inf, k=64)
+    per = 750
+    for i in range(4):
+        rows = slice(i * per, (i + 1) * per)
+        for j in range(2):
+            qs = slice(32 * j, 32 * (j + 1))
+            v, c = tk.aligned_prefiltered_votes(
+                tdb[rows].contiguous(),
+                tuple(m[rows].contiguous() for m in maps), qq[qs], act[qs],
+                use2[qs], 0.1, specs=specs, coefs=2, k=128, aligned=aligned,
+                index=mi.build_match_index(tdb[rows].contiguous()))
+            assert torch.equal(votes[qs, rows], v)
+            assert torch.equal(certs[qs, i], c)
+            lv, lc = ml.lattice_prefiltered_votes(
+                vm[rows].contiguous(), vmq[rows].contiguous(), q0[qs],
+                valid[qs], 0.5, -inf, inf, k=64)
+            assert torch.equal(lvotes[qs, rows], lv)
+            assert torch.equal(lcerts[qs, i], lc)
+    fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
+    full = fn(tdb, qq, act, use2, 0.1, 2)
+    ok = certs.all(dim=1)
+    assert ok.any()
+    assert torch.equal(votes.max(dim=1).values[ok],
+                       full.max(dim=1).values[ok])
+    lfull = ml.lattice_votes(vm, q0, valid, 0.5, -inf, inf)
+    lok = lcerts.all(dim=1)
+    assert torch.equal(lvotes.max(dim=1).values[lok],
+                       lfull.max(dim=1).values[lok])

@@ -266,9 +266,12 @@ def test_empty_store_is_notfound(tmp_path):
 
 
 def test_configurations_outside_the_slice_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Tiresias(_cfg(tmp_path / "m", tmp_path / "d"), device="cpu",
-                 mesh=object())
+    # a mesh of the wrong type or name raises (the meshed engine's own
+    # tests are tests/test_torch_engine_mesh.py)
+    for bad in (object(), "everywhere"):
+        with pytest.raises((TypeError, ValueError), match="mesh"):
+            Tiresias(_cfg(tmp_path / "m", tmp_path / "d"), device="cpu",
+                     mesh=bad)
     # the failed construction released the data-dir lock
     eng = Tiresias(_cfg(tmp_path / "m", tmp_path / "d"), device="cpu",
                    exclusive=True)

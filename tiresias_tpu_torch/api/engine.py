@@ -19,8 +19,21 @@ candidate budget of rows per view, each mode first tries its certified
 prefilter (a uint8 bound scan, the rows of highest bound rescored exactly,
 a certificate read back per view) and full-scans where any query's
 certificate fails; an adaptive gate stops trying after 8 misses in a row
-per view and mode. Mesh sharding raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+per view and mode.
+
+With ``mesh=`` (a ``(db, batch)`` :class:`~tiresias_tpu_torch.parallel.Mesh`,
+``"auto"`` or ``"global"``) the store shards each view on the mesh's ``db``
+axis; every cell votes with the same kernels on its shard and slice of the
+batch, and the vote blocks are gathered to ``[B, A_pad]`` (across ranks
+too) before the segment merge, the context filter and the top-1, which are
+unchanged. The prefilters run per shard, and a view full-scans unless
+every shard certifies. On a mesh over a process group (``"global"``) each
+search exchanges its vote blocks and certificates with the other ranks by
+``all_gather``, and collectives pair up by the order in which each rank
+issues them: every rank must issue the same searches in the same order.
+Within a process the engine runs one search's collectives at a time (other
+threads wait), and ``warmup_async`` warms in the foreground; the serve
+layer, whose clients reach each rank independently, refuses such a mesh.
 
 The engine is driven from several threads at once by the serve layer
 (score passes, admin searches, watch syncs, follow swaps): a search reads
@@ -76,6 +89,15 @@ from tiresias_tpu_torch.ops.mfcc import (
     fingerprint_signal,
     pad_frames_bucket,
 )
+from tiresias_tpu_torch.parallel import distributed as tdist
+from tiresias_tpu_torch.parallel.sharding import (
+    Mesh,
+    make_mesh,
+    sharded_aligned_prefiltered,
+    sharded_lattice_prefiltered,
+    sharded_lattice_votes,
+    sharded_votes_kernels,
+)
 from tiresias_tpu_torch.store.fingerprint_store import (
     AudioEntry,
     FingerprintStore,
@@ -89,9 +111,6 @@ log = get_logger(__name__)
 STATUS_FOUND = "FOUND"
 STATUS_NOTFOUND = "NOTFOUND"
 STATUS_HANGUP = "HANGUP"
-
-# ROADMAP.md item that ports what the engine does not serve yet
-_ROADMAP_MESH = "ROADMAP.md 1.13 (sharding over NCCL)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,10 +225,16 @@ class Tiresias:
 
         ``exclusive``: single-writer ownership of the data directory —
         True must own it, None (default) tries and falls back to a
-        read-only engine, False is read-only by choice."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh sharding: {_ROADMAP_MESH}")
-        self.device = resolve_device(device)
+        read-only engine, False is read-only by choice.
+
+        ``mesh``: None (one device), a :class:`Mesh`, ``"auto"`` (a
+        ``(n, 1)`` mesh over this process's devices of ``device``'s type,
+        None when there is one) or ``"global"`` (:func:`global_mesh` over
+        every rank's cells, None when there is one). With a mesh the
+        engine's device is the mesh's home device."""
+        self.mesh = mesh if isinstance(mesh, Mesh) else None
+        self.device = (mesh.home if self.mesh is not None
+                       else resolve_device(device))
         self.config = config or TiresiasConfig()
         # serializes sync/reload against each other (a serve watcher tick
         # racing an admin-plane sync): both walk the same directories and
@@ -222,6 +247,9 @@ class Tiresias:
         # misses per (view gen, mode), least recently noted first
         self._pf_misses: dict = {}
         self._pf_lock = threading.Lock()
+        # on a mesh over a process group: one search's collectives at a
+        # time (see _collectives)
+        self._collective_lock = threading.Lock()
         self.lock = DataDirLock(self.config.expanded_data_dir)
         if exclusive is not False:
             try:
@@ -231,6 +259,9 @@ class Tiresias:
                     raise
                 log.warning("engine is read-only: %s", exc)
         try:
+            self.mesh = self._resolve_mesh(mesh)
+            if self.mesh is not None:
+                self.device = self.mesh.home
             self.checkpoint_dir = os.path.join(
                 self.config.expanded_data_dir, "checkpoint"
             )
@@ -239,10 +270,11 @@ class Tiresias:
                 self.store = FingerprintStore.load(
                     self.checkpoint_dir, n_coefs=dsp.n_coefs,
                     coef_weights=dsp.coef_weights, device=self.device,
+                    mesh=self.mesh,
                 )
             else:
                 self.store = FingerprintStore(
-                    dsp.n_coefs, dsp.coef_weights, self.device
+                    dsp.n_coefs, dsp.coef_weights, self.device, self.mesh
                 )
             for ctx in self.config.contexts:
                 self.store.create_context(ctx.name, ctx.directory)
@@ -251,6 +283,37 @@ class Tiresias:
             self.lock.release()
             raise
 
+    def _resolve_mesh(self, mesh) -> Mesh | None:
+        """The engine's mesh from the ``mesh`` argument (see __init__)."""
+        if mesh is None or isinstance(mesh, Mesh):
+            return mesh
+        if mesh == "auto":
+            devices = tdist.local_devices(self.device)
+            if len(devices) < 2:
+                return None
+            return make_mesh(len(devices), 1, devices=devices)
+        if mesh == "global":
+            if not tdist.is_initialized():
+                devices = tdist.local_devices(self.device)
+                return make_mesh(devices=devices) if len(devices) > 1 else None
+            gm = tdist.global_mesh()
+            return gm if gm.size > 1 else None
+        if isinstance(mesh, str):
+            raise ValueError(
+                f"mesh must be None, 'auto', 'global' or a Mesh, got {mesh!r}")
+        raise TypeError(
+            f"mesh must be None, 'auto', 'global' or a Mesh, not "
+            f"{type(mesh).__name__}")
+
+    def _ingest_mesh(self) -> Mesh | None:
+        """Mesh for data-parallel ingest fingerprinting: the engine's mesh
+        when this process owns every cell. A multi-process mesh returns
+        None: each process ingests its own files on its home device
+        (host-local inputs cannot form a batch split across ranks)."""
+        if self.mesh is None or self.mesh.is_multiprocess:
+            return None
+        return self.mesh
+
     # ---- lifecycle ---------------------------------------------------- #
 
     def _require_owner(self) -> None:
@@ -258,6 +321,16 @@ class Tiresias:
             raise DataDirLocked(
                 self.config.expanded_data_dir, self.lock.owner_info()
             )
+
+    def _collectives(self):
+        """Held over a search's loop over the views: on a mesh over a process
+        group each view's votes and certificates are ``all_gather``s, which
+        pair with the other ranks' by the order this process issues them, so
+        two threads' searches must not interleave theirs. Nothing to hold
+        without a process group."""
+        if self.mesh is not None and self.mesh.distributed:
+            return self._collective_lock
+        return contextlib.nullcontext()
 
     def _on_device(self):
         """Make the engine's card the calling thread's current CUDA device
@@ -273,7 +346,8 @@ class Tiresias:
         self._require_owner()
         with self._sync_mutex, phase("engine.sync"), self._on_device():
             return sync_all(
-                self.store, self.config, self.checkpoint_dir, self.device
+                self.store, self.config, self.checkpoint_dir, self.device,
+                mesh=self._ingest_mesh(),
             )
 
     def sync_context(self, context: str) -> SyncReport:
@@ -285,7 +359,7 @@ class Tiresias:
         with self._sync_mutex, phase("engine.sync"), self._on_device():
             report = sync_context_audio(
                 self.store, context, ctx["directory"], self.config.dsp,
-                self.device,
+                self.device, mesh=self._ingest_mesh(),
             )
             self.save()
             return report
@@ -326,6 +400,7 @@ class Tiresias:
             store = FingerprintStore.load(
                 self.checkpoint_dir, n_coefs=dsp.n_coefs,
                 coef_weights=dsp.coef_weights, device=self.device,
+                mesh=self.mesh,
             )
         except Exception:  # noqa: BLE001 - torn mid-rotation read etc.
             log.warning("follow: checkpoint reload failed; keeping the "
@@ -443,7 +518,9 @@ class Tiresias:
         kernel library, the search maps and the int16 search, in that
         order — runs before this returns; the float32 and G.711 searches
         run on a daemon thread, which is returned (join it to wait for
-        full warmth; :meth:`close` does)."""
+        full warmth; :meth:`close` does). On a multi-process mesh every
+        search is a collective that the ranks must issue in one order, so
+        the thread is joined before this returns."""
         self._warm_kernels()
         with phase("engine.warmup.maps"):
             self.warm_search_maps()
@@ -471,6 +548,8 @@ class Tiresias:
             ]
             self._warm_threads.append(t)
         t.start()
+        if self.mesh is not None and self.mesh.is_multiprocess:
+            t.join()
         return t
 
     def law_device_ready(self, law: str) -> bool:
@@ -489,7 +568,7 @@ class Tiresias:
         gate would admit the view. A restored serving store otherwise pays
         the build on the next request. Already-built maps cost nothing,
         and a view updated after a mutation carries the maps of the view
-        before it."""
+        before it. On a mesh, every shard's maps, each on its device."""
         mc = self.config.match
         lattice_mode = mc.coefs == 1 and mc.trunc_coef1 and not mc.aligned
         # the tolerance real requests run at (a negative one means the
@@ -500,16 +579,21 @@ class Tiresias:
             for view in store.search_views():
                 store.seq_for(view)
                 store.ctx_ids_for(view)
-                if lattice_mode:
-                    store.value_map_for(view)
-                    if self._lattice_pf_ok(view, tol):
-                        store.value_map_q_for(view)
-                else:
-                    store.match_index_for(view)
-                    big = view.db.shape[0] > 2 * match_kernels.PREFILTER_K
-                    if (mc.aligned and big and not view.segments
-                            and bound_tol_ok(mc.coefs, tol)):
-                        store.bound_maps_for(view, mc.coefs)
+                lattice_pf = lattice_mode and self._lattice_pf_ok(view, tol)
+                big = (self._prefilter_rows(view) or 0) > (
+                    2 * match_kernels.PREFILTER_K)
+                for part in [s.view for s in view.shards] or [view]:
+                    if view.shards:
+                        store.ctx_ids_for(part)
+                    if lattice_mode:
+                        store.value_map_for(part)
+                        if lattice_pf:
+                            store.value_map_q_for(part)
+                    else:
+                        store.match_index_for(part)
+                        if (mc.aligned and big and not view.segments
+                                and bound_tol_ok(mc.coefs, tol)):
+                            store.bound_maps_for(part, mc.coefs)
 
     def save(self) -> None:
         self._require_owner()
@@ -564,7 +648,7 @@ class Tiresias:
         with self._on_device():
             return ingest_files(
                 self.store, context, [path], self.config.dsp,
-                device=self.device,
+                device=self.device, mesh=self._ingest_mesh(),
             )
 
     def add_audio_pcm(
@@ -704,7 +788,13 @@ class Tiresias:
         (PARITY.md D17/D19/D20) computes the votes instead: exact in every
         row that can reach the caller's top ``top`` (1; 2 for a margin
         search; k for a ranked listing) when every query certifies, and
-        otherwise the full scan above runs."""
+        otherwise the full scan above runs.
+
+        On a mesh each cell computes its shard's votes for its slice of the
+        batch and the blocks are gathered to ``[B, A_pad]`` in global row
+        order; the segment merge and the context filter run on the gathered
+        votes (an auto-split audio's rows may lie in several shards)."""
+        mesh = store.mesh
         f = int(qfp.shape[1])
         dialplan = coefs == 1 and trunc_coef1 and not aligned
         if dialplan:
@@ -729,10 +819,15 @@ class Tiresias:
                         store, view, q0, valid, tolerance, band_lo, band_hi,
                         ctx_id, top,
                     )
-                if votes is None:
+                if votes is None and mesh is None:
                     votes = lattice_votes(
                         store.value_map_for(view), q0, valid, tolerance,
                         band_lo, band_hi,
+                    )
+                elif votes is None:
+                    votes = sharded_lattice_votes(
+                        mesh, store.sharded(view, store.value_map_for), q0,
+                        valid, tolerance, band_lo, band_hi,
                     )
             else:
                 if self._strict_pf_ok(view, coefs, tolerance, top, aligned):
@@ -740,12 +835,16 @@ class Tiresias:
                         store, view, q, active, use2, coefs, tolerance,
                         ctx_id, top, aligned,
                     )
-                if votes is None:
-                    votes = self._merge_segments(
-                        store, view,
-                        vote(view.db, q, active, use2, tolerance, coefs,
-                             index=store.match_index_for(view)),
+                if votes is None and mesh is None:
+                    votes = vote(view.db, q, active, use2, tolerance, coefs,
+                                 index=store.match_index_for(view))
+                elif votes is None:
+                    votes = sharded_votes_kernels(
+                        mesh, store.sharded(view, lambda s: s.db), q, active,
+                        use2, tolerance, coefs, aligned,
+                        index=store.sharded(view, store.match_index_for),
                     )
+                votes = self._merge_segments(store, view, votes)
             if ctx_id is not None:
                 keep = store.ctx_ids_for(view) == ctx_id
                 votes = torch.where(keep[None, :], votes, 0)
@@ -778,13 +877,23 @@ class Tiresias:
         if not certified:
             metrics.add("search.prefilter_fallbacks", 1)
 
+    def _prefilter_rows(self, view) -> int | None:
+        """The rows a prefilter selects among: the view's, or on a mesh its
+        shard's (None when the shards would not be equal: disjoint columns
+        need exact shard rows)."""
+        if self.mesh is None:
+            return view.rows
+        n_db = self.mesh.shape["db"]
+        return None if view.rows % n_db else view.rows // n_db
+
     def _lattice_pf_ok(self, view, tolerance: float, top: int = 1) -> bool:
         """Gate of the dialplan prefilter: the selection must be real
-        (rows > 2k), the listing must fit the candidates, the tolerance must
-        stay below the uint8 saturation, and the adaptive gate must allow
-        it."""
+        (rows > 2k, per shard on a mesh), the listing must fit the
+        candidates, the tolerance must stay below the uint8 saturation, and
+        the adaptive gate must allow it."""
         k = match_lattice.LATTICE_PREFILTER_K
-        if (top > k or view.db.shape[0] <= 2 * k
+        rows = self._prefilter_rows(view)
+        if (rows is None or top > k or rows <= 2 * k
                 or not bound_tol_ok(None, tolerance)):
             return False
         return self._pf_allowed(view, "lattice")
@@ -794,7 +903,8 @@ class Tiresias:
         """Gate of the strict/aligned prefilter, as :meth:`_lattice_pf_ok`
         with the bound maps' saturation per coefficient."""
         k = match_kernels.PREFILTER_K
-        if (top > k or view.db.shape[0] <= 2 * k
+        rows = self._prefilter_rows(view)
+        if (rows is None or top > k or rows <= 2 * k
                 or not bound_tol_ok(coefs, tolerance)):
             return False
         return self._pf_allowed(view, "aligned" if aligned else "bag")
@@ -804,14 +914,25 @@ class Tiresias:
                              ctx_id: int | None, top: int):
         """Certified dialplan votes ``[B, A_pad]`` of one view, or None when
         any query's certificate fails (the caller full-scans). One ``[B]``
-        readback. Auto-split audios need no bail-out: the map min-combines
-        their segment rows into one exact row."""
-        votes, cert = lattice_prefiltered_votes(
-            store.value_map_for(view), store.value_map_q_for(view), q0,
-            valid, tolerance, band_lo, band_hi, top=top,
-            ctx_ids=None if ctx_id is None else store.ctx_ids_for(view),
-            ctx_id=ctx_id,
-        )
+        readback (``[B, n_db]`` on a mesh: every shard must certify).
+        Auto-split audios need no bail-out: the map min-combines their
+        segment rows into one exact row."""
+        if store.mesh is not None:
+            votes, cert = sharded_lattice_prefiltered(
+                store.mesh, store.sharded(view, store.value_map_for),
+                store.sharded(view, store.value_map_q_for), q0, valid,
+                tolerance, band_lo, band_hi, top=top,
+                ctx_ids=(None if ctx_id is None
+                         else store.sharded(view, store.ctx_ids_for)),
+                ctx_id=ctx_id,
+            )
+        else:
+            votes, cert = lattice_prefiltered_votes(
+                store.value_map_for(view), store.value_map_q_for(view), q0,
+                valid, tolerance, band_lo, band_hi, top=top,
+                ctx_ids=None if ctx_id is None else store.ctx_ids_for(view),
+                ctx_id=ctx_id,
+            )
         certified = bool(cert.all())
         self._pf_note(view, "lattice", certified)
         return votes if certified else None
@@ -822,17 +943,30 @@ class Tiresias:
         """Certified aligned (or, ``aligned=False``, strict bag) votes of
         one view, or None when any query's certificate fails or the view
         holds auto-split audios (their per-segment bounds cannot certify a
-        summed winner, D15): the caller full-scans. One ``[B]`` readback."""
+        summed winner, D15): the caller full-scans. One ``[B]`` readback
+        (``[B, n_db]`` on a mesh: every shard must certify)."""
         if view.segments:
             return None
-        specs, maps = store.bound_maps_for(view, coefs)
-        votes, cert = aligned_prefiltered_votes(
-            view.db, maps, q, active, use2, tolerance, specs=specs,
-            coefs=coefs, k=match_kernels.PREFILTER_K,
-            ctx_ids=None if ctx_id is None else store.ctx_ids_for(view),
-            ctx_id=ctx_id, top=top, aligned=aligned,
-            index=store.match_index_for(view),
-        )
+        if store.mesh is not None:
+            specs, maps = store.sharded_bound_maps(view, coefs)
+            votes, cert = sharded_aligned_prefiltered(
+                store.mesh, store.sharded(view, lambda part: part.db), maps,
+                q, active, use2, tolerance, specs, coefs,
+                ctx_ids=(None if ctx_id is None
+                         else store.sharded(view, store.ctx_ids_for)),
+                ctx_id=ctx_id, top=top, k=match_kernels.PREFILTER_K,
+                aligned=aligned,
+                index=store.sharded(view, store.match_index_for),
+            )
+        else:
+            specs, maps = store.bound_maps_for(view, coefs)
+            votes, cert = aligned_prefiltered_votes(
+                view.db, maps, q, active, use2, tolerance, specs=specs,
+                coefs=coefs, k=match_kernels.PREFILTER_K,
+                ctx_ids=None if ctx_id is None else store.ctx_ids_for(view),
+                ctx_id=ctx_id, top=top, aligned=aligned,
+                index=store.match_index_for(view),
+            )
         certified = bool(cert.all())
         self._pf_note(view, "aligned" if aligned else "bag", certified)
         return votes if certified else None
@@ -872,16 +1006,18 @@ class Tiresias:
             top=2 if margin else 1,
         )
         per_view = []
-        for view in views:
-            votes = votes_of(view)
-            cols = torch.arange(votes.shape[1], device=self.device)
-            key = cols if len(views) == 1 else store.seq_for(view)
-            m, k, col = top1_by_key(votes, key)
-            stats = [m.to(torch.int64), k, col]
-            if margin:
-                rest = torch.where(cols[None, :] == col[:, None], -1, votes)
-                stats.append(rest.max(dim=1).values.to(torch.int64))
-            per_view.append(torch.stack(stats))
+        with self._collectives():
+            for view in views:
+                votes = votes_of(view)
+                cols = torch.arange(votes.shape[1], device=self.device)
+                key = cols if len(views) == 1 else store.seq_for(view)
+                m, k, col = top1_by_key(votes, key)
+                stats = [m.to(torch.int64), k, col]
+                if margin:
+                    rest = torch.where(cols[None, :] == col[:, None], -1,
+                                       votes)
+                    stats.append(rest.max(dim=1).values.to(torch.int64))
+                per_view.append(torch.stack(stats))
         got = torch.stack(per_view).cpu().numpy()  # the one readback
         if len(views) == 1:
             win = np.zeros(b, np.int64)
@@ -978,10 +1114,12 @@ class Tiresias:
                 store, qfp, n_frames, tolerance, lo, hi, ctx_id, coefs,
                 trunc_coef1, aligned, top=k,
             )
-            got = torch.stack([
-                topk_by_row(votes_of(view)[0], store.seq_for(view), k)
-                for view in views
-            ]).cpu().numpy()  # the one readback, [V, 3, k]
+            with self._collectives():
+                got = torch.stack([
+                    topk_by_row(votes_of(view)[0], store.seq_for(view), k)
+                    for view in views
+                ])
+            got = got.cpu().numpy()  # the one readback, [V, 3, k]
         metrics.add("search.queries", 1)
         fc = int(n_frames[0])
         # (-votes, seq, view, row): sorting IS the D5 order, seqs are unique

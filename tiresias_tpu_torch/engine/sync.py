@@ -12,7 +12,9 @@ CUDA stream (:func:`tiresias_tpu_torch.ops.mfcc.fingerprint_signals_async`,
 pinned non-blocking uploads); the readback and store write of batch *k* run
 while batch *k+1* executes and later files decode. Batches are uniform in
 (samplerate, wire format): 16-bit PCM ships as int16 and G.711 WAVs as their
-raw uint8 codes, both expanded on the device.
+raw uint8 codes, both expanded on the device. With a single-process ``mesh``
+each batch is split evenly over every cell of the mesh
+(:func:`tiresias_tpu_torch.parallel.sharding.sharded_fingerprint`).
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from tiresias_tpu_torch.utils.logging import get_logger
 from tiresias_tpu_torch.ops.mfcc import (
     fingerprint_signals_async,
     mask_fingerprints,
+    pad_frames_bucket,
 )
+from tiresias_tpu_torch.parallel.sharding import sharded_fingerprint
 from tiresias_tpu_torch.store.fingerprint_store import FingerprintStore
 from tiresias_tpu_torch.utils.device import resolve_device
 from tiresias_tpu_torch.utils.tracing import phase
@@ -160,13 +164,20 @@ def ingest_files(
     dsp: DspConfig | None = None,
     known_hashes: dict[str, str] | None = None,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> SyncReport:
     """Fingerprint new files in device batches and add them to the store.
 
     Dedupe is by (context, file MD5) (fp_handler.c:494-507); undecodable
     files are skipped and counted (app_tiresias.c:415-419). Paths are
-    decoded in file-size order so batches pack near-uniform lengths."""
-    device = resolve_device(device)
+    decoded in file-size order so batches pack near-uniform lengths.
+
+    ``mesh``: a single-process :class:`~tiresias_tpu_torch.parallel.Mesh`;
+    each batch is then padded with empty signals to a multiple of its cells
+    and fingerprinted data-parallel over every cell (the multi-device
+    scale-out of the reference's one-file-at-a-time loop,
+    fp_handler.c:604-652), gathered on the mesh's home device."""
+    device = mesh.home if mesh is not None else resolve_device(device)
     dsp = dsp or DspConfig()
     report = SyncReport()
     inflight = None  # at most one enqueued-but-undrained batch
@@ -189,10 +200,23 @@ def ingest_files(
         nonlocal inflight
         pcms = [pcm for _, _, pcm in items]
         with phase("ingest.fingerprint_batch"):
-            fp_dev, n_frames = fingerprint_signals_async(
-                pcms, samplerate, dsp,
-                bucket_multiple=INGEST_FRAME_MULTIPLE, law=law, device=device,
-            )
+            if mesh is None:
+                fp_dev, n_frames = fingerprint_signals_async(
+                    pcms, samplerate, dsp,
+                    bucket_multiple=INGEST_FRAME_MULTIPLE, law=law,
+                    device=device,
+                )
+            else:
+                # the batch splits evenly over the mesh: drain reads only
+                # the items' rows
+                pcms += [np.zeros(0, pcms[0].dtype)] * (
+                    -len(pcms) % mesh.size)
+                padded, n_frames = pad_frames_bucket(
+                    pcms, dsp.hop_size, INGEST_FRAME_MULTIPLE, law=law)
+                n_valid = (np.array([len(p) for p in pcms], np.int32)
+                           if law is not None else None)
+                fp_dev = sharded_fingerprint(
+                    mesh, padded, samplerate, dsp, law=law, n_valid=n_valid)
         prev, inflight = inflight, (items, fp_dev, n_frames)
         if prev is not None:
             drain(prev)
@@ -261,18 +285,20 @@ def sync_context_audio(
     directory: str,
     dsp: DspConfig | None = None,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> SyncReport:
     """delete-removed + create-new for one context (app_tiresias.c:324-358).
     A cold context skips the separate MD5 pass: ingest hashes each file on
-    the decode pool instead."""
-    device = resolve_device(device)
+    the decode pool instead. ``mesh``: as :func:`ingest_files`."""
+    device = mesh.home if mesh is not None else resolve_device(device)
     report = SyncReport()
     if not store.get_audios_by_context(context):
         names = scan_directory(directory)
         if names is None:
             return report  # unreadable directory: a no-op, never a delete
         paths = [os.path.join(directory, n) for n in names]
-        report += ingest_files(store, context, paths, dsp, None, device)
+        report += ingest_files(store, context, paths, dsp, None, device,
+                               mesh)
         return report
     hashes = hash_directory(directory)
     if hashes is None:
@@ -280,7 +306,8 @@ def sync_context_audio(
     report.deleted = delete_removed_audio(
         store, context, directory, set(hashes.values())
     )
-    report += ingest_files(store, context, list(hashes), dsp, hashes, device)
+    report += ingest_files(store, context, list(hashes), dsp, hashes, device,
+                           mesh)
     return report
 
 
@@ -300,16 +327,18 @@ def sync_all(
     config: TiresiasConfig,
     checkpoint_dir: str | None = None,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> SyncReport:
     """Full init-time sync: contexts, then per-context audio, checkpointing
-    after each context that changed (PARITY.md D2)."""
-    device = resolve_device(device)
+    after each context that changed (PARITY.md D2). ``mesh``: as
+    :func:`ingest_files`."""
+    device = mesh.home if mesh is not None else resolve_device(device)
     sync_contexts(store, config)
     total = SyncReport()
     for ctx in config.contexts:
         with phase("sync.context"):
             report = sync_context_audio(
-                store, ctx.name, ctx.directory, config.dsp, device
+                store, ctx.name, ctx.directory, config.dsp, device, mesh
             )
         total += report
         if checkpoint_dir and (report.created or report.deleted):

@@ -127,6 +127,12 @@ class RecognitionServer:
                 raise ValueError("watch and follow modes are exclusive")
         if max_channels < 1:
             raise ValueError("max_channels must be at least 1")
+        if engine.mesh is not None and engine.mesh.is_multiprocess:
+            # each rank's clients send their own searches, but every
+            # search's all_gathers must be issued by every rank in one order
+            raise ValueError(
+                "a server cannot drive an engine on a multi-process mesh: "
+                "every rank must issue the same searches in the same order")
         self.max_channels = int(max_channels)
         self.engine = engine
         self.host = host

@@ -9,7 +9,14 @@ tombstone rows and compact past a waste threshold; audios longer than the
 top tier are split into consecutive segment rows of one catalog entry.
 
 Device side, each non-empty tier has a :class:`TierView` of torch tensors
-(rows padded to multiples of 128). The lattice distance map, the certified
+(rows padded to multiples of 128). On a ``(db, batch)`` mesh
+(:mod:`tiresias_tpu_torch.parallel`) the rows pad to multiples of
+``128 * n_db`` and a view holds one :class:`Shard` per db row of this
+process's cells and device among them: a view of its own of the tier's rows
+``[i * A_pad / n_db, (i + 1) * A_pad / n_db)`` on that device, whose
+derived data is built there. An auto-split audio whose segment rows cross a
+shard edge keeps its min-combined map row exact: the shard of its first row
+carries the map rows of the segments beyond the edge. The lattice distance map, the certified
 prefilters' uint8 maps (the quantized distance map and the strict/aligned
 bound maps), K4/K5's sorted index, the per-row insertion seqs and the
 per-row context ids are derived lazily per view. After a mutation the next
@@ -33,6 +40,7 @@ import json
 import os
 import re
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -289,6 +297,9 @@ class _Tier:
         self.view_clean_from = min(self.view_clean_from, doomed[0])
 
 
+_view_gens = itertools.count()
+
+
 @dataclasses.dataclass
 class TierView:
     """A tier's device view — what one search scans. ``entries`` includes
@@ -297,8 +308,8 @@ class TierView:
     kernels (PAD frames) ever give them a vote."""
 
     tier_frames: int
-    db: torch.Tensor  # [A_pad, T, C] float32
-    mask: torch.Tensor  # [A_pad, T] bool
+    db: torch.Tensor | None  # [A_pad, T, C] float32; None on a mesh
+    mask: torch.Tensor | None  # [A_pad, T] bool; None on a mesh
     n_audios: int  # view rows, including tombstoned ones
     entries: list[AudioEntry]
     dead_rows: frozenset = frozenset()
@@ -318,11 +329,33 @@ class TierView:
     seg_dev: tuple | None = None  # (followers, heads) int64, lazily built
     # process-unique, new on every view an update returns: the key of the
     # engine's adaptive prefilter gate
-    gen: int = dataclasses.field(default_factory=itertools.count().__next__)
+    gen: int = dataclasses.field(default_factory=lambda: next(_view_gens))
+    # a meshed view: its shards (db and mask are None) and its padded rows
+    shards: tuple = ()
+    padded_rows: int = 0
+    # a shard: the min of the map rows beyond its edge of each auto-split
+    # audio whose first row it holds, as (row, [K] map row), and its rows
+    # of audios whose first row lies in an earlier shard (+inf in the map)
+    seg_ext: tuple = ()
+    seg_orphans: tuple = ()
+
+    @property
+    def rows(self) -> int:
+        """The view's padded row count ``A_pad``."""
+        return self.padded_rows if self.db is None else self.db.shape[0]
 
     def tensors(self) -> dict:
         """Every device tensor the view holds, by name (the segment rows
-        left out: they are rebuilt lazily)."""
+        left out: they are rebuilt lazily); a meshed view's shards' as
+        ``shard<i>@<device>.<name>``."""
+        if self.shards:
+            out = {f"shard{s.index}@{s.device}.{name}": x
+                   for s in self.shards
+                   for name, x in s.view.tensors().items()}
+            for name in ("seq_dev", "ctx_dev"):
+                if getattr(self, name) is not None:
+                    out[name] = getattr(self, name)
+            return out
         out = {"db": self.db, "mask": self.mask}
         for name in ("value_map", "value_map_q", "seq_dev", "ctx_dev"):
             if getattr(self, name) is not None:
@@ -336,16 +369,42 @@ class TierView:
         return out
 
 
-def _combine_segment_rows(vm: torch.Tensor, groups) -> torch.Tensor:
+class Shard(NamedTuple):
+    """One catalog shard of a meshed view: db index ``index`` on
+    ``device``, a :class:`TierView` of its own rows."""
+
+    index: int
+    device: torch.device
+    view: TierView
+
+
+def _combine_segment_rows(vm: torch.Tensor, groups, ext=(), orphans=(),
+                          dead=frozenset()) -> torch.Tensor:
     """Min-combine an auto-split audio's map rows into its FIRST row (the
     others become +inf): min over segment rows is min over the whole
-    audio's frames, the reference's one-vote-per-audio test."""
+    audio's frames, the reference's one-vote-per-audio test. On a shard,
+    ``ext`` adds the min of a group's map rows beyond the shard's edge
+    (unless its first row is dead: then the whole audio is) and
+    ``orphans`` are rows of groups whose first row another shard holds."""
+    beyond = {head: row for head, row in ext if head not in dead}
     for g in groups:
         rows = torch.as_tensor(list(g), dtype=torch.int64, device=vm.device)
-        vm[g[0]] = vm[rows].amin(dim=0)
+        combined = vm[rows].amin(dim=0)
+        if g[0] in beyond:
+            combined = torch.minimum(combined, beyond[g[0]])
+        vm[g[0]] = combined
         if len(g) > 1:
             vm[rows[1:]] = torch.inf
+    if orphans:
+        vm[torch.as_tensor(list(orphans), dtype=torch.int64,
+                           device=vm.device)] = torch.inf
     return vm
+
+
+def _device_of(view: TierView, default: torch.device) -> torch.device:
+    """Where a view's derived data lives: its own tensors' device (a
+    shard's), else the store's (a meshed view's keys, on the home device)."""
+    return default if view.db is None else view.db.device
 
 
 def _with_rows(buf: torch.Tensor, lo: int, rows: torch.Tensor) -> torch.Tensor:
@@ -360,14 +419,19 @@ class FingerprintStore:
     semantics. One re-entrant lock guards mutation and catalog reads."""
 
     def __init__(self, n_coefs: int = DEF_N_COEFS, coef_weights=None,
-                 device: torch.device | str = "cuda") -> None:
+                 device: torch.device | str = "cuda", mesh=None) -> None:
         """``coef_weights``: the DSP chain's per-coef weighting, recorded in
-        the checkpoint; a restore under different weights is rejected."""
+        the checkpoint; a restore under different weights is rejected.
+        ``mesh``: a :class:`~tiresias_tpu_torch.parallel.Mesh`; the views
+        are then sharded on its ``db`` axis, and ``device`` is the mesh's
+        home device (where the per-view keys live)."""
         self.n_coefs = int(n_coefs)
         self.coef_weights = (
             tuple(float(x) for x in coef_weights) if coef_weights else None
         )
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None else resolve_device(
+            device)
         self._lock = threading.RLock()
         self._save_lock = threading.Lock()
         self.entries: list[AudioEntry] = []  # global insertion order
@@ -569,7 +633,7 @@ class FingerprintStore:
                 old = prev.get(t)
                 if (
                     old is not None
-                    and old.db.shape[0] == _bucket(a, AUDIO_BUCKET)
+                    and old.rows == self._a_pad(a)
                     and a >= old.n_audios
                     and tier.view_clean_from >= old.n_audios
                 ):
@@ -596,9 +660,51 @@ class FingerprintStore:
             self._dirty = False
             return views
 
+    def _a_pad(self, n: int) -> int:
+        """A view's padded rows: 128-row buckets, and on a mesh multiples of
+        ``128 * n_db`` (the JAX store's rule), so shards are equal."""
+        a_pad = _bucket(n, AUDIO_BUCKET)
+        if self.mesh is not None:
+            a_pad = _bucket(a_pad, AUDIO_BUCKET * self.mesh.shape["db"])
+        return a_pad
+
+    def shard_rows(self, view: TierView) -> int:
+        """Rows per shard of a meshed view."""
+        return view.rows // self.mesh.shape["db"]
+
+    def sharded(self, view: TierView, part) -> "Sharded":
+        """``part(shard view)`` of every shard of a meshed view, as the
+        :class:`~tiresias_tpu_torch.parallel.sharding.Sharded` the sharded
+        ops take (e.g. ``store.sharded(view, store.value_map_for)``)."""
+        from tiresias_tpu_torch.parallel.sharding import Sharded
+
+        return Sharded(self.mesh, {(s.index, s.device): part(s.view)
+                                   for s in view.shards}, view.rows)
+
+    def sharded_bound_maps(self, view: TierView, coefs: int) -> tuple:
+        """:meth:`bound_maps_for` of a meshed view: ``(specs, maps)`` with
+        one :class:`~tiresias_tpu_torch.parallel.sharding.Sharded` per bound
+        map, each shard's map built on its own shard."""
+        from tiresias_tpu_torch.parallel.sharding import Sharded
+
+        per = {(s.index, s.device): self.bound_maps_for(s.view, coefs)
+               for s in view.shards}
+        specs = next(iter(per.values()))[0]
+        maps = tuple(Sharded(self.mesh, {key: sm[1][m]
+                                         for key, sm in per.items()},
+                             view.rows)
+                     for m in range(len(specs)))
+        return specs, maps
+
     def _build_view(self, tier: _Tier, a: int) -> TierView:
         """A tier's view built in full from the host matrix, its derived
-        data left to be built lazily."""
+        data left to be built lazily (on a mesh, every shard of it)."""
+        if self.mesh is not None:
+            a_pad = self._a_pad(a)
+            per = a_pad // self.mesh.shape["db"]
+            return self._mesh_view(tier, a_pad, tuple(
+                Shard(i, dev, self._build_shard(tier, a, i * per, per, dev))
+                for i, dev in self.mesh.shard_slots()))
         db, mask = self._host_rows(tier, 0, a, _bucket(a, AUDIO_BUCKET))
         return TierView(
             tier_frames=tier.t, db=db, mask=mask, n_audios=a,
@@ -608,26 +714,85 @@ class FingerprintStore:
             segments=tuple(tuple(r) for r in tier.uuid_rows.values()),
         )
 
+    @staticmethod
+    def _mesh_view(tier: _Tier, a_pad: int, shards: tuple,
+                   **keys) -> TierView:
+        """A meshed view of the tier's current rows over ``shards``."""
+        return TierView(
+            tier_frames=tier.t, db=None, mask=None,
+            n_audios=len(tier.entries), entries=list(tier.entries),
+            dead_rows=frozenset(tier.dead), row_frames=tuple(tier.row_frames),
+            segments=tuple(tuple(r) for r in tier.uuid_rows.values()),
+            shards=shards, padded_rows=a_pad, **keys,
+        )
+
+    def _build_shard(self, tier: _Tier, a: int, base: int, per: int,
+                     device: torch.device) -> TierView:
+        """Shard view of the tier's rows ``[base, base + per)`` (those below
+        ``a`` from the host matrix, the rest padding) on ``device``."""
+        n = min(max(a - base, 0), per)
+        db, mask = self._host_rows(tier, base, base + n, per, device)
+        segments, ext, orphans = self._shard_segments(tier, base, per,
+                                                      device)
+        return TierView(
+            tier_frames=tier.t, db=db, mask=mask, n_audios=n,
+            entries=tier.entries[base:base + n],
+            dead_rows=frozenset(r - base for r in tier.dead
+                                if base <= r < base + n),
+            row_frames=tuple(tier.row_frames[base:base + n]),
+            segments=segments, seg_ext=ext, seg_orphans=orphans,
+        )
+
+    def _shard_segments(self, tier: _Tier, base: int, per: int | None,
+                        device: torch.device) -> tuple:
+        """``(segments, seg_ext, seg_orphans)`` of the part of a view that
+        holds the tier's rows ``[base, base + per)`` (``per`` None: every
+        row), in the part's row numbers: the groups whose first row it
+        holds (its own rows of each), the min map row of each such group's
+        rows beyond the part (built from the host rows, which lie in the
+        group's next rows: a group's rows are consecutive), and its rows of
+        groups whose first row lies before it."""
+        hi = None if per is None else base + per
+        segments, ext, orphans = [], [], []
+        for g in tier.uuid_rows.values():
+            local = [r - base for r in g if r >= base and (hi is None
+                                                           or r < hi)]
+            if not local:
+                continue
+            if g[0] < base:
+                orphans.extend(local)
+                continue
+            segments.append(tuple(local))
+            beyond = [r for r in g if hi is not None and r >= hi]
+            if beyond:
+                db, mask = self._host_rows(tier, beyond[0], beyond[-1] + 1,
+                                           device=device)
+                ext.append((local[0],
+                            build_value_map(db[..., 0], mask).amin(dim=0)))
+        return tuple(segments), tuple(ext), tuple(orphans)
+
     def _host_rows(self, tier: _Tier, lo: int, a: int,
-                   n_rows: int | None = None) -> tuple:
+                   n_rows: int | None = None,
+                   device: torch.device | None = None) -> tuple:
         """The device ``(db, mask)`` rows of the tier's rows ``[lo, a)``, the
         only rows that cross host to device, padded to ``n_rows`` with
-        PAD_VALUE and all-False rows. A tombstoned row holds PAD_VALUE (the
-        vote kernels read values only: its stale fingerprint would vote)
-        and an all-False mask."""
+        PAD_VALUE and all-False rows, on ``device`` (default the store's).
+        A tombstoned row holds PAD_VALUE (the vote kernels read values
+        only: its stale fingerprint would vote) and an all-False mask."""
+        device = self.device if device is None else device
         n_rows = a - lo if n_rows is None else n_rows
         dead = sorted(r - lo for r in tier.dead if lo <= r < a)
         n_frames = np.zeros(n_rows, dtype=np.int64)
         n_frames[: a - lo] = tier.row_frames[lo:a]
         n_frames[dead] = 0
         db = torch.full((n_rows, tier.t, self.n_coefs), PAD_VALUE,
-                        device=self.device)
+                        device=device)
         db[: a - lo].copy_(torch.from_numpy(tier.matrix[lo:a]))
         if dead:
             db[dead] = PAD_VALUE
-        frames = torch.arange(tier.t, device=self.device)
+        frames = torch.arange(tier.t, device=device)
         mask = frames[None, :] < torch.from_numpy(n_frames).to(
-            self.device)[:, None]
+            device)[:, None]
         return db, mask
 
     def _mask_off_rows(self, old: TierView, rows: set[int]) -> TierView:
@@ -640,9 +805,22 @@ class FingerprintStore:
         build's. The seqs, context ids and segment rows carry over, as in
         the JAX store: a dead row cannot vote (a deleted auto-split audio's
         group stays in ``segments`` until an extension or a full build
-        drops it)."""
+        drops it). A meshed view masks off each shard that holds one of
+        the rows; the others keep their view objects."""
+        if old.shards:
+            per = self.shard_rows(old)
+            return dataclasses.replace(
+                old, dead_rows=old.dead_rows | frozenset(rows),
+                gen=next(_view_gens),
+                shards=tuple(
+                    s._replace(view=self._mask_off_rows(s.view, local))
+                    if local else s
+                    for s in old.shards
+                    for local in [{r - s.index * per for r in rows
+                                   if 0 <= r - s.index * per < per}]),
+            )
         idx = torch.tensor(sorted(rows), dtype=torch.int64,
-                           device=self.device)
+                           device=old.db.device)
 
         def far(m: torch.Tensor) -> torch.Tensor:
             value = torch.inf if m.is_floating_point() else BOUND_FAR
@@ -664,6 +842,7 @@ class FingerprintStore:
             n_audios=old.n_audios, entries=old.entries,
             dead_rows=old.dead_rows | frozenset(rows),
             row_frames=old.row_frames, segments=old.segments,
+            seg_ext=old.seg_ext, seg_orphans=old.seg_orphans,
             value_map=None if old.value_map is None else far(old.value_map),
             value_map_q=(None if old.value_map_q is None
                          else far(old.value_map_q)),
@@ -675,23 +854,44 @@ class FingerprintStore:
             seq_dev=old.seq_dev, ctx_dev=old.ctx_dev, seg_dev=old.seg_dev,
         )
 
-    def _extend_view(self, tier: _Tier, old: TierView, a: int) -> TierView:
+    def _extend_view(self, tier: _Tier, old: TierView, a: int,
+                     base: int = 0, per: int | None = None) -> TierView:
         """``old`` with the tier's rows ``[old.n_audios, a)`` appended, as a
         new view: only those rows cross host to device, and each derived
         tensor the old view carries gets the new rows' part built alone
         (every build is per row) and written into a copy (``old``'s tensors
         are never written: a search in flight keeps its catalog). A row
-        appended and tombstoned since the last build arrives dead."""
+        appended and tombstoned since the last build arrives dead.
+
+        ``old`` may be a part of a view: the shard holding the tier's rows
+        ``[base, base + per)``, in which ``a`` ends at the shard's edge. A
+        meshed view extends each shard that gains rows; the others keep
+        their view objects."""
+        if old.shards:
+            per = self.shard_rows(old)
+            shards = tuple(
+                s._replace(view=self._extend_view(tier, s.view, a,
+                                                  s.index * per, per))
+                if min(a - s.index * per, per) > s.view.n_audios else s
+                for s in old.shards)
+            seq_dev, ctx_dev = self._extend_keys(tier, old, a, 0)
+            return self._mesh_view(tier, old.padded_rows, shards,
+                                   seq_dev=seq_dev, ctx_dev=ctx_dev)
+        end = a if per is None else min(a, base + per)
         lo = old.n_audios
-        db_rows, mask_rows = self._host_rows(tier, lo, a)
+        dev = old.db.device
+        db_rows, mask_rows = self._host_rows(tier, base + lo, end,
+                                             device=dev)
         # segments are added under the store lock, so an auto-split audio's
-        # rows lie all inside [lo, a) or all before lo
-        segments = tuple(tuple(r) for r in tier.uuid_rows.values())
+        # rows lie all among the new rows or all before them
+        segments, ext, orphans = self._shard_segments(tier, base, per, dev)
         value_map = value_map_q = None
         if old.value_map is not None:
             vm_rows = _combine_segment_rows(
                 build_value_map(db_rows[..., 0], mask_rows),
                 [tuple(r - lo for r in g) for g in segments if g[0] >= lo],
+                [(h - lo, row) for h, row in ext if h >= lo],
+                [r - lo for r in orphans if r >= lo],
             )
             value_map = _with_rows(old.value_map, lo, vm_rows)
             if old.value_map_q is not None:
@@ -723,24 +923,36 @@ class FingerprintStore:
                 pos=_with_rows(index.pos, lo, part.pos),
                 n_live=_with_rows(index.n_live, lo, part.n_live),
             )
-        seq_dev = ctx_dev = None
-        if old.seq_dev is not None:
-            seq_dev = _with_rows(old.seq_dev, lo, torch.tensor(
-                [e.seq for e in tier.entries[lo:a]], dtype=torch.int64))
-        if old.ctx_dev is not None:
-            ctx_dev = _with_rows(old.ctx_dev, lo, torch.tensor(
-                [-1 if lo + i in tier.dead else self._ctx_id_alloc(e.context)
-                 for i, e in enumerate(tier.entries[lo:a])],
-                dtype=torch.int32))
+        seq_dev, ctx_dev = self._extend_keys(tier, old, end, base)
         return TierView(
             tier_frames=tier.t, db=_with_rows(old.db, lo, db_rows),
-            mask=_with_rows(old.mask, lo, mask_rows), n_audios=a,
-            entries=list(tier.entries), dead_rows=frozenset(tier.dead),
-            row_frames=tuple(tier.row_frames), segments=segments,
+            mask=_with_rows(old.mask, lo, mask_rows), n_audios=end - base,
+            entries=tier.entries[base:end],
+            dead_rows=frozenset(r - base for r in tier.dead
+                                if base <= r < end),
+            row_frames=tuple(tier.row_frames[base:end]), segments=segments,
+            seg_ext=ext, seg_orphans=orphans,
             value_map=value_map, value_map_q=value_map_q,
             bound_maps=bound_maps, match_index=index, seq_dev=seq_dev,
             ctx_dev=ctx_dev,
         )
+
+    def _extend_keys(self, tier: _Tier, old: TierView, end: int,
+                     base: int) -> tuple:
+        """``old``'s insertion seqs and context ids (those it carries) with
+        the rows ``[base + old.n_audios, end)`` appended."""
+        lo = old.n_audios
+        new = range(base + lo, end)
+        seq_dev = ctx_dev = None
+        if old.seq_dev is not None:
+            seq_dev = _with_rows(old.seq_dev, lo, torch.tensor(
+                [tier.entries[r].seq for r in new], dtype=torch.int64))
+        if old.ctx_dev is not None:
+            ctx_dev = _with_rows(old.ctx_dev, lo, torch.tensor(
+                [-1 if r in tier.dead
+                 else self._ctx_id_alloc(tier.entries[r].context)
+                 for r in new], dtype=torch.int32))
+        return seq_dev, ctx_dev
 
     def value_map_for(self, view: TierView) -> torch.Tensor:
         """Lattice distance map ``[A_pad, K]`` of one view, built on the
@@ -749,7 +961,9 @@ class FingerprintStore:
         with self._lock:
             if view.value_map is None:
                 vm = build_value_map(view.db[..., 0], view.mask)
-                view.value_map = _combine_segment_rows(vm, view.segments)
+                view.value_map = _combine_segment_rows(
+                    vm, view.segments, view.seg_ext, view.seg_orphans,
+                    view.dead_rows)
             return view.value_map
 
     def value_map_q_for(self, view: TierView) -> torch.Tensor:
@@ -793,10 +1007,10 @@ class FingerprintStore:
         int64 max) — the multi-view D5 tiebreak key."""
         with self._lock:
             if view.seq_dev is None:
-                seqs = np.full(view.db.shape[0], np.iinfo(np.int64).max,
-                               np.int64)
+                seqs = np.full(view.rows, np.iinfo(np.int64).max, np.int64)
                 seqs[: view.n_audios] = [e.seq for e in view.entries]
-                view.seq_dev = torch.from_numpy(seqs).to(self.device)
+                view.seq_dev = torch.from_numpy(seqs).to(_device_of(
+                    view, self.device))
             return view.seq_dev
 
     def segment_rows_for(self, view: TierView) -> tuple:
@@ -807,8 +1021,8 @@ class FingerprintStore:
             if view.seg_dev is None:
                 pairs = [(r, g[0]) for g in view.segments for r in g[1:]]
                 idx = torch.tensor(pairs, dtype=torch.int64).reshape(-1, 2)
-                view.seg_dev = (idx[:, 0].to(self.device),
-                                idx[:, 1].to(self.device))
+                dev = _device_of(view, self.device)
+                view.seg_dev = (idx[:, 0].to(dev), idx[:, 1].to(dev))
             return view.seg_dev
 
     def ctx_id_for(self, context: str) -> int:
@@ -828,13 +1042,14 @@ class FingerprintStore:
         the context filter's keep key."""
         with self._lock:
             if view.ctx_dev is None:
-                ids = np.full(view.db.shape[0], -1, np.int32)
+                ids = np.full(view.rows, -1, np.int32)
                 ids[: view.n_audios] = [
                     -1 if i in view.dead_rows
                     else self._ctx_id_alloc(e.context)
                     for i, e in enumerate(view.entries)
                 ]
-                view.ctx_dev = torch.from_numpy(ids).to(self.device)
+                view.ctx_dev = torch.from_numpy(ids).to(_device_of(
+                    view, self.device))
             return view.ctx_dev
 
     def host_db(self) -> tuple[np.ndarray, np.ndarray]:
@@ -987,12 +1202,14 @@ class FingerprintStore:
     @staticmethod
     def load(
         directory: str, n_coefs: int = DEF_N_COEFS, coef_weights=None,
-        device: torch.device | str = "cuda",
+        device: torch.device | str = "cuda", mesh=None,
     ) -> "FingerprintStore":
         """Restore from a checkpoint; an empty store when none exists. A
         corrupt current generation falls back to ``.bak``; when generations
-        exist but none is readable, raises :class:`CheckpointUnreadable`."""
-        device = resolve_device(device)
+        exist but none is readable, raises :class:`CheckpointUnreadable`.
+        ``mesh``: shard the views on its ``db`` axis (the store's device is
+        then the mesh's home device)."""
+        device = mesh.home if mesh is not None else resolve_device(device)
         errors: list[str] = []
         for suffix in ("", ".bak"):
             cat_path = os.path.join(directory, CATALOG_FILE + suffix)
@@ -1000,7 +1217,8 @@ class FingerprintStore:
                 continue
             try:
                 loaded = FingerprintStore._load_catalog(
-                    directory, cat_path, suffix, n_coefs, coef_weights, device
+                    directory, cat_path, suffix, n_coefs, coef_weights, device,
+                    mesh,
                 )
                 loaded._seen_gen = loaded._restored_gen
                 if suffix:
@@ -1027,7 +1245,7 @@ class FingerprintStore:
                 f"checkpoint in {directory!r} exists but no generation is "
                 f"readable ({'; '.join(errors)}); refusing to start empty"
             )
-        return FingerprintStore(n_coefs, coef_weights, device)
+        return FingerprintStore(n_coefs, coef_weights, device, mesh)
 
     @staticmethod
     def read_catalog_metadata(directory: str) -> dict | None:
@@ -1066,9 +1284,9 @@ class FingerprintStore:
 
     @staticmethod
     def _load_catalog(
-        directory, cat_path, suffix, n_coefs, coef_weights, device
+        directory, cat_path, suffix, n_coefs, coef_weights, device, mesh=None
     ) -> "FingerprintStore":
-        store = FingerprintStore(n_coefs, coef_weights, device)
+        store = FingerprintStore(n_coefs, coef_weights, device, mesh)
         with open(cat_path) as f:
             catalog = json.load(f)
         version = catalog.get("version")
