@@ -25,7 +25,13 @@ in one tick, a continuous channel, a hangup — each TIR* held to
 ``search_pcm_batch`` on the same windows; the admin plane, with ranked
 top-5 held to ``search_pcm_topk`` and to a numpy brute-force ranking; a
 read-only replica engine following the owner's checkpoint by one
-generation; and (``[cli]``) the command line in subprocesses.
+generation; ``[soak]``: the soak tool's 128 real-time channels for 60 s
+against a copy of the catalog with the live admin mutator, every window
+checked, memory flat, the card's busy share from the profiler; and
+(``[cli]``, ``[tools]``) the command line, the accuracy and margin studies
+and the quickstart in subprocesses. ``[catalog]`` also restores a
+hand-written version-2 checkpoint of the catalog's first 1,024 tracks,
+bitwise equal to their version-4 restore.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
 the main path, its error against its twin, its time, its twin's, and its
@@ -88,6 +94,19 @@ WINDOW = 3 * SR  # the dialplan's default duration, 3000 ms
 PCM_OP = SR // 50  # one 20 ms frame per pcm op, as a PBX delivers them
 SERVE_ALIGNED = {"coefs": 2, "trunc_coef1": False, "aligned": True,
                  "tolerance": STRICT_TOL}
+# The [soak] phase: the soak tool's fleet (tools/soak.py: 16 tones in context
+# "m", strict bag votes at tol 0.01) against the 10,000-track catalog, real
+# time, with the live admin mutator; the device's busy share from two
+# profiler windows in the middle of the fleet's run
+SOAK_CHANNELS = 128
+SOAK_S = 60.0
+SOAK_WINDOW_MS, SOAK_HOP_MS = 3000, 1500
+SOAK_MUTATE_PERIOD = 10.0
+SOAK_PROFILE_AT = (15.0, 38.0)  # s after the fleet starts
+SOAK_PROFILE_S = 6.0
+# A v2 (pre-segment) checkpoint of the catalog's first tracks, written by
+# hand, restored in [catalog] and held to the v4 restore of the same tracks
+N_LEGACY = 1024
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
 # FP32 outside the tensor cores, int8 on the tensor cores. Each kernel's
 # bound_ms is the larger of its bytes and its operations over these.
@@ -3578,6 +3597,345 @@ def scan_entries() -> list[dict]:
     ]
 
 
+def phase_legacy(device, eng, tmp: str) -> None:
+    """Write the catalog's first N_LEGACY tracks as a version-2 checkpoint
+    (one ``tier_<t>`` matrix per tier in ``fingerprints.npz``, as the JAX
+    package's v2 saves laid it out) and as a version-4 one (a store of the
+    same tracks saved), restore both on the card, and hold the legacy
+    restore's entries and every view tensor bitwise to the v4 restore's."""
+    import torch
+
+    from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
+    from tiresias_tpu_torch.store.fingerprint_store import (
+        FingerprintStore,
+        tier_for,
+    )
+
+    src = eng.store
+    entries = src.iter_entries()[:N_LEGACY]
+    fps = [src.get_fingerprint(e.uuid) for e in entries]
+    v2, v4 = os.path.join(tmp, "legacy_v2"), os.path.join(tmp, "legacy_v4")
+    os.makedirs(v2)
+    with open(os.path.join(v2, "catalog.json"), "w") as f:
+        json.dump({"version": 2, "n_coefs": src.n_coefs,
+                   "contexts": dict(src.contexts),
+                   "entries": [e.to_dict() for e in entries]}, f)
+    rows: dict = {}
+    for e, fp in zip(entries, fps):
+        rows.setdefault(tier_for(e.n_frames), []).append(fp)
+    arrays = {}
+    for t, fs in rows.items():
+        m = np.full((len(fs), t, src.n_coefs), PAD_VALUE, np.float32)
+        for i, fp in enumerate(fs):
+            m[i, : fp.shape[0]] = fp
+        arrays[f"tier_{t}"] = m
+    with open(os.path.join(v2, "fingerprints.npz"), "wb") as f:
+        np.savez_compressed(f, **arrays)
+    ref = FingerprintStore(src.n_coefs, src.coef_weights, device)
+    for c, d in src.contexts.items():
+        ref.create_context(c, d)
+    for e, fp in zip(entries, fps):
+        ref.add_audio(e.name, e.context, fp, e.hash, uuid=e.uuid)
+    ref.save(v4)
+    t0 = time.perf_counter()
+    legacy = FingerprintStore.load(v2, src.n_coefs, src.coef_weights,
+                                   device=device)
+    views = legacy.search_views()
+    torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
+    restored = FingerprintStore.load(v4, src.n_coefs, src.coef_weights,
+                                     device=device)
+
+    def key(store):
+        return [(e.uuid, e.name, e.context, e.hash, e.n_frames, e.seq)
+                for e in store.entries]
+
+    if key(legacy) != key(restored) or len(entries) != N_LEGACY:
+        fail("[catalog] the v2 restore's entries differ from the v4 one's")
+    want = restored.search_views()
+    if [v.tier_frames for v in views] != [v.tier_frames for v in want]:
+        fail("[catalog] the v2 restore's tiers differ from the v4 one's")
+    n_tensors = 0
+    for store, vs in ((legacy, views), (restored, want)):
+        for v in vs:  # every derived tensor, built on the card
+            store.value_map_q_for(v)
+            store.bound_maps_for(v, 2)
+            store.match_index_for(v)
+            store.seq_for(v)
+            store.ctx_ids_for(v)
+    for a, b in zip(views, want):
+        ta, tb = a.tensors(), b.tensors()
+        if ta.keys() != tb.keys():
+            fail(f"[catalog] v2/v4 view tensors {sorted(ta)} != {sorted(tb)}")
+        for name in ta:
+            x, y = ta[name], tb[name]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if x.shape != y.shape or not torch.equal(x, y):
+                fail(f"[catalog] the v2 restore's {name} differs from the "
+                     f"v4 restore's")
+            n_tensors += 1
+    say(f"[catalog] legacy v2 checkpoint of {N_LEGACY} tracks (written by "
+        f"hand: catalog + fingerprints.npz) restored on the card in "
+        f"{load_s:.3f} s, views built: entries and {n_tensors} view tensors "
+        f"(db, mask, value maps, bound maps, index, seqs, context ids) "
+        f"bitwise equal to the v4 restore of the same tracks")
+
+
+def kernel_busy(path: str, wall_s: float) -> dict:
+    """Busy share of the card over a profiler window from its Chrome trace:
+    the union of the CUDA kernel intervals over the window's wall time
+    (memcpy and memset intervals reported apart)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+
+    def union(cat):
+        spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                       if e.get("cat") == cat and "ts" in e)
+        total, end = 0.0, None
+        for lo, hi in spans:
+            if end is None or lo > end:
+                total += hi - lo
+                end = hi
+            elif hi > end:
+                total += hi - end
+                end = hi
+        return len(spans), total, (spans[-1][1] - spans[0][0]) if spans else 0
+
+    n_k, busy_us, span_us = union("kernel")
+    n_m, copy_us, _ = union("gpu_memcpy")
+    return {"wall_s": wall_s, "kernels": n_k, "busy_ms": busy_us / 1e3,
+            "kernel_span_ms": span_us / 1e3,
+            "busy_share": busy_us / (wall_s * 1e6), "memcpys": n_m,
+            "memcpy_ms": copy_us / 1e3, "clock": "profiler"}
+
+
+def profile_window(seconds: float) -> dict:
+    """One torch.profiler window of ``seconds`` over every thread's CUDA
+    work (CUPTI records the whole process), read by :func:`kernel_busy`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        return kernel_busy(path, wall)
+    finally:
+        os.unlink(path)
+
+
+def phase_soak(device, cfg, tmp: str, card: str) -> dict:
+    """The soak tool's fleet (``tiresias_tpu_torch.tools.soak.run_soak``)
+    against a copy of the 10,000-track checkpoint restored under the soak's
+    MatchConfig (strict bag, coefs 2, tol 0.01) with the 16 tones added in
+    context "m": 128 real-time channels, 3 s windows every 1.5 s, the live
+    admin mutator on context "mut" every 10 s, for 60 s. Fails unless every
+    window is correct, with no errors, at least 4 mutations and a flat
+    memory trend; prints the sustained rate, ``search.match`` per pass, the
+    card's busy share from two profiler windows, and each kernel's launches
+    during the fleet's run."""
+    import threading
+
+    import torch
+
+    from tiresias_tpu_torch.api import Tiresias
+    from tiresias_tpu_torch.config import TiresiasConfig
+    from tiresias_tpu_torch.tools import soak
+    from tiresias_tpu_torch.utils import build
+
+    root = os.path.join(tmp, "soak")
+    shutil.copytree(os.path.join(cfg.expanded_data_dir, "checkpoint"),
+                    os.path.join(root, "checkpoint"))
+    eng = Tiresias(TiresiasConfig(match=soak.SOAK_MATCH, data_dir=root),
+                   device=device)
+    n_catalog = len(eng.store)
+    soak.add_tones(eng)
+    mut = os.path.join(tmp, "soak_mut")
+    os.makedirs(mut)
+    windows: list = []
+    started, got = {}, {}
+    fleet_started = threading.Event()
+
+    def on_start():
+        torch.cuda.synchronize(device)
+        build.reset_launch_counts()  # --- the soak's fleet starts here ---
+        started["t"] = time.monotonic()
+        fleet_started.set()
+
+    def drive():
+        try:
+            got["out"] = soak.run_soak(
+                eng, SOAK_CHANNELS, SOAK_S, SOAK_WINDOW_MS, SOAK_HOP_MS,
+                "l16", mutate_dir=mut, mutate_period=SOAK_MUTATE_PERIOD,
+                on_fleet_start=on_start,
+            )
+        except BaseException as exc:  # noqa: BLE001 - failed below
+            got["error"] = exc
+
+    t0 = time.perf_counter()
+    # the soak runs on a thread of its own: the profiler is driven from
+    # this (the main) thread, where its CUPTI client was registered; it
+    # records every thread's kernels
+    runner = threading.Thread(target=drive, daemon=True)
+    runner.start()
+    while not fleet_started.wait(1.0):
+        if not runner.is_alive():
+            fail(f"[soak] the soak did not start: {got.get('error')!r}")
+    for at in SOAK_PROFILE_AT:
+        delay = started["t"] + at - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        try:
+            windows.append(profile_window(SOAK_PROFILE_S))
+        except Exception as exc:  # noqa: BLE001 - reported, not fatal
+            windows.append({"error": repr(exc)})
+    runner.join(SOAK_S + 400)
+    if "out" not in got:
+        fail(f"[soak] the soak failed: {got.get('error')!r}")
+    out = got["out"]
+    torch.cuda.synchronize(device)
+    launches = dict(build.LAUNCHES)  # --- and ends here ---
+    say(f"[soak] {out['summary']} [{card}]")
+    say(f"[soak] {out['mem_line']} [{card}]")
+    say(f"[soak] catalog {n_catalog} tracks + 16 tones, strict bag votes "
+        f"(coefs 2, tol 0.01, no truncation); sustained "
+        f"{out['rate']:.3f} windows/s against the ideal "
+        f"{SOAK_CHANNELS / (SOAK_HOP_MS / 1000):.3f} "
+        f"({SOAK_CHANNELS} channels / {SOAK_HOP_MS / 1000} s hop), "
+        f"{out['elapsed']:.1f} s, mutator cycles "
+        f"{out.get('mutator_cycles', 0)} [{card}]")
+    match_ms = np.asarray(out["match_ms"])
+    if match_ms.size:
+        say(f"[soak] search.match per score pass: {match_ms.size} passes, "
+            f"{out['windows'] / match_ms.size:.2f} windows per pass, p50 "
+            f"{np.percentile(match_ms, 50):.3f} ms, p99 "
+            f"{np.percentile(match_ms, 99):.3f} ms, max "
+            f"{match_ms.max():.3f} ms [{card}]")
+    for i, w in enumerate(windows):
+        if "error" in w:
+            say(f"[soak] profiler window {i}: {w['error']} (busy share not "
+                f"measured) [{card}]")
+            continue
+        say(f"[soak] device busy share, profiler window {i} "
+            f"({w['wall_s']:.3f} s wall at +{SOAK_PROFILE_AT[i]:.0f} s, "
+            f"clock {w['clock']}): {w['kernels']} kernel records, busy "
+            f"{w['busy_ms']:.3f} ms = {100 * w['busy_share']:.3f}% of the "
+            f"window (idle {100 * (1 - w['busy_share']):.3f}%), kernel span "
+            f"{w['kernel_span_ms']:.1f} ms; {w['memcpys']} memcpy records, "
+            f"{w['memcpy_ms']:.3f} ms [{card}]")
+    fired = {k: v for k, v in launches.items() if v}
+    say(f"[launches] soak (the fleet's run, warm-up excluded): {fired} "
+        f"[{card}]")
+    if out["misses"]:
+        # diagnose before failing: what beat the tone, and by how much
+        for want, status, name, votes, frames in out["misses"][:5]:
+            say(f"[soak] MISS want {want}: {status} {name} {votes}/{frames}")
+        clip = int(out["misses"][0][0][4:])
+        window = soak.tone_i16(clip)[: SR * SOAK_WINDOW_MS // 1000]
+        ranked = eng.search_pcm_topk(None, window, SR, k=3)
+        say(f"[soak] {out['misses'][0][0]}'s window ranked: "
+            f"{[(r.name, r.match_count, r.frame_count) for r in ranked]}")
+    eng.close()
+    say(f"[soak] phase {time.perf_counter() - t0:.1f} s [{card}]")
+    if out["windows"] <= 0 or out["correct"] != out["windows"]:
+        fail(f"[soak] {out['correct']}/{out['windows']} windows correct")
+    if out["errors"]:
+        fail(f"[soak] {out['errors']} errors")
+    if out["mutations"] < 4:
+        fail(f"[soak] only {out['mutations']} live mutations")
+    if not out["mem_flat"]:
+        fail(f"[soak] memory grew: {out['mem_line']}")
+    for name in ("mfcc_rows", "match_votes"):
+        if launches[name] <= 0:
+            fail(f"[soak] the fleet's run never launched {name}")
+    return {"windows": out["windows"], "pct": out["pct"],
+            "rate": out["rate"], "errors": out["errors"],
+            "mutations": out["mutations"], "mem_line": out["mem_line"],
+            "match_p50_ms": (float(np.percentile(match_ms, 50))
+                             if match_ms.size else None),
+            "match_p99_ms": (float(np.percentile(match_ms, 99))
+                             if match_ms.size else None),
+            "passes": int(match_ms.size), "busy": windows,
+            "launches": launches}
+
+
+# runs a module or a script as ``python -m`` / ``python path`` does, then
+# names every module of jax or the JAX package the run imported
+_TOOL_RUNNER = (
+    "import runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "rc = 0\n"
+    "try:\n"
+    "    if sys.argv[0].endswith('.py'):\n"
+    "        runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "    else:\n"
+    "        runpy.run_module(sys.argv[0], run_name='__main__',"
+    " alter_sys=True)\n"
+    "except SystemExit as exc:\n"
+    "    rc = exc.code or 0\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'tiresias_tpu'))\n"
+    "print('IMPORTED', bad, flush=True)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def phase_tools(card: str) -> dict:
+    """The port's tools and quickstart on the card, each in a subprocess of
+    its own with its own timeout: the accuracy study at its defaults (200
+    clips, 50 queries), the margin study over 10,240 tracks, and
+    examples/quickstart_torch.py. Each must exit 0 without importing jax or
+    the JAX package; prints each table's top-1 rows."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    runs = {
+        "accuracy_study": (["tiresias_tpu_torch.tools.accuracy_study"], 300),
+        "margin_study": (["tiresias_tpu_torch.tools.margin_study",
+                          "--tracks", "10240"], 300),
+        "quickstart": ([os.path.join(here, "examples",
+                                     "quickstart_torch.py")], 120),
+    }
+    out = {}
+    for name, (argv, timeout) in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _TOOL_RUNNER, *argv], env=env,
+            capture_output=True, text=True, timeout=timeout, cwd=here,
+        )
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"[tools] {name} exited {proc.returncode}: "
+                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        if "IMPORTED []" not in proc.stdout:
+            fail(f"[tools] {name} imported jax or the JAX package: "
+                 f"{proc.stdout.splitlines()[-1:]}")
+        lines = proc.stdout.splitlines()
+        if name == "accuracy_study":
+            rows = [l for l in lines if " exact " in l]
+            if len(rows) != 13:
+                fail(f"[tools] accuracy_study printed {len(rows)} rows")
+        elif name == "margin_study":
+            rows = [l.strip() for l in lines
+                    if "correct-top1" in l or "corpus ready" in l]
+            if len(rows) != 8:
+                fail(f"[tools] margin_study printed {rows}")
+        else:
+            rows = [l for l in lines if l.startswith(("file search",
+                                                     "pcm search"))]
+            if not rows or "FOUND prompt2.wav" not in rows[0]:
+                fail(f"[tools] quickstart: {lines}")
+        for row in rows:
+            say(f"[tools] {name}: {row.rstrip()}")
+        say(f"[tools] {name}: exit 0 in {dt:.1f} s, jax not imported "
+            f"[{card}]")
+        out[name] = {"s": dt, "rows": rows}
+    return out
+
+
 def run(device) -> dict:
     import torch
 
@@ -3614,6 +3972,7 @@ def run(device) -> dict:
         build.reset_launch_counts()  # --- the main path starts here ---
         rate = phase_ingest(device, cfg, media)
         eng, excerpts = phase_catalog(device, cfg, starts)
+        phase_legacy(device, eng, tmp)
         took("[ingest] and [catalog]")
         queries = [excerpts[t] for t in starts]
         queries += [np.zeros(EXCERPT, np.int16)] * (N_NOISE // 2)
@@ -3690,11 +4049,17 @@ def run(device) -> dict:
         eng.close()
         del eng
         torch.cuda.empty_cache()
+        soak = phase_soak(device, cfg, tmp, card["card"])
+        soak_launches = soak.pop("launches")
+        torch.cuda.empty_cache()
+        took("[soak]")
         prefilter = phase_prefilter(device, tmp)
         mutate["100k"] = prefilter.pop("mutate")
         took("[prefilter] and [mutate] 100k")
         phase_cli(device, tmp)
         took("[cli]")
+        tools = phase_tools(card["card"])
+        took("[tools]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels += scan_entries()
@@ -3702,13 +4067,15 @@ def run(device) -> dict:
         k["launches"] = launches[k["name"]]
         k["launches_serve"] = serve_launches[k["name"]]
         k["launches_shard"] = shard_launches[k["name"]]
+        k["launches_soak"] = soak_launches[k["name"]]
     clocks = {c: CLOCKS.count(c) for c in ("profiler", "events")}
     say(f"[clocks] device_ms calls by clock: {clocks}")
     return {"kernels": kernels, "card": card["card"], "ingest_rate": rate,
             "p50": p50, "strict_p50": strict_p50,
             "summary": {"search": search_info, "strict": strict_info,
                         "library_ms": library, "prefilter": prefilter,
-                        "mutate": mutate, "shard": shard,
+                        "mutate": mutate, "shard": shard, "soak": soak,
+                        "tools": {k: v["s"] for k, v in tools.items()},
                         "bound_scan": SCAN, "clocks": clocks}}
 
 

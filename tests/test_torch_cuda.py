@@ -1091,3 +1091,112 @@ def test_sharded_prefilters_on_card_equal_unsharded(dev, aligned):
     lok = lcerts.all(dim=1)
     assert torch.equal(lvotes.max(dim=1).values[lok],
                        lfull.max(dim=1).values[lok])
+
+
+def _legacy_layout(directory, version: int, entries: list, fps: list,
+                   n_coefs: int) -> None:
+    """A v1 (one dense ``matrix``) or v2 (a ``tier_<t>`` matrix per tier)
+    checkpoint written by hand, as the JAX package's old saves laid it
+    out."""
+    import json
+
+    from tiresias_tpu_torch.store.fingerprint_store import tier_for
+
+    with open(os.path.join(directory, "catalog.json"), "w") as f:
+        json.dump({"version": version, "n_coefs": n_coefs,
+                   "contexts": {"a": "", "b": ""}, "entries": entries}, f)
+    if version == 1:
+        t_max = max(e["n_frames"] for e in entries)
+        m = np.full((len(entries), t_max, n_coefs), PAD_VALUE, np.float32)
+        for i, fp in enumerate(fps):
+            m[i, : fp.shape[0]] = fp
+        arrays = {"matrix": m}
+    else:
+        rows: dict = {}
+        for e, fp in zip(entries, fps):
+            rows.setdefault(tier_for(e["n_frames"]), []).append(fp)
+        arrays = {}
+        for t, fs in rows.items():
+            m = np.full((len(fs), t, n_coefs), PAD_VALUE, np.float32)
+            for i, fp in enumerate(fs):
+                m[i, : fp.shape[0]] = fp
+            arrays[f"tier_{t}"] = m
+    with open(os.path.join(directory, "fingerprints.npz"), "wb") as f:
+        np.savez_compressed(f, **arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2])
+def test_legacy_restore_on_card_equals_v4(dev, tmp_path, version):
+    """A v1/v2 checkpoint restored on cuda:0: entries and every view tensor
+    (maps, bound maps, K4/K5's index built on the card) bitwise equal to
+    the v4 restore of the same audios, and the kernels' votes on both."""
+    from tiresias_tpu_torch.store.fingerprint_store import FingerprintStore
+
+    rng = np.random.default_rng(40 + version)
+    lengths = [int(n) for n in rng.integers(20, 900, 300)]
+    entries = [{"uuid": f"u{i}", "name": f"n{i}", "context": "ab"[i % 2],
+                "hash": f"h{i}", "n_frames": n}
+               for i, n in enumerate(lengths)]
+    fps = [rng.normal(-25.0, 15.0, (n, 2)).astype(np.float32)
+           for n in lengths]
+    legacy, v4 = tmp_path / "legacy", tmp_path / "v4"
+    legacy.mkdir()
+    _legacy_layout(str(legacy), version, entries, fps, 2)
+    ref = FingerprintStore(2, device=dev)
+    for c in ("a", "b"):
+        ref.create_context(c, "")
+    for e, fp in zip(entries, fps):
+        ref.add_audio(e["name"], e["context"], fp, e["hash"], uuid=e["uuid"])
+    ref.save(str(v4))
+    got = FingerprintStore.load(str(legacy), 2, device=dev)
+    want = FingerprintStore.load(str(v4), 2, device=dev)
+    assert [(e.uuid, e.seq) for e in got.entries] == [
+        (e.uuid, e.seq) for e in want.entries]
+    gviews, wviews = got.search_views(), want.search_views()
+    assert [v.tier_frames for v in gviews] == [v.tier_frames for v in wviews]
+    q = torch.from_numpy(rng.normal(-25.0, 15.0, (4, 64, 2)).astype(
+        np.float32)).to(dev)
+    qq, act, use2 = tm.prepare_query(q, np.full(4, 64), -1, -1, False)
+    for store, views in ((got, gviews), (want, wviews)):
+        for v in views:
+            store.value_map_q_for(v)
+            store.bound_maps_for(v, 2)
+            store.match_index_for(v)
+            store.seq_for(v)
+            store.ctx_ids_for(v)
+    for gv, wv in zip(gviews, wviews):
+        gt, wt = gv.tensors(), wv.tensors()
+        assert gt.keys() == wt.keys()
+        for name in gt:
+            x, y = gt[name], wt[name]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), (gv.tier_frames, name)
+        for vote in (tk.match_votes_fused, tk.match_votes_fused_aligned):
+            a = vote(gv.db, qq, act, use2, 0.5, 2,
+                     index=got.match_index_for(gv))
+            b = vote(wv.db, qq, act, use2, 0.5, 2,
+                     index=want.match_index_for(wv))
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_soak_on_card_with_mutator(dev):
+    """The soak tool on the card: 16 real-time channels for 10 s with the
+    live admin mutator; every window correct, no errors, flat memory."""
+    import tempfile
+
+    from tiresias_tpu_torch.tools import soak
+
+    eng = soak.build_engine("cuda")
+    try:
+        out = soak.run_soak(eng, channels=16, seconds=10.0,
+                            mutate_dir=tempfile.mkdtemp(prefix="tir_mut"),
+                            mutate_period=3.0)
+    finally:
+        eng.close()
+    assert out["windows"] > 0 and out["pct"] == 100.0, out["summary"]
+    assert out["errors"] == 0 and out["mutations"] >= 2, out["summary"]
+    assert out["mem_flat"], out["mem_line"]
+    assert out["match_ms"]

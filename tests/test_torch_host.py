@@ -35,7 +35,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources() -> list[str]:
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "examples", "quickstart_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "tiresias_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -196,6 +197,7 @@ def _entry_points(tmp_path):
     padded, _ = tmfcc.pad_frames_bucket([pcm], 256)
     from tiresias_tpu_torch import cli
     from tiresias_tpu_torch.serve.server import run_server
+    from tiresias_tpu_torch.tools import accuracy_study, margin_study, soak
     from tiresias_tpu_torch.utils.audio import write_wav
 
     conf = tmp_path / "t.conf"
@@ -231,6 +233,12 @@ def _entry_points(tmp_path):
             [pcm], 8000),
         "fingerprint_signals": lambda: tmfcc.fingerprint_signals([pcm], 8000),
         "fingerprint_signal": lambda: tmfcc.fingerprint_signal(pcm, 8000),
+        "tools.soak": lambda: soak.main(["--channels", "1"]),
+        "tools.soak.build_engine": soak.build_engine,
+        "tools.accuracy_study": lambda: accuracy_study.main(["2", "1"]),
+        "tools.margin_study": lambda: margin_study.main(["--tracks", "2"]),
+        "tools.margin_study --weighted": lambda: margin_study.main(
+            ["--weighted", "--tracks", "2"]),
     }
 
 
@@ -240,7 +248,9 @@ def _entry_points(tmp_path):
     "fingerprint_signals_async", "fingerprint_signals", "fingerprint_signal",
     "Tiresias.warmup", "run_server", "cli create", "cli search",
     "cli search --top", "cli remove audio", "cli warmup", "cli serve",
-    "cli serve --replica",
+    "cli serve --replica", "tools.soak", "tools.soak.build_engine",
+    "tools.accuracy_study", "tools.margin_study",
+    "tools.margin_study --weighted",
 ])
 def test_entry_point_defaults_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, an entry point called without ``device`` raises:

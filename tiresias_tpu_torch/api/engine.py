@@ -776,6 +776,7 @@ class Tiresias:
         n_frames: np.ndarray, tolerance: float, freq_ignore_low: int,
         freq_ignore_high: int, ctx_id: int | None, coefs: int,
         trunc_coef1: bool, aligned: bool, top: int = 1,
+        prefilter: bool = True,
     ):
         """The per-view vote computation every search entry point shares:
         returns ``votes_of(view) -> [B, A_pad] int32``. Lattice votes (K3')
@@ -788,7 +789,8 @@ class Tiresias:
         (PARITY.md D17/D19/D20) computes the votes instead: exact in every
         row that can reach the caller's top ``top`` (1; 2 for a margin
         search; k for a ranked listing) when every query certifies, and
-        otherwise the full scan above runs.
+        otherwise the full scan above runs. ``prefilter=False`` always
+        takes the full scan (every row's exact votes).
 
         On a mesh each cell computes its shard's votes for its slice of the
         batch and the blocks are gathered to ``[B, A_pad]`` in global row
@@ -814,7 +816,7 @@ class Tiresias:
         def votes_of(view) -> torch.Tensor:
             votes = None
             if dialplan:
-                if self._lattice_pf_ok(view, tolerance, top):
+                if prefilter and self._lattice_pf_ok(view, tolerance, top):
                     votes = self._lattice_prefiltered(
                         store, view, q0, valid, tolerance, band_lo, band_hi,
                         ctx_id, top,
@@ -830,7 +832,8 @@ class Tiresias:
                         valid, tolerance, band_lo, band_hi,
                     )
             else:
-                if self._strict_pf_ok(view, coefs, tolerance, top, aligned):
+                if prefilter and self._strict_pf_ok(view, coefs, tolerance,
+                                                    top, aligned):
                     votes = self._aligned_prefiltered(
                         store, view, q, active, use2, coefs, tolerance,
                         ctx_id, top, aligned,
@@ -851,6 +854,56 @@ class Tiresias:
             return votes
 
         return votes_of
+
+    def _compute_votes(
+        self,
+        context: str | None,
+        pcms: list[np.ndarray],
+        samplerate: int,
+        coefs: int | None,
+        tolerance: float | None,
+        freq_ignore_low: int,
+        freq_ignore_high: int,
+        filter_context: bool,
+        trunc_coef1: bool | None,
+        aligned: bool | None = None,
+        prefilter: bool = True,
+        wire_law: str | None = None,
+        prefilter_top: int = 1,
+    ) -> tuple[np.ndarray, list[AudioEntry], np.ndarray]:
+        """(votes ``[B, A]`` int32, view-ordered entries, n_frames ``[B]``)
+        on the host: every view's :meth:`_view_votes` cut to its audios and
+        concatenated, as the JAX engine's ``_compute_votes`` returns them.
+
+        ``prefilter=False`` takes the full scans (every audio's exact
+        votes, for top-k listings); ``prefilter_top`` widens a certificate
+        to an exact top-N (a margin needs a certified runner-up: a
+        candidate-only second best would understate it)."""
+        coefs, tolerance, lo, hi, trunc_coef1, aligned, _ = (
+            self._resolve_search(
+                coefs, tolerance, freq_ignore_low, freq_ignore_high,
+                trunc_coef1, aligned, 0.0,
+            )
+        )
+        store = self.store
+        ctx_id = self._ctx_filter_id(store, context, filter_context)
+        views = store.search_views()
+        with phase("search.match"), self._on_device():
+            qfp, n_frames = self._query_fingerprints(
+                pcms, samplerate, wire_law
+            )
+            votes_of = self._view_votes(
+                store, qfp, n_frames, tolerance, lo, hi, ctx_id, coefs,
+                trunc_coef1, aligned, top=prefilter_top, prefilter=prefilter,
+            )
+            with self._collectives():
+                parts = [votes_of(view)[:, : view.n_audios]
+                         for view in views]
+            votes = (torch.cat(parts, 1).to(torch.int32).cpu().numpy()
+                     if parts else np.zeros((len(pcms), 0), np.int32))
+        metrics.add("search.queries", len(pcms))
+        return votes, [e for v in views for e in v.entries], np.asarray(
+            n_frames)
 
     # ---- certified prefilters (PARITY.md D17/D19/D20) ----------------- #
 

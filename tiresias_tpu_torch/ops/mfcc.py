@@ -75,15 +75,16 @@ def mask_valid_samples(
 
 
 def fingerprint_padded_batch(
-    pcm: np.ndarray,
+    pcm: np.ndarray | torch.Tensor,
     samplerate: int,
     dsp: DspConfig | None = None,
     law: str | None = None,
     n_valid: np.ndarray | None = None,
     device: torch.device | str = "cuda",
 ) -> torch.Tensor:
-    """Fingerprint a pre-padded batch ``[B, S]`` (S a multiple of hop) ->
-    ``[B, F, n_coefs]`` float32 on ``device``.
+    """Fingerprint a pre-padded batch ``[B, S]`` (S a multiple of hop; a
+    numpy array, or a tensor already on the device) -> ``[B, F, n_coefs]``
+    float32 on ``device``.
 
     Long signals take K2 (framing inside the kernel); short ones, where
     padding the frame count to a whole row tile would waste more than 20%,

@@ -29,7 +29,10 @@ a 128-row bucket and compaction rebuild a view in full.
 The checkpoint is the JAX package's version-4 format — ``catalog.json``
 plus immutable per-tier ``.npy`` segment files, committed by an atomic
 catalog rename with the previous generation kept as ``.bak`` — so a
-checkpoint written by either package restores in the other.
+checkpoint written by either package restores in the other. Versions 1 and
+2 (one ``fingerprints.npz`` beside the catalog: a dense matrix in global
+insertion order, or one matrix per tier) load too, and the first save over
+them writes version 4, keeping the legacy ``.bak`` pair consistent.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import threading
 from typing import NamedTuple
 
@@ -63,7 +67,9 @@ from tiresias_tpu_torch.utils.device import resolve_device
 log = get_logger(__name__)
 
 CHECKPOINT_VERSION = 4
+READABLE_VERSIONS = (1, 2, 3, 4)
 CATALOG_FILE = "catalog.json"
+MATRIX_FILE = "fingerprints.npz"  # v1/v2 checkpoints (still loadable)
 SEGMENT_ROWS = 2048
 
 AUDIO_BUCKET = 128
@@ -171,8 +177,8 @@ def _read_catalog_gen(path: str) -> int:
 
 def _unreadable_version(version) -> str:
     return (
-        f"checkpoint version {version} is not readable here (3 and 4 are); "
-        "load and save it once with tiresias_tpu to upgrade"
+        f"checkpoint version {version!r} is not readable here "
+        f"(versions {', '.join(map(str, READABLE_VERSIONS))} are)"
     )
 
 
@@ -212,6 +218,10 @@ class _Tier:
         # at the old row count (incremental update), compaction drops it
         # below (full rebuild)
         self.view_clean_from = 0
+
+    @property
+    def n_live(self) -> int:
+        return len(self.entries) - len(self.dead)
 
     def ensure_capacity(self, n_rows: int) -> None:
         cap = self.matrix.shape[0]
@@ -608,6 +618,13 @@ class FingerprintStore:
 
     def __len__(self) -> int:
         return len(self.entries)
+
+    @property
+    def frame_cap(self) -> int:
+        """Largest live tier's frame capacity (0 when empty)."""
+        with self._lock:
+            return max((t for t, tier in self._tiers.items() if tier.n_live),
+                       default=0)
 
     # ---- device views ------------------------------------------------- #
 
@@ -1052,6 +1069,25 @@ class FingerprintStore:
                     view, self.device))
             return view.ctx_dev
 
+    def view_entries(self) -> list[AudioEntry]:
+        """Catalog snapshot in the concatenated view row order (tiers
+        ascending, row order within, dead rows included): result
+        attribution uses this, not the live catalog, since a concurrent
+        delete compacts rows and shifts indices."""
+        with self._lock:
+            return [e for v in self.search_views() for e in v.entries]
+
+    def context_filter(self, context: str | None) -> np.ndarray | None:
+        """Bool aligned with :meth:`view_entries` (the concatenated unpadded
+        vote columns) selecting a context's audios, or None for the
+        reference's scan-everything behavior (PARITY.md D7)."""
+        if context is None:
+            return None
+        with self._lock:
+            return np.array(
+                [e.context == context for e in self.view_entries()], dtype=bool
+            )
+
     def host_db(self) -> tuple[np.ndarray, np.ndarray]:
         """(db [A, T_max, C], mask [A, T_max]) dense numpy copy of the live
         rows in view order (tiers ascending, insertion order within)."""
@@ -1145,6 +1181,8 @@ class FingerprintStore:
                 f.flush()
                 os.fsync(f.fileno())
             if os.path.exists(cat_path):
+                if fresh:
+                    self._pair_legacy_backup(directory, cat_path)
                 if _readable_catalog(cat_path):
                     os.replace(cat_path, cat_path + ".bak")
                 else:
@@ -1168,6 +1206,38 @@ class FingerprintStore:
             self._seg_manifest = manifest
             self._save_dir = directory
         self._gc_segments(directory)
+
+    @staticmethod
+    def _pair_legacy_backup(directory: str, cat_path: str) -> None:
+        """Keep the ``.bak`` (catalog, matrix) pair consistent when the
+        first version-4 save rotates a v1/v2 catalog. Legacy saves rotated
+        ``catalog.json`` and ``fingerprints.npz`` together; a v4 save
+        rotates only the catalog, which would pair the newest legacy
+        catalog with the second-newest matrix. So the matrix the rotating
+        catalog references is copied (not moved: a crash mid-upgrade must
+        leave the current legacy pair intact) to ``.bak`` first. Runs only
+        on the first save into a directory."""
+        legacy = os.path.join(directory, MATRIX_FILE)
+        if not os.path.exists(legacy):
+            return
+        try:
+            with open(cat_path) as f:
+                old_version = json.load(f).get("version", 0)
+        except Exception:  # noqa: BLE001 - unreadable old catalog
+            return
+        if old_version not in (1, 2):
+            return
+        tmp = legacy + ".bak.tmp"
+        shutil.copyfile(legacy, tmp)
+        # the copied data must survive power loss before the rename
+        fd = os.open(tmp, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        except OSError:
+            pass
+        finally:
+            os.close(fd)
+        os.replace(tmp, legacy + ".bak")
 
     @staticmethod
     def _referenced_segments(cat_path: str) -> set[str]:
@@ -1262,7 +1332,7 @@ class FingerprintStore:
             try:
                 with open(cat_path) as f:
                     catalog = json.load(f)
-                if catalog.get("version") not in (3, 4):
+                if catalog.get("version") not in READABLE_VERSIONS:
                     raise CheckpointIncompatible(
                         _unreadable_version(catalog.get("version"))
                     )
@@ -1290,7 +1360,7 @@ class FingerprintStore:
         with open(cat_path) as f:
             catalog = json.load(f)
         version = catalog.get("version")
-        if version not in (3, 4):
+        if version not in READABLE_VERSIONS:
             raise CheckpointIncompatible(_unreadable_version(version))
         if int(catalog["n_coefs"]) != store.n_coefs:
             raise CheckpointIncompatible(
@@ -1306,6 +1376,12 @@ class FingerprintStore:
             )
         entries = [AudioEntry.from_dict(d) for d in catalog["entries"]]
         store.contexts = dict(catalog["contexts"])
+        if version in (1, 2):
+            store._load_legacy(
+                os.path.join(directory, MATRIX_FILE + suffix), version,
+                entries,
+            )
+            return store
         tiers: dict[int, np.ndarray] = {}
         for t_str, segs in catalog["tiers"].items():
             parts = []
@@ -1322,27 +1398,7 @@ class FingerprintStore:
                 else np.zeros((0, int(t_str), store.n_coefs), np.float32)
             )
         dead = {int(t): set(rows) for t, rows in catalog.get("dead", {}).items()}
-        cursors: dict[int, int] = {}
-
-        def next_row(t: int) -> int:
-            row = cursors.get(t, 0)
-            while row in dead.get(t, ()):
-                row += 1
-            if t not in tiers or row >= tiers[t].shape[0]:
-                raise ValueError("checkpoint catalog/matrix tier mismatch")
-            cursors[t] = row + 1
-            return row
-
-        for e in entries:
-            segs = split_frames(e.n_frames)
-            if len(segs) == 1:
-                t = tier_for(e.n_frames)
-                store._restore_entry(e, tiers[t][next_row(t), : e.n_frames])
-            else:
-                t = MAX_TIER_FRAMES
-                store._restore_entry(e, np.concatenate(
-                    [tiers[t][next_row(t), :n] for n in segs]
-                ))
+        store._walk_tiered(entries, tiers, dead)
         store._restored_gen = int(catalog.get("gen", 0))
         if suffix == "":
             # a current-generation restore extends its own manifest on the
@@ -1359,6 +1415,60 @@ class FingerprintStore:
                 d = dead.get(t)
                 tier.dirty_from = min(d) if d else len(tier.entries)
         return store
+
+    def _load_legacy(self, path: str, version: int,
+                     entries: list[AudioEntry]) -> None:
+        """Restore a v1/v2 catalog's fingerprints from its monolithic
+        ``fingerprints.npz``: v1 holds one dense matrix in global insertion
+        order, v2 one ``tier_<frames>`` matrix per tier in tier insertion
+        order. The store keeps no save directory, so its first save writes
+        every row as a version-4 checkpoint."""
+        with np.load(path) as data:
+            if version == 1:
+                matrix = data["matrix"].astype(np.float32)
+                if matrix.shape[0] != len(entries):
+                    # a torn generation (a crash between the two renames):
+                    # corruption, not incompatibility, so load falls back
+                    raise ValueError(
+                        "checkpoint catalog/matrix row count mismatch"
+                    )
+                for i, e in enumerate(entries):
+                    self._restore_entry(e, matrix[i, : e.n_frames])
+            else:
+                self._walk_tiered(entries, {
+                    int(k.split("_", 1)[1]): data[k].astype(np.float32)
+                    for k in data.files
+                })
+        self._dirty = True
+
+    def _walk_tiered(self, entries: list[AudioEntry],
+                     tiers: dict[int, np.ndarray], dead=None) -> None:
+        """Restore catalog ``entries`` whose fingerprints sit in per-tier
+        matrices ``tiers``, rows in tier insertion order; ``dead`` maps a
+        tier to its tombstoned rows (v4), skipped during the walk. An
+        auto-split audio takes consecutive rows of the top tier."""
+        dead = dead or {}
+        cursors: dict[int, int] = {}
+
+        def next_row(t: int) -> int:
+            row = cursors.get(t, 0)
+            while row in dead.get(t, ()):
+                row += 1
+            if t not in tiers or row >= tiers[t].shape[0]:
+                raise ValueError("checkpoint catalog/matrix tier mismatch")
+            cursors[t] = row + 1
+            return row
+
+        for e in entries:
+            segs = split_frames(e.n_frames)
+            if len(segs) == 1:
+                t = tier_for(e.n_frames)
+                self._restore_entry(e, tiers[t][next_row(t), : e.n_frames])
+            else:
+                t = MAX_TIER_FRAMES
+                self._restore_entry(e, np.concatenate(
+                    [tiers[t][next_row(t), :n] for n in segs]
+                ))
 
     def _restore_entry(self, entry: AudioEntry, fingerprint: np.ndarray) -> None:
         entry.seq = self._next_seq
@@ -1447,7 +1557,8 @@ def fsck_checkpoint(
     touching a serving process.
 
     Per generation ("current" and ".bak"): catalog parses, version is one
-    the loader reads (3 or 4), every manifest segment file exists with the exact shape/dtype
+    the loader reads (1 to 4), a v1/v2 generation's ``fingerprints.npz``
+    exists, every manifest segment file exists with the exact shape/dtype
     the catalog claims (header-only ``np.load(mmap_mode="r")`` — no data
     read), dead-row indices in range. Plus orphan detection: ``.npy``
     files no generation references (GC debris from a crash between
@@ -1494,7 +1605,7 @@ def fsck_checkpoint(
             entries=len(catalog.get("entries", [])),
             contexts=len(catalog.get("contexts", {})),
         )
-        if version not in (3, 4):
+        if version not in READABLE_VERSIONS:
             gen_report["errors"].append(_unreadable_version(version))
             continue
         cat_coefs = int(catalog.get("n_coefs", DEF_N_COEFS) or DEF_N_COEFS)
@@ -1504,6 +1615,15 @@ def fsck_checkpoint(
                 f"checkpoint has n_coefs={cat_coefs}, deployment config "
                 f"wants {n_coefs_gen} (a server startup would refuse)"
             )
+        if version in (1, 2):
+            # legacy monolithic layout: one npz next to the catalog
+            if not os.path.exists(
+                    os.path.join(directory, MATRIX_FILE + suffix)):
+                gen_report["errors"].append(
+                    f"legacy v{version} {MATRIX_FILE}{suffix} missing"
+                )
+            gen_report["ok"] = not gen_report["errors"]
+            continue
         tiers_report: dict = {}
         gen_report["tiers"] = tiers_report
         try:

@@ -41,12 +41,16 @@ def device_report(device: torch.device) -> dict:
     return {"platform": "cpu", "kind": "cpu", "count": 1}
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(arr: np.ndarray | torch.Tensor,
+              device: torch.device) -> torch.Tensor:
     """Host array → tensor on ``device``, keeping its dtype (int16 and uint8
     PCM ship unconverted). CUDA copies go through pinned memory with
     ``non_blocking=True`` so the host does not wait for kernels already
     queued on the stream (the ingest pipeline's one-batch-in-flight
-    overlap)."""
+    overlap). A tensor (e.g. a batch synthesized on the device) is moved
+    as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)

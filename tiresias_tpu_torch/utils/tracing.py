@@ -36,6 +36,11 @@ class Metrics:
         with self._lock:
             self.timings[name].append(seconds)
 
+    def clear(self, name: str) -> None:
+        """Drop a phase's latency records (a run that reads its own)."""
+        with self._lock:
+            self.timings.pop(name, None)
+
     def percentile(self, name: str, pct: float) -> float | None:
         with self._lock:
             vals = sorted(self.timings.get(name, ()))
