@@ -29,7 +29,10 @@ generation; ``[soak]``: the soak tool's 128 real-time channels for 60 s
 against a copy of the catalog with the live admin mutator, every window
 checked, memory flat, the card's busy share from the profiler; and
 (``[cli]``, ``[tools]``) the command line, the accuracy and margin studies
-and the quickstart in subprocesses. ``[catalog]`` also restores a
+and the quickstart in subprocesses; and (``[bench]``) the port's benchmark
+harness, ``python -m tiresias_tpu_torch.bench``, over its headline and the
+search, engine_search and device_rank sections at their full sizes, each
+section's checks passed and its kernels launched. ``[catalog]`` also restores a
 hand-written version-2 checkpoint of the catalog's first 1,024 tracks,
 bitwise equal to their version-4 restore.
 
@@ -52,10 +55,21 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 import wave
 
 import numpy as np
+
+try:  # the port's CUDA timing helpers; main() fails first without the port
+    from tiresias_tpu_torch.utils.timing import (
+        CLOCKS,
+        call_ms,
+        clocks_since,
+        device_ms,
+        events_ms,
+        stream_ms,
+    )
+except ImportError:
+    CLOCKS = None
 
 SR = 8000
 TRACK_S = 30
@@ -159,148 +173,6 @@ def check_fp(label: str, got, want, control) -> float:
         f"{FP_ATOL_DB} dB); TF32-rounded control {c_err} dB "
         f"({c_ratio:.3f}x bound)")
     return err
-
-
-def call_ms(fn, reps: int = 20) -> float:
-    """Median wall time of one call on the stream (CUDA events around each
-    call after two warm-ups): device time plus whatever launch overhead the
-    host adds before the work reaches the card."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-_FLUSH = {}
-# the clock of each device_ms call, in order: "profiler", or "events" where
-# torch.profiler recorded no device time and the call timed with CUDA events
-CLOCKS: list = []
-
-
-def clocks_since(n0: int) -> str:
-    """The clocks the device_ms calls since ``CLOCKS[n0]`` timed with:
-    "profiler", "events", or "events+profiler" where they differed."""
-    return "+".join(sorted(set(CLOCKS[n0:]))) or "none"
-
-
-def flush_buffer():
-    """A 128 MB int32 buffer (2.6 times the 50 MB L2) whose
-    ``bitwise_not_`` flushes the L2 cache."""
-    import torch
-
-    dev = torch.cuda.current_device()
-    if dev not in _FLUSH:
-        _FLUSH[dev] = torch.zeros(32 * 2**20, dtype=torch.int32, device=dev)
-    return _FLUSH[dev]
-
-
-def events_ms(fn, reps: int = 20, flush: bool = False) -> float:
-    """Device time per call from CUDA events around each call, with the host
-    ahead of the card: a ~2 ms spin kernel before each call keeps the card
-    busy while the host queues the call's launches, so the events see the
-    call's kernels and the gaps between them, not the launch overhead (a
-    call whose host work takes longer shows that too). With ``flush``, the
-    L2 cache is flushed before each call."""
-    import torch
-
-    buf = flush_buffer() if flush else None
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
-        if buf is not None:
-            buf.bitwise_not_()
-        torch.cuda._sleep(4_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        total += a.elapsed_time(b)
-    return total / reps
-
-
-def device_ms(fn, reps: int = 20, attempts: int = 3, flush: bool = False,
-              names: tuple | None = None):
-    """Device time per call: the CUDA kernel and memory-op time
-    torch.profiler records over ``reps`` calls, divided by ``reps``. With
-    ``names``, a dict of each kernel name that contains one of them (the
-    share of each launch of a pair). With ``flush``, the L2 cache is
-    flushed before each call, and the flush is left out of the sum. A
-    profile that records none of the summed time (CUPTI occasionally
-    delivers none for a short window) is taken again, up to ``attempts``
-    profiles (one while the previous call's profiles were all empty); then
-    this call times with CUDA events instead (:func:`events_ms`), and a split
-    by ``names`` is unknown (None). The clock used is appended to
-    ``CLOCKS``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    if CLOCKS and CLOCKS[-1] == "events":
-        attempts = 1
-    buf = flush_buffer() if flush else None
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)  # per-cycle
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    if buf is not None:
-                        buf.bitwise_not_()
-                    fn()
-                torch.cuda.synchronize()
-        per = {n: 0.0 for n in names or ("",)}
-        for e in prof.key_averages():
-            if buf is not None and "bitwise_not" in e.key:
-                continue
-            us = getattr(e, "self_device_time_total", 0)
-            for n in per:
-                if n in e.key:
-                    per[n] += us / 1e3 / reps
-        if sum(per.values()) > 0:
-            CLOCKS.append("profiler")
-            return per if names else per[""]
-        say(f"[profiler] no CUDA device time recorded over {reps} calls")
-    say(f"[profiler] no CUDA device time in {attempts} profile(s) in a "
-        f"row: this call times with CUDA events (events_ms)")
-    CLOCKS.append("events")
-    if names:
-        return dict.fromkeys(names)
-    return events_ms(fn, reps, flush)
-
-
-def stream_ms(fn, reps: int = 10) -> float:
-    """Time per call of ``reps`` back-to-back calls on the stream, from CUDA
-    events around them (after two warm-ups): device time plus whatever gaps
-    the host leaves between launches. A yardstick beside ``device_ms`` that
-    needs no profiler."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def timed(label: str, kernel, plain, plain_reps: int = 20) -> dict:
@@ -3936,6 +3808,73 @@ def phase_tools(card: str) -> dict:
     return out
 
 
+# The [bench] phase: the port's benchmark orchestrator over these sections
+# (after its headline, fingerprint) at their full sizes, and the kernels
+# each section must have launched
+BENCH_SECTIONS = ("search", "engine_search", "device_rank")
+BENCH_KERNELS = {
+    "fingerprint": ("mfcc_framed",),
+    "search": ("mfcc_rows", "lattice_votes"),
+    "engine_search": ("mfcc_rows", "lattice_votes", "bound_scan_planes",
+                      "bound_scan"),
+    "device_rank": ("mfcc_rows", "bound_scan_planes", "bound_scan",
+                    "match_votes", "match_votes_cand_per_item"),
+}
+
+
+def phase_bench(card: str) -> dict:
+    """``python -m tiresias_tpu_torch.bench --sections ...`` in a subprocess
+    (each section in a watchdogged process of its own): it must exit 0
+    without importing jax or the JAX package, every section's summary must
+    parse with no failure or skip, the headline must be measured, and each
+    section must have launched its kernels (BENCH_KERNELS). Re-prints the
+    bench's result lines and each section's summary; the bench's own last
+    lines are never relayed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOL_RUNNER, "tiresias_tpu_torch.bench",
+         "--sections", ",".join(BENCH_SECTIONS)],
+        env=env, capture_output=True, text=True, timeout=600, cwd=here,
+    )
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"[bench] exited {proc.returncode}: {proc.stdout[-3000:]}"
+             f"{proc.stderr[-3000:]}")
+    out = proc.stdout.splitlines()
+    if not out or out[-1] != "IMPORTED []":
+        fail(f"[bench] imported jax or the JAX package: {out[-1:]}")
+    sections = json.loads(out[-3])["sections"]
+    head = json.loads(out[-2])
+    if head.get("metric") != "fingerprint_throughput" or not head["value"]:
+        fail(f"[bench] headline not measured: {head}")
+    for name in ("fingerprint",) + BENCH_SECTIONS:
+        got = sections.get(name)
+        if not isinstance(got, dict) or "failed" in got or "skipped" in got:
+            fail(f"[bench] section {name}: {got}")
+    marks = [ln for ln in proc.stderr.splitlines() if " launches {" in ln]
+    if not marks:
+        fail("[bench] printed no launch counts")
+    launches = json.loads(marks[-1].split(" launches ", 1)[1])
+    for name, kernels in BENCH_KERNELS.items():
+        for k in kernels:
+            if launches.get(name, {}).get(k, 0) <= 0:
+                fail(f"[bench] section {name} never launched {k}: "
+                     f"{launches.get(name)}")
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("[bench] ") and "t=+" not in ln:
+            say(ln)
+    for name, got in sections.items():
+        say(f"[bench] {name}: {json.dumps(got)}; launches "
+            f"{json.dumps(launches.get(name, {}))} [{card}]")
+    say(f"[bench] headline {head['value']} audio-hrs/hr "
+        f"({head['vs_baseline']}x the 1,000 baseline); bench exit 0 in "
+        f"{dt:.1f} s, jax not imported [{card}]")
+    return {"s": dt, "headline": head["value"], "sections": sections,
+            "launches": launches}
+
+
 def run(device) -> dict:
     import torch
 
@@ -4060,6 +3999,8 @@ def run(device) -> dict:
         took("[cli]")
         tools = phase_tools(card["card"])
         took("[tools]")
+        bench = phase_bench(card["card"])
+        took("[bench]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels += scan_entries()
@@ -4076,6 +4017,7 @@ def run(device) -> dict:
                         "library_ms": library, "prefilter": prefilter,
                         "mutate": mutate, "shard": shard, "soak": soak,
                         "tools": {k: v["s"] for k, v in tools.items()},
+                        "bench": bench,
                         "bound_scan": SCAN, "clocks": clocks}}
 
 

@@ -195,7 +195,7 @@ def _entry_points(tmp_path):
     store.create_context("media", str(media))
     pcm = np.zeros(2048, np.float32)
     padded, _ = tmfcc.pad_frames_bucket([pcm], 256)
-    from tiresias_tpu_torch import cli
+    from tiresias_tpu_torch import bench, cli
     from tiresias_tpu_torch.serve.server import run_server
     from tiresias_tpu_torch.tools import accuracy_study, margin_study, soak
     from tiresias_tpu_torch.utils.audio import write_wav
@@ -219,6 +219,9 @@ def _entry_points(tmp_path):
         "cli warmup": run_cli("warmup"),
         "cli serve": run_cli("serve", "--port", "0"),
         "cli serve --replica": run_cli("serve", "--port", "0", "--replica"),
+        "cli bench": run_cli("bench"),
+        "cli bench --section": run_cli("bench", "--section", "search"),
+        "bench --section": lambda: bench.main(["--section", "search"]),
         "Tiresias": lambda: Tiresias(cfg),
         "FingerprintStore": lambda: FingerprintStore(),
         "FingerprintStore.load": lambda: FingerprintStore.load(
@@ -248,7 +251,8 @@ def _entry_points(tmp_path):
     "fingerprint_signals_async", "fingerprint_signals", "fingerprint_signal",
     "Tiresias.warmup", "run_server", "cli create", "cli search",
     "cli search --top", "cli remove audio", "cli warmup", "cli serve",
-    "cli serve --replica", "tools.soak", "tools.soak.build_engine",
+    "cli serve --replica", "cli bench", "cli bench --section",
+    "bench --section", "tools.soak", "tools.soak.build_engine",
     "tools.accuracy_study", "tools.margin_study",
     "tools.margin_study --weighted",
 ])
@@ -274,8 +278,13 @@ def test_host_only_cli_commands_need_no_card(tmp_path, monkeypatch, capsys):
     assert cli.main(["-c", str(conf), "show", "audios", "media"]) == 0
     assert cli.main(["-c", str(conf), "stats"]) == 0
     assert cli.main(["-c", str(conf), "fsck"]) == 1  # no checkpoint yet
-    assert cli.main(["-c", str(conf), "bench"]) == 1  # not ported: says so
-    assert "ROADMAP" in capsys.readouterr().err
+    capsys.readouterr()
+    # an unknown bench section lists the names and returns 2 before any
+    # device is needed, as the JAX CLI does
+    assert cli.main(["-c", str(conf), "bench", "--section", "nope"]) == 2
+    err = capsys.readouterr().err
+    assert "--section needs one of: fingerprint, search" in err
+    assert "coldstart" in err
 
 
 def test_profiles_equal_jax():

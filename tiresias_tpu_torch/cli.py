@@ -615,12 +615,12 @@ def cmd_reload(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    print(
-        "bench: the port has no benchmark harness yet (ROADMAP.md item 8); "
-        "chip_smoke.py measures the port on the card",
-        file=sys.stderr,
-    )
-    return 1
+    from tiresias_tpu_torch import bench
+
+    argv = ["--device", args.device]
+    if args.section:
+        argv += ["--section", args.section]
+    return bench.main(argv)
 
 
 def _search_many(args, files, kwargs) -> int:
@@ -941,9 +941,14 @@ def build_parser() -> argparse.ArgumentParser:
     rl.set_defaults(func=cmd_reload)
 
     be = sub.add_parser(
-        "bench", help="not ported yet (ROADMAP.md item 8); returns 1"
+        "bench", help="run the benchmark harness (tiresias_tpu_torch.bench)"
     )
-    be.add_argument("--section", default=None, help="ignored")
+    be.add_argument(
+        "--section", default=None,
+        help="run ONE bench section in-process (default: every section, "
+        "each in a watchdogged subprocess); an unknown name lists them and "
+        "returns 2",
+    )
     be.set_defaults(func=cmd_bench)
 
     st = sub.add_parser(
