@@ -16,12 +16,15 @@ is also held to its twin, and timed, on the search queries' own histograms
 against the catalog's value map; the strict vote kernels K4/K5 on their
 sorted index, on each route, on synthetic rows (tol 0.1 and 2e5) and on the
 catalog's own view and the search queries, with band statistics and each
-case's bound from its own bands. Then the serving path (``[serve]``) on the
-same catalog: ``warmup_async``, a ``RecognitionServer`` on port 0 driven
-over real sockets — 128 int16 channels in 20 ms pcm ops (unpaced twice,
-paced in real time, and unpaced with one score pass in flight), G.711
-channels, a dialplan and an aligned group
-in one tick, a continuous channel, a hangup — each TIR* held to
+case's bound from its own bands; the prefilters' candidate selection (K-b,
+``select_candidates``) and the dialplan rescore (``rescore_rows``) bit for
+bit against their twins at the prefilters' shapes, on heavy-tie and
+overflow bounds too, timed beside ``torch.topk``. Then the serving path
+(``[serve]``) on the same catalog: ``warmup_async``, a
+``RecognitionServer`` on port 0 driven over real sockets — 128 int16
+channels in 20 ms pcm ops (unpaced twice, paced in real time, and unpaced
+with one score pass in flight), G.711 channels, a dialplan and an aligned
+group in one tick, a continuous channel, a hangup — each TIR* held to
 ``search_pcm_batch`` on the same windows; the admin plane, with ranked
 top-5 held to ``search_pcm_topk`` and to a numpy brute-force ranking; a
 read-only replica engine following the owner's checkpoint by one
@@ -195,8 +198,9 @@ def timed(label: str, kernel, plain, plain_reps: int = 20) -> dict:
 
 
 def topk_ms(bound) -> dict:
-    """Device time of the prefilters' candidate selection (``torch.topk``
-    of each query's bounds, a library call) at both candidate budgets."""
+    """Device time of the prefilters' candidate selection at both candidate
+    budgets: the K-b kernels (``select_candidates``) and, as the library
+    yardstick, ``torch.topk`` of the same bounds."""
     import torch
 
     from tiresias_tpu_torch.ops import match_kernels as tk
@@ -205,25 +209,43 @@ def topk_ms(bound) -> dict:
     out = {}
     for k in (ml.LATTICE_PREFILTER_K, tk.PREFILTER_K):
         k = min(k, bound.shape[1])
+        out[f"select_candidates {list(bound.shape)} int32, k={k}"] = (
+            device_ms(lambda: ml.select_candidates(bound, k)))
         out[f"torch.topk {list(bound.shape)} int32, k={k}"] = device_ms(
             lambda: torch.topk(bound, k, dim=1))
     return out
 
 
-def library_bounds(tag: str, b: int, a: int, k: int, kk: int) -> dict:
-    """The bounds of the prefilters' library and plain-torch steps, from
-    their shapes: ``torch.topk`` of [b, a] int32 bounds (the bounds read
-    once; k int32 values and int64 indices a query written once) at both
-    candidate budgets, and ``rescore_rows`` of [b, k, kk] (the gathered
-    float32 rows, the int32 histograms and the int64 ids read once, the
-    int32 votes written once; a compare and an add per element)."""
+def rescore_bound(b: int, k: int, kk: int, distinct: int) -> dict:
+    """``rescore_rows``' bound at [b, k, kk]: each of the ``distinct`` map
+    rows the candidates name read once (float32), the int32 histograms and
+    ids read once, the int32 votes written once; a compare and an add per
+    gathered element."""
+    return bound(4 * distinct * kk + 4 * b * kk + 8 * b * k, 2 * b * k * kk)
+
+
+def library_bounds(tag: str, b: int, a: int, idx, kk: int) -> dict:
+    """The bounds of the prefilters' selection and rescore, from their
+    shapes: ``select_candidates`` of [b, a] int32 bounds (the bounds read
+    once; k int32 ids and the unselected maximum a query written once) and
+    ``torch.topk`` (k int32 values and int64 indices written) at both
+    candidate budgets, and ``rescore_rows`` of the candidates ``idx``
+    [b, k] over a map of kk buckets (:func:`rescore_bound`)."""
+    import torch
+
     from tiresias_tpu_torch.ops import match_kernels as tk
     from tiresias_tpu_torch.ops import match_lattice as ml
 
-    out = {f"torch.topk [{b}, {a}] k={kt}": bound(4 * b * a + 12 * b * kt, 0)
-           for kt in (ml.LATTICE_PREFILTER_K, tk.PREFILTER_K)}
-    out[f"rescore_rows [{b}, {k}, {kk}]"] = bound(
-        4 * b * k * kk + 4 * b * kk + 12 * b * k, 2 * b * k * kk)
+    out = {}
+    for kt in (ml.LATTICE_PREFILTER_K, tk.PREFILTER_K):
+        kt = min(kt, a)
+        out[f"select_candidates [{b}, {a}] k={kt}"] = bound(
+            4 * b * a + 4 * b * kt + 4 * b, 0)
+        out[f"torch.topk [{b}, {a}] k={kt}"] = bound(
+            4 * b * a + 12 * b * kt, 0)
+    k = idx.shape[1]
+    out[f"rescore_rows [{b}, {k}, {kk}]"] = rescore_bound(
+        b, k, kk, int(torch.unique(idx).numel()))
     say(f"{tag} bounds (3.35 TB/s, 67 TFLOP/s): " + "; ".join(
         f"{n} {v['bound_ms']:.6f} ms ({v['bound_by']})"
         for n, v in out.items()))
@@ -624,7 +646,149 @@ def phase_kernels(device, dsp) -> list[dict]:
         "against the twin at tol 0.001, 0.5, 3.984375 (saturation) and 10, "
         "with and without a context")
     out += phase_match_kernels(device)
+    out += phase_select(device)
     return out
+
+
+# K-b's shapes on the prefilters' paths: ([B, A], k)
+SELECT_SHAPES = (((1, 1_000_000), 256), ((1, 100_096), 1024),
+                 ((64, 10_112), 256), ((64, 10_112), 1024),
+                 ((64, 100_096), 256), ((64, 100_096), 1024))
+
+
+def select_bounds(kind: str, b: int, a: int, rng) -> np.ndarray:
+    """Bounds [b, a] int32 of one kind: "bounds" as a 94-frame query's
+    (most rows 0-23, a tail to 94, a tenth of the rows -1 outside the
+    context), "heavy ties" (-1 to 2: the k-th value tied thousands of
+    times), "overflow" ("bounds" with 1% of the rows at 2,044 to 2**31 - 1,
+    past the kernel's histogram: its radix path)."""
+    if kind == "heavy ties":
+        return rng.integers(-1, 3, (b, a)).astype(np.int32)
+    x = rng.integers(0, 24, (b, a))
+    tail = rng.random((b, a)) < 0.01
+    x[tail] = rng.integers(24, 95, int(tail.sum()))
+    x[rng.random((b, a)) < 0.1] = -1
+    if kind == "overflow":
+        big = rng.random((b, a)) < 0.01
+        x[big] = rng.choice([2044, 2045, 3000, 2**31 - 1], int(big.sum()))
+    return x.astype(np.int32)
+
+
+def phase_select(device) -> list[dict]:
+    """K-b (``select_candidates``) and the dialplan rescore
+    (``rescore_rows``), both of ``csrc/select.cu``, bit for bit against
+    their twins at the prefilters' shapes on bound-like, heavy-tie and
+    overflow bounds and the edge cases (k = 1, k = A, all -1, fewer than k
+    rows above -1); then each timed beside its twin, its bytes bound and,
+    for the selection, ``torch.topk`` of the same bounds at the same k."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_lattice as ml
+
+    rng = np.random.default_rng(107)
+
+    def same(kind, bnd, k) -> None:
+        got = ml.select_candidates(bnd, k)
+        want = ml.select_candidates_reference(bnd, k)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                              want[1])):
+            fail(f"K-b select_candidates != twin on {kind} "
+                 f"{list(bnd.shape)} k={k}")
+
+    edges = {"k = A": ((3, 4097), 4097), "k = 1": ((64, 10_112), 1),
+             "all -1": ((64, 10_112), 256), "few rows above -1": (
+                 (8, 100_096), 1024), "k = A, 10,112 rows": ((1, 10_112),
+                                                             10_112)}
+    for name, ((b, a), k) in edges.items():
+        x = select_bounds("bounds", b, a, rng)
+        if name == "all -1":
+            x[:] = -1
+        elif name == "few rows above -1":
+            x[:, np.arange(a) % 200 != 0] = -1
+        same(name, torch.from_numpy(x).to(device), k)
+    say(f"[kernels] K-b select_candidates: idx and unselected_max bitwise "
+        f"equal to the twin on {', '.join(edges)}")
+    cases = {}
+    for (b, a), k in SELECT_SHAPES:
+        for kind in ("heavy ties", "overflow", "bounds"):
+            bnd = torch.from_numpy(select_bounds(kind, b, a, rng)).to(device)
+            same(kind, bnd, k)
+        over = torch.from_numpy(select_bounds("overflow", b, a, rng)).to(
+            device)
+        label = f"K-b select_candidates [{b}, {a}] k={k}"
+        t = timed(label, lambda: ml.select_candidates(bnd, k),
+                  lambda: ml.select_candidates_reference(bnd, k), 5)
+        t["split"] = device_ms(lambda: ml.select_candidates(bnd, k),
+                               names=("kb_select_hist", "kb_select_finish",
+                                      "kb_select_compact"))
+        t["overflow_ms"] = device_ms(lambda: ml.select_candidates(over, k))
+        t["topk_ms"] = device_ms(lambda: torch.topk(bnd, k, dim=1))
+        t.update(bound(4 * b * a + 4 * b * k + 4 * b, 0))
+        say(f"[kernels] {label}: bitwise equal to the twin on bound-like, "
+            f"heavy-tie and overflow bounds; device {t['ms']} ms (hist, "
+            f"finish, compact {t['split']}), radix path (overflow) "
+            f"{t['overflow_ms']} ms, torch.topk {t['topk_ms']} ms, bound "
+            f"{t['bound_ms']:.6f} ms (bytes: the bounds read once, idx "
+            f"and the maximum written once)")
+        cases[f"[{b}, {a}] k={k}"] = t
+    # the dialplan rescore: [64, 256] candidates of a 10,112- and a
+    # 100,096-row float32 map, NaN rows, +inf, values exactly at tol
+    rcases = {}
+    b, k, kk, tol = 64, ml.LATTICE_PREFILTER_K, ml.K_SIZE, 1.0
+    for a in (10_112, 100_096):
+        g = torch.Generator(device=device).manual_seed(a)
+        vm = torch.rand((a, kk), generator=g, device=device) * 4.0
+        vm[torch.rand((a, kk), generator=g, device=device) < 0.05] = tol
+        vm[torch.rand((a, kk), generator=g, device=device) < 0.01] = \
+            float("inf")
+        vm[torch.randint(0, a, (16,), generator=g, device=device)] = \
+            float("nan")
+        counts = torch.randint(0, 4, (b, kk), generator=g, device=device,
+                               dtype=torch.int32)
+        idx, _ = ml.select_candidates(torch.from_numpy(select_bounds(
+            "bounds", b, a, rng)).to(device), k)
+        ids = torch.randint(0, 3, (a,), generator=g, device=device,
+                            dtype=torch.int32)
+        for ctx in (None, ids):
+            cid = None if ctx is None else 1
+            if not torch.equal(ml.rescore_rows(vm, counts, idx, tol, ctx, cid),
+                               ml.rescore_rows_reference(vm, counts, idx, tol,
+                                                         ctx, cid)):
+                fail(f"rescore_rows != twin over {a} rows (context "
+                     f"{ctx is not None})")
+        label = f"rescore_rows [{b}, {k}, {kk}] over {a} rows"
+        t = timed(label, lambda: ml.rescore_rows(vm, counts, idx, tol),
+                  lambda: ml.rescore_rows_reference(vm, counts, idx, tol), 5)
+        distinct = int(torch.unique(idx).numel())
+        t.update(rescore_bound(b, k, kk, distinct))
+        say(f"[kernels] {label}: votes int32-equal to the twin with and "
+            f"without a context (NaN rows, +inf, values at tol); bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}: the {distinct} "
+            f"distinct candidate rows, the histograms and idx read once, "
+            f"the votes written once)")
+        rcases[label] = t
+    main = cases["[64, 10112] k=256"]
+    rmain = rcases[f"rescore_rows [{b}, {k}, {kk}] over 10112 rows"]
+    common = {"route": "cuda", "source": "tiresias_tpu_torch/csrc/select.cu",
+              "max_abs_err": 0.0}
+    return [
+        {"name": "select_candidates", **common,
+         "replaces": "tiresias_tpu/ops/match_lattice.py:592",
+         "also_replaces": "tiresias_tpu/ops/match_pallas.py:559",
+         "ms": main["ms"], "plain_ms": main["plain_ms"],
+         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+         "library_ms": main["topk_ms"],
+         "library": "torch.topk of the same bounds at the same k",
+         "shape": "bound-like [64, 10112] int32, k=256", "cases": cases},
+        {"name": "rescore_rows", **common,
+         "replaces": "tiresias_tpu/ops/match_lattice.py:603",
+         "ms": rmain["ms"], "plain_ms": rmain["plain_ms"],
+         "bound_ms": rmain["bound_ms"], "bound_by": rmain["bound_by"],
+         "library_ms": None,
+         "library": "no single PyTorch call gathers, compares and sums",
+         "shape": f"[{b}, {k}, {kk}] over a 10112-row map",
+         "cases": rcases},
+    ]
 
 
 def match_case(device, seed: int, rows: int, t: int, coefs: int, b: int,
@@ -1298,7 +1462,7 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
         idx, _ = ml.select_candidates(
             ml.bound_votes(specs, maps, q[:b], active[:b], use2[:b],
                            STRICT_TOL), tk.PREFILTER_K)
-        cases.append(("catalog", b, idx.to(torch.int32).contiguous()))
+        cases.append(("catalog", b, idx))
     k = cases[0][2].shape[1]
     cases.append(("same rows", 64, cases[0][2][:1].repeat(64, 1).contiguous()))
     cases.append(("even", 64, (torch.arange(64 * k, device=device).reshape(
@@ -1787,8 +1951,8 @@ def phase_lattice_real(vm, q0, valid) -> dict:
     library.update(topk_ms(bound64))
     for name, ms in library.items():
         say(f"[library] {name}: device {ms} ms")
-    library["bound_ms"] = library_bounds("[library]", *bound64.shape,
-                                         idx.shape[1], vm.shape[1])
+    library["bound_ms"] = library_bounds("[library]", *bound64.shape, idx,
+                                         vm.shape[1])
     return library
 
 
@@ -2509,8 +2673,7 @@ def phase_prefilter(device, tmp: str) -> dict:
     for name, ms in library.items():
         say(f"[prefilter] {name}: device {ms} ms")
     library["bound_ms"] = library_bounds(
-        "[prefilter]", *bound100k.shape, idx.shape[1],
-        view.value_map.shape[1])
+        "[prefilter]", *bound100k.shape, idx, view.value_map.shape[1])
     del bound100k, c
     notes = pf_notes(eng)
     cells = (("dialplan", {"coefs": 1, "tolerance": 0.001}, "lattice", 64),
@@ -2557,15 +2720,16 @@ def phase_prefilter(device, tmp: str) -> dict:
                                             cert0))
         if cert + miss == 0:
             fail(f"[prefilter] {name} B={b}: no search took the prefilter")
-        grouped = {}
-        if pf_mode != "lattice":  # the grouped candidate form rescored
-            kern = ("match_votes_aligned_cand" if pf_mode == "aligned"
-                    else "match_votes_cand")
-            grouped = {n: build.LAUNCHES[n] - launches0[n]
-                       for n in ("group_candidates", kern)}
-            if min(grouped.values()) <= 0:
-                fail(f"[prefilter] {name} B={b}: the grouped candidate form "
-                     f"never launched: {grouped}")
+        # the selection, then the rescore: the dialplan's rescore_rows, or
+        # the grouped candidate form
+        kerns = ("select_candidates",) + (
+            ("rescore_rows",) if pf_mode == "lattice" else
+            ("group_candidates", "match_votes_aligned_cand"
+             if pf_mode == "aligned" else "match_votes_cand"))
+        grouped = {n: build.LAUNCHES[n] - launches0[n] for n in kerns}
+        if min(grouped.values()) <= 0:
+            fail(f"[prefilter] {name} B={b}: the prefilter's kernels never "
+                 f"all launched: {grouped}")
         p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
         turns = {k: list(v) for k, v in dev.items()}
         dev = {k: float(np.median(v)) for k, v in dev.items()}
@@ -2579,7 +2743,7 @@ def phase_prefilter(device, tmp: str) -> dict:
             f"call; "
             f"search.prefilter_fallbacks +{fallbacks() - fb0:.0f}); "
             f"FOUND {found}/{len(got['prefilter'])}; TIR* equal"
-            + (f"; grouped candidate launches {grouped}" if grouped else ""))
+            + f"; selection and rescore launches {grouped}")
         out[f"{name} tol {kw['tolerance']} B={b}"] = {
             "p50": p50, "device_ms": dev, "certified": cert,
             "fell_back": miss, "found": found, "launches": grouped}
@@ -3015,10 +3179,12 @@ def shard_expected(mode: str, path: str, certified: bool) -> dict:
         mode, ("match_votes_aligned",))
     if path == "full":
         return {k: 8 for k in full}
-    pf = ["bound_scan_planes", "bound_scan"]
-    if mode == "bag":
+    pf = ["bound_scan_planes", "bound_scan", "select_candidates"]
+    if mode == "dialplan":
+        pf += ["rescore_rows"]
+    elif mode == "bag":
         pf += ["group_candidates", "match_votes_cand"]
-    elif mode != "dialplan":
+    else:
         pf += ["group_candidates", "match_votes_aligned_cand"]
     return {k: 8 for k in pf + ([] if certified else list(full))}
 
@@ -3112,7 +3278,8 @@ def phase_shard(device, eng, cfg, media: str, queries, excerpts: dict,
         torch.cuda.synchronize(device)
         launches = dict(build.LAUNCHES)  # --- the sharded path ends here ---
         for name in ("mfcc_rows", "mfcc_framed", "bound_scan_planes",
-                     "bound_scan", "match_votes", "match_votes_aligned",
+                     "bound_scan", "select_candidates", "rescore_rows",
+                     "match_votes", "match_votes_aligned",
                      "group_candidates", "match_votes_cand",
                      "match_votes_aligned_cand"):
             if launches[name] <= 0:
@@ -3816,9 +3983,10 @@ BENCH_KERNELS = {
     "fingerprint": ("mfcc_framed",),
     "search": ("mfcc_rows", "lattice_votes"),
     "engine_search": ("mfcc_rows", "lattice_votes", "bound_scan_planes",
-                      "bound_scan"),
+                      "bound_scan", "select_candidates", "rescore_rows"),
     "device_rank": ("mfcc_rows", "bound_scan_planes", "bound_scan",
-                    "match_votes", "match_votes_cand_per_item"),
+                    "select_candidates", "match_votes",
+                    "match_votes_cand_per_item"),
 }
 
 
@@ -3928,7 +4096,8 @@ def run(device) -> dict:
         say(f"[search] max_memory_allocated {search_peak} B during the "
             f"searches, {max(run_peak, search_peak)} B over the run")
         for name in ("mfcc_rows", "mfcc_framed", "lattice_votes",
-                     "bound_scan_planes", "bound_scan"):
+                     "bound_scan_planes", "bound_scan", "select_candidates",
+                     "rescore_rows"):
             if launches[name] <= 0:
                 fail(f"the main path never launched {name}")
         say(f"[launches] main path: {launches}")
@@ -3951,7 +4120,7 @@ def run(device) -> dict:
                        "match_votes_cand_per_item",
                        "match_votes_aligned_cand_per_item",
                        "match_votes_aligned_cand_dense_per_item")
-        scan_names = ("bound_scan_planes", "bound_scan")
+        scan_names = ("bound_scan_planes", "bound_scan", "select_candidates")
         for name in match_names + scan_names:
             if strict_launches[name] <= 0:
                 fail(f"the strict path never launched {name}")

@@ -668,6 +668,135 @@ def test_prefilters_take_bound_scan(dev):
     assert torch.equal(got.cpu(), want) and (want == -1).any()
 
 
+def _select_bounds(kind, b, a, g):
+    if kind == "random":
+        return g.integers(-1, 95, (b, a))
+    if kind == "heavy_ties":
+        return g.integers(-1, 3, (b, a))
+    if kind == "all_minus_one":
+        return np.full((b, a), -1)
+    if kind == "few_non_negative":
+        x = np.full((b, a), -1)
+        x[:, ::97] = g.integers(0, 5, x[:, ::97].shape)
+        return x
+    if kind == "overflow":  # past the kernel's histogram: the radix path
+        x = g.integers(-1, 50, (b, a))
+        x[:, ::13] = g.choice([2044, 2045, 3000, 2**31 - 1],
+                              x[:, ::13].shape)
+        return x
+    if kind == "int32_range":
+        return g.integers(-2**31, 2**31 - 1, (b, a), endpoint=True)
+    raise ValueError(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "heavy_ties", "all_minus_one",
+                                  "few_non_negative", "overflow",
+                                  "int32_range"])
+@pytest.mark.parametrize("b,a", [(1, 1), (1, 7), (3, 4097), (64, 10112),
+                                 (1, 100096), (2, 1000000)])
+def test_select_kernel_equals_twin_bitwise(dev, kind, b, a):
+    """K-b: the kernel's rows and unselected maximum bit for bit equal to
+    the twin's, at k = 1, 256, 1,024 and A (ties at the threshold, -1 rows,
+    values up to 2**31 - 1 and below -1)."""
+    g = np.random.default_rng(a + b)
+    bound = torch.from_numpy(_select_bounds(kind, b, a, g).astype(
+        np.int32)).to(dev)
+    for k in sorted({1, min(a, 256), min(a, 1024), a}):
+        build.reset_launch_counts()
+        idx, rest = ml.select_candidates(bound, k)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["select_candidates"] == 1
+        want_idx, want_rest = ml.select_candidates_reference(bound, k)
+        assert idx.dtype == torch.int32 and rest.dtype == torch.int32
+        assert torch.equal(idx, want_idx), (kind, k)
+        assert torch.equal(rest, want_rest), (kind, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctx", [False, True])
+@pytest.mark.parametrize("b,k,kk", [(64, 256, 640), (1, 256, 640),
+                                    (3, 1024, 640), (5, 13, 37)])
+def test_rescore_kernel_equals_twin_bitwise(dev, ctx, b, k, kk):
+    """The dialplan rescore: int32-equal to the twin with NaN rows, +inf,
+    values exactly at tol, the context mask, and a K that is no multiple
+    of 4 (the scalar loads)."""
+    g = np.random.default_rng(b * k + kk + ctx)
+    a, tol = 10112, 0.5
+    vm = g.uniform(0, 3, (a, kk)).astype(np.float32)
+    vm[g.random((a, kk)) < 0.05] = np.float32(tol)
+    vm[g.random((a, kk)) < 0.01] = np.inf
+    vm[g.integers(0, a, 9)] = np.nan
+    vm = torch.from_numpy(vm).to(dev)
+    counts = torch.from_numpy(g.integers(0, 6, (b, kk)).astype(
+        np.int32)).to(dev)
+    idx = torch.from_numpy(g.integers(0, a, (b, k)).astype(np.int32)).to(dev)
+    ids = (torch.from_numpy(g.integers(0, 3, a).astype(np.int32)).to(dev)
+           if ctx else None)
+    build.reset_launch_counts()
+    got = ml.rescore_rows(vm, counts, idx, tol, ids, 1 if ctx else None)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rescore_rows"] == 1
+    want = ml.rescore_rows_reference(vm, counts, idx, tol, ids,
+                                     1 if ctx else None)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_prefilters_launch_select_and_rescore(dev):
+    """Every prefilter selects through the K-b kernels, the dialplan one
+    rescores through rescore_rows, with no torch.topk in the selection;
+    bad inputs raise."""
+    g = np.random.default_rng(9)
+    rows, t = 700, 64
+    db = g.normal(-20.0, 12.0, (rows, t, 2)).astype(np.float32)
+    db[:, 50:] = PAD_VALUE
+    db = torch.from_numpy(db).to(dev)
+    mask = db[..., 0] != PAD_VALUE
+    q = (db[:8, 3:40] + 0.02).contiguous()
+    qq, act, use2 = tm.prepare_query(q, None, -1, -1, trunc_coef1=False)
+    specs, maps = ml.build_bound_maps(db, mask, 2)
+    ctx = torch.arange(rows, device=dev, dtype=torch.int32) % 3
+    build.reset_launch_counts()
+    for aligned in (False, True):
+        tk.aligned_prefiltered_votes(db, maps, qq, act, use2, 0.1,
+                                     specs=specs, coefs=2, k=64, ctx_ids=ctx,
+                                     ctx_id=1, aligned=aligned,
+                                     index=mi.build_match_index(db))
+    assert build.LAUNCHES["select_candidates"] == 2
+    assert build.LAUNCHES["rescore_rows"] == 0
+    vm = ml.build_value_map(db[..., 0], mask)
+    vmq = ml.quantize_value_map(vm)
+    q0 = torch.trunc(qq[..., 0])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = ml.lattice_prefiltered_votes(vm, vmq, q0, act, 0.5,
+                                           float("-inf"), float("inf"),
+                                           k=64, ctx_ids=ctx, ctx_id=1)
+        torch.cuda.synchronize()
+    assert not any("topk" in e.key.lower() or "sort" in e.key.lower()
+                   for e in prof.key_averages())
+    assert build.LAUNCHES["select_candidates"] == 3
+    assert build.LAUNCHES["rescore_rows"] == 1
+    want = ml.lattice_prefiltered_votes(
+        vm.cpu(), vmq.cpu(), q0.cpu(), act.cpu(), 0.5, float("-inf"),
+        float("inf"), k=64, ctx_ids=ctx.cpu(), ctx_id=1)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    bound = torch.zeros((2, 50), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ml.select_candidates(bound.long(), 8)
+    with pytest.raises(ValueError):
+        ml.select_candidates(bound, 51)
+    with pytest.raises(ValueError):
+        ml.select_candidates(bound.t(), 1)
+    with pytest.raises(ValueError):
+        ml.rescore_rows(vm, torch.zeros((2, 640), dtype=torch.int32,
+                                        device=dev),
+                        torch.zeros((2, 8), dtype=torch.int64, device=dev),
+                        0.5)
+
+
 @pytest.mark.cuda
 def test_aligned_long_query_takes_the_dense_kernel(dev):
     """A 30,000-frame query's offset histogram does not fit in shared

@@ -238,10 +238,11 @@ def link_mibs(device: torch.device, pinned: bool, n: int = 5) -> float:
 
 
 # the kernels of one prefiltered search, by a substring of their names:
-# K-a the bound scan, K-b torch.topk's kernels, K-c the candidate forms and
-# their work list
-SPLIT = (("K1", "mfcc"), ("K-a", "bound_scan"), ("K-b", "topk"),
-         ("K-c", "match_votes"), ("K-c work list", "group_"))
+# K-a the bound scan, K-b the selection (csrc/select.cu's three kernels),
+# the dialplan rescore, K-c the candidate forms and their work list
+SPLIT = (("K1", "mfcc"), ("K-a", "bound_scan"), ("K-b", "kb_select"),
+         ("rescore", "rescore_rows"), ("K-c", "match_votes"),
+         ("K-c work list", "group_"))
 
 
 def kernel_split(fn, device: torch.device, reps: int = 16) -> str:
@@ -543,10 +544,11 @@ def bench_lattice_prefiltered(
     rounds: int = 8,
 ) -> None:
     """The certified dialplan prefilter against the full scan at
-    ``n_tracks``: uint8 bound scan (K-a) → top-256 (``torch.topk``) → exact
-    rescore, batch-1 device time of ``k_seq`` searches back to back. The
-    corpus has wide per-frame dynamics (σ = 6 dB around a per-audio mean);
-    queries are excerpts of stored audios. Where a query certifies, its
+    ``n_tracks``: uint8 bound scan (K-a) → top-256 (K-b,
+    ``select_candidates``) → exact rescore (``rescore_rows``), batch-1
+    device time of ``k_seq`` searches back to back. The corpus has wide
+    per-frame dynamics (σ = 6 dB around a per-audio mean); queries are
+    excerpts of stored audios. Where a query certifies, its
     prefiltered top-1 must equal the full scan's."""
     dev = resolve_device(device)
     db, mask = _clustered_db(dev, n_tracks, t, (), -40.0, 10.0, 6.0)
@@ -621,7 +623,7 @@ def bench_aligned_scale(
 ) -> None:
     """Aligned votes over ``n_coefs`` coefficients at tol 0.1 (the
     recommended accuracy mode) at scale, batch-1 device time: the full K5
-    scan and the certified prefilter (K-a bound → ``torch.topk`` → K-c
+    scan and the certified prefilter (K-a bound → K-b selection → K-c
     rescore), on a clustered corpus (σ = 1.5 around per-audio means) with
     noisy stored excerpts as queries. Every query's own audio must win the
     full scan, and every certified prefiltered search."""
@@ -773,7 +775,7 @@ def bench_device_rank(device="cuda", n_tracks: int = 100_000,
     """The strict configuration (coefs=2, no truncation, tol 0.01, bag
     votes) at ``n_tracks`` clustered tracks plus a stored speech-like
     target: the engine's one strict route (certified bag prefilter — K-a,
-    ``torch.topk``, K-c — and the K4 full scan on a miss), batch-1 p50
+    K-b, K-c — and the K4 full scan on a miss), batch-1 p50
     and device time, and the gates-closed full scan. The target must
     win."""
     dev = resolve_device(device)

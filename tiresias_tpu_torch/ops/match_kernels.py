@@ -19,13 +19,13 @@ offset histogram does not fit in shared memory, over ~50,000 frames).
 The certified strict/aligned prefilter (:func:`aligned_prefiltered_votes`,
 PARITY.md D17/D20) bounds every row's votes with K3' on the view's uint8
 bound maps, takes the ``PREFILTER_K`` rows of highest bound per query
-(exact ``torch.topk``), and rescores them with the kernels' candidate form
-(:func:`match_votes_cand`). The candidates of a batch share rows, so the
-form groups them by row on the device first (:func:`group_candidates`, a
-counting sort; :func:`group_candidates_plain` is its twin): one block per
-work item of one row and up to ``CAND_GROUP`` of the queries that chose
-it, the row's index chunks (K5's dense window) staged once for all of
-them. The first design, one block per (query, candidate) item, stays as
+(:func:`match_lattice.select_candidates`, K-b), and rescores them with the
+kernels' candidate form (:func:`match_votes_cand`). The candidates of a
+batch share rows, so the form groups them by row on the device first
+(:func:`group_candidates`, a counting sort;
+:func:`group_candidates_plain` is its twin): one block per work item of
+one row and up to ``CAND_GROUP`` of the queries that chose it, the row's
+index chunks (K5's dense window) staged once for all of them. The first design, one block per (query, candidate) item, stays as
 the forced route ``"per_item"``, which batch 1 takes (no row is shared
 there).
 
@@ -454,9 +454,8 @@ def aligned_prefiltered_votes(
                            ctx_id)
     keep = None if ctx_ids is None else ctx_ids == ctx_id
     idx, unselected_max = ml.select_candidates(bound, k)
-    votes_k = match_votes_cand(db, q, active, use2, tolerance,
-                               idx.to(torch.int32), coefs, index,
-                               aligned=aligned)
+    votes_k = match_votes_cand(db, q, active, use2, tolerance, idx, coefs,
+                               index, aligned=aligned)
     if keep is not None:
         votes_k = torch.where(keep[idx], votes_k, 0)
     return (ml.scatter_candidates(votes_k, idx, a),

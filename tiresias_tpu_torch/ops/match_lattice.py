@@ -14,7 +14,10 @@ the hand-written kernel ``csrc/lattice.cu`` behind :func:`hit_votes` (u8
 tensor-core products that skip the buckets no query of a tile uses), with
 :func:`lattice_votes_reference` as its plain twin. The certified
 prefilters' bound stage, from the raw query values to the final bound, is
-the kernel pair :func:`bound_scan` (plain twin :func:`bound_scan_reference`).
+the kernel pair :func:`bound_scan` (plain twin :func:`bound_scan_reference`);
+their candidate selection and the dialplan rescore are the kernels of
+``csrc/select.cu`` behind :func:`select_candidates` and :func:`rescore_rows`
+(twins :func:`select_candidates_reference`, :func:`rescore_rows_reference`).
 """
 
 from __future__ import annotations
@@ -601,26 +604,135 @@ def scatter_candidates(votes_k: torch.Tensor, idx: torch.Tensor,
     return out.scatter_reduce_(1, idx.to(torch.int64), votes_k, "amax")
 
 
+def select_candidates_reference(bound: torch.Tensor, k: int):
+    """:func:`select_candidates` in plain torch: the ``k`` highest of the
+    unique keys ``(bound, -row)`` (so no tie is left to ``torch.topk``),
+    their rows in ascending order, and the highest bound among the rest
+    (``-1`` when ``k`` takes every row)."""
+    b, a = bound.shape
+    rows = torch.arange(a, dtype=torch.int64, device=bound.device)
+    key = bound.to(torch.int64) * a + (a - 1 - rows)
+    idx = torch.topk(key, k, dim=1).indices.sort(dim=1).values
+    if k == a:
+        rest = torch.full((b,), -1, dtype=torch.int32, device=bound.device)
+    else:
+        rest = bound.scatter(1, idx, torch.iinfo(torch.int32).min).max(
+            dim=1).values
+    return idx.to(torch.int32), rest
+
+
+@functools.lru_cache(maxsize=1024)
+def _select_scratch_bytes(batch: int, rows: int) -> int:
+    return build.kernel_library().tiresias_select_scratch(batch, rows)
+
+
 def select_candidates(bound: torch.Tensor, k: int):
-    """``(idx [B, k] int64, unselected_max [B] int32)``: the ``k`` rows of
-    highest bound (exact ``torch.topk``; which of tied rows it picks is
-    free) and the highest bound among the rest, computed exactly after the
-    picked rows are set to -1."""
-    idx = torch.topk(bound, k, dim=1).indices
-    rest = bound.scatter(1, idx, -1)
-    return idx, rest.max(dim=1).values
+    """``(idx [B, k] int32, unselected_max [B] int32)`` of the bounds
+    ``[B, A]`` int32 (K-b, ``approx_max_k`` and the unselected maximum in
+    ``_prefilter_core``): the ``k`` rows of highest bound in ascending row
+    order, and the highest bound among the rest, ``-1`` when none is left.
+    Ties are fixed: with ``v`` the ``k``-th highest bound, every row above
+    ``v`` is taken, then rows equal to ``v`` in ascending row order until
+    ``k``. The selection is exact, where ``approx_max_k`` may miss rows on
+    the TPU (recall 0.99): an exact selection only certifies more often, and
+    no choice among tied rows moves a certificate (strict ``>``).
+
+    On a CUDA tensor: the three kernels of ``csrc/select.cu`` (a chunked
+    histogram, the threshold per row, an ordered compaction); on a CPU
+    tensor: :func:`select_candidates_reference`."""
+    if bound.device.type == "cpu":
+        return select_candidates_reference(bound, k)
+    if not (bound.device.type == "cuda" and bound.dim() == 2
+            and bound.dtype == torch.int32 and bound.is_contiguous()
+            and 1 <= k <= bound.shape[1]):
+        raise ValueError(
+            f"select_candidates needs contiguous int32 bounds [B, A] on a "
+            f"CUDA device and 1 <= k <= A (got {tuple(bound.shape)} "
+            f"{bound.dtype} on {bound.device}, k={k})")
+    b, a = bound.shape
+    dev = bound.device
+    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    unselected = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return idx, unselected
+    n_bytes = _select_scratch_bytes(b, a)
+    if n_bytes < 0:
+        raise ValueError(f"select_candidates: {a} rows exceed the kernel's "
+                         f"chunking")
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    rc = build.kernel_library().tiresias_select_candidates(
+        bound.data_ptr(), b, a, k, scratch.data_ptr(), idx.data_ptr(),
+        unselected.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check("select_candidates", rc)
+    return idx, unselected
+
+
+def rescore_rows_reference(value_map: torch.Tensor, counts: torch.Tensor,
+                           idx: torch.Tensor, tol: float,
+                           ctx_ids: torch.Tensor | None = None,
+                           ctx_id: int | None = None) -> torch.Tensor:
+    """:func:`rescore_rows` in plain torch: the rows ``idx`` gathered from
+    the float32 map, contracted with the histogram in int32, and 0 where a
+    row's context is not ``ctx_id``."""
+    hit = value_map[idx] <= float(np.float32(tol))  # [B, k, K]
+    votes = torch.where(hit, counts[:, None, :], 0).sum(dim=2,
+                                                        dtype=torch.int32)
+    if ctx_ids is not None:
+        votes = torch.where(ctx_ids[idx] == ctx_id, votes, 0)
+    return votes
 
 
 def rescore_rows(value_map: torch.Tensor, counts: torch.Tensor,
-                 idx: torch.Tensor, tol: float) -> torch.Tensor:
-    """Exact dialplan votes ``[B, k]`` int32 of each query's candidate rows:
-    the rows ``idx`` gathered from the float32 map and contracted with the
-    query histogram in int32 (``_prefilter_core``'s ``vm[idx]`` and
-    einsum, in plain torch)."""
-    rows = value_map[idx]  # [B, k, K]
-    hit = rows <= float(np.float32(tol))
-    return torch.where(hit, counts[:, None, :], 0).sum(dim=2,
-                                                       dtype=torch.int32)
+                 idx: torch.Tensor, tol: float,
+                 ctx_ids: torch.Tensor | None = None,
+                 ctx_id: int | None = None) -> torch.Tensor:
+    """Exact dialplan votes ``[B, k]`` int32 of each query's candidate rows
+    ``idx`` (``_prefilter_core``'s ``vm[idx]`` and einsum): the sum of the
+    histogram ``counts [B, K]`` int32 over the buckets where the row's
+    float32 ``value_map [A, K]`` is ``<= np.float32(tol)`` (a NaN row gets
+    no hit), and 0 where ``ctx_ids[row] != ctx_id``.
+
+    On a CUDA tensor: ``rescore_rows_kernel`` of ``csrc/select.cu`` (the
+    histogram in shared memory, a warp per candidate row); on a CPU tensor:
+    :func:`rescore_rows_reference`."""
+    if value_map.device.type == "cpu":
+        return rescore_rows_reference(value_map, counts, idx, tol, ctx_ids,
+                                      ctx_id)
+    dev = value_map.device
+    ok = (dev.type == "cuda" and value_map.dim() == 2
+          and value_map.dtype == torch.float32 and value_map.is_contiguous()
+          and counts.dim() == 2 and counts.dtype == torch.int32
+          and counts.device == dev and idx.dim() == 2
+          and idx.dtype == torch.int32 and idx.device == dev
+          and counts.shape == (idx.shape[0], value_map.shape[1])
+          and 1 <= value_map.shape[1] <= 12 * 1024
+          and (ctx_ids is None or (ctx_ids.shape == (value_map.shape[0],)
+                                   and ctx_ids.device == dev)))
+    if not ok:
+        raise ValueError(
+            f"rescore_rows needs a contiguous float32 map [A, K], int32 "
+            f"counts [B, K] and int32 rows [B, k] on one CUDA device (got "
+            f"map {tuple(value_map.shape)} {value_map.dtype} on "
+            f"{value_map.device}, counts {tuple(counts.shape)} "
+            f"{counts.dtype}, idx {tuple(idx.shape)} {idx.dtype})")
+    b, k = idx.shape
+    votes = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0 or k == 0:
+        return votes
+    if ctx_ids is not None:
+        if not -2**31 <= int(ctx_id) < 2**31:
+            raise ValueError(f"rescore_rows: ctx_id {ctx_id} is not an int32")
+        ctx_ids = ctx_ids.to(torch.int32).contiguous()
+    counts = counts.contiguous()
+    idx = idx.contiguous()
+    rc = build.kernel_library().tiresias_rescore_rows(
+        value_map.data_ptr(), value_map.shape[1], counts.data_ptr(),
+        idx.data_ptr(), b, k, float(np.float32(tol)),
+        None if ctx_ids is None else ctx_ids.data_ptr(),
+        0 if ctx_ids is None else int(ctx_id), votes.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check("rescore_rows", rc)
+    return votes
 
 
 def lattice_prefiltered_votes(
@@ -658,10 +770,7 @@ def lattice_prefiltered_votes(
         dialplan_scan(tolerance, band_lo, band_hi, k_min, k_size),
         (value_map_q,), q0, active, ctx_ids=ctx_ids, ctx_id=ctx_id,
         with_counts=True)
-    keep = None if ctx_ids is None else ctx_ids == ctx_id
     idx, unselected_max = select_candidates(bound, k)
-    votes_k = rescore_rows(value_map, c, idx, tolerance)
-    if keep is not None:
-        votes_k = torch.where(keep[idx], votes_k, 0)
+    votes_k = rescore_rows(value_map, c, idx, tolerance, ctx_ids, ctx_id)
     return (scatter_candidates(votes_k, idx, n_rows),
             certificate(votes_k, unselected_max, top))

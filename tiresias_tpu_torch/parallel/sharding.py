@@ -425,7 +425,8 @@ def sharded_aligned_prefiltered(
     """Certified two-stage aligned (strict bag with ``aligned=False``)
     search per db shard: each cell runs the port's
     :func:`~tiresias_tpu_torch.ops.match_kernels.aligned_prefiltered_votes`
-    on its shard (``bound_scan``, ``torch.topk``, K5/K4's candidate form).
+    on its shard (``bound_scan``, ``select_candidates``, K5/K4's candidate
+    form).
 
     Vote columns are disjoint and each shard's certificate covers its own
     rows, so when EVERY shard certifies the gathered top rows equal the full
@@ -469,9 +470,9 @@ def sharded_lattice_prefiltered(
     """Certified two-stage dialplan search per db shard (PARITY.md D19):
     each cell runs the port's
     :func:`~tiresias_tpu_torch.ops.match_lattice.lattice_prefiltered_votes`
-    on its slice of the maps (``bound_scan`` on the uint8 map, ``torch.topk``,
-    ``rescore_rows`` on the float32 map). Composes across shards as
-    :func:`sharded_aligned_prefiltered` does. Returns (votes ``[B, A_pad]``,
+    on its slice of the maps (``bound_scan`` on the uint8 map,
+    ``select_candidates``, ``rescore_rows`` on the float32 map). Composes
+    across shards as :func:`sharded_aligned_prefiltered` does. Returns (votes ``[B, A_pad]``,
     certs ``[B, n_db]`` bool)."""
     vm = _as_sharded(mesh, vm)
     vm_q = _as_sharded(mesh, vm_q)

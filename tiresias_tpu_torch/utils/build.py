@@ -25,7 +25,7 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = ("mfcc_fft.cu", "mfcc.cu", "lattice.cu", "match.cu")
+SOURCES = ("mfcc_fft.cu", "mfcc.cu", "lattice.cu", "match.cu", "select.cu")
 HEADERS = ("common.cuh",)
 # No --use_fast_math / -ftz=true: the aubio log floor 2e-42 is subnormal.
 NVCC_FLAGS = (
@@ -46,7 +46,9 @@ NVCC_FLAGS = (
 # candidate form (the strict/aligned prefilter's rescore) and
 # group_candidates its work list (three kernels, one launch count); the
 # *_per_item names the per-item candidate form (the forced "per_item" route,
-# and batch 1).
+# and batch 1); select_candidates is every prefilter's candidate selection
+# (K-b: three kernels, one launch count) and rescore_rows the dialplan
+# prefilter's rescore.
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
     "mfcc_framed_dft": 0, "lattice_votes": 0,
@@ -57,6 +59,7 @@ LAUNCHES: dict[str, int] = {
     "match_votes_aligned_cand_dense": 0, "match_votes_cand_per_item": 0,
     "match_votes_aligned_cand_per_item": 0,
     "match_votes_aligned_cand_dense_per_item": 0,
+    "select_candidates": 0, "rescore_rows": 0,
 }
 
 _P = ctypes.c_void_p
@@ -124,7 +127,15 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
         _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
     ],
+    # batch, rows -> scratch bytes (-1: too many rows)
+    "tiresias_select_scratch": [_I, _I],
+    # bound, batch, rows, k, scratch, idx, unselected_max, stream
+    "tiresias_select_candidates": [_P, _I, _I, _I, _P, _P, _P, _P],
+    # value_map, k_size, counts, idx, batch, k, tol, ctx_ids (or null),
+    # ctx_id, votes, stream
+    "tiresias_rescore_rows": [_P, _I, _P, _P, _I, _I, _F, _P, _I, _P, _P],
 }
+_RESTYPES = {"tiresias_select_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 # the serve layer launches from several executor threads at once: an
@@ -222,7 +233,7 @@ def kernel_library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
         _build_seconds = time.perf_counter() - t0
         return _lib
