@@ -65,9 +65,11 @@ import numpy as np
 try:  # the port's CUDA timing helpers; main() fails first without the port
     from tiresias_tpu_torch.utils.timing import (
         CLOCKS,
+        SPIN,
         call_ms,
         clocks_since,
         device_ms,
+        edge_spin,
         events_ms,
         stream_ms,
     )
@@ -650,42 +652,93 @@ def phase_kernels(device, dsp) -> list[dict]:
     return out
 
 
-# K-b's shapes on the prefilters' paths: ([B, A], k)
-SELECT_SHAPES = (((1, 1_000_000), 256), ((1, 100_096), 1024),
-                 ((64, 10_112), 256), ((64, 10_112), 1024),
-                 ((64, 100_096), 256), ((64, 100_096), 1024))
+def select_kernels_per_call(fn, calls: int = 8, attempts: int = 6):
+    """The CUDA kernels ``calls`` calls of ``fn`` ran, by name, per call
+    (torch.profiler's device events, between spin kernels at the window's
+    edges), or None where
+    ``attempts`` profiles in a row recorded no device event or some kernel
+    a number of times that is no multiple of ``calls`` (a partial
+    profile; ``device_ms`` retries the same way)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.2)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            edge_spin()
+            for _ in range(calls):
+                fn()
+            edge_spin()
+            torch.cuda.synchronize()
+        count = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and SPIN not in e.name):
+                count[e.name] = count.get(e.name, 0) + 1
+        if count and not any(n % calls for n in count.values()):
+            return {name: n // calls for name, n in count.items()}
+        print(f"[profiler] kernels per call: a partial profile over {calls} "
+              f"calls ({count})", flush=True)
+    return None
 
 
-def select_bounds(kind: str, b: int, a: int, rng) -> np.ndarray:
-    """Bounds [b, a] int32 of one kind: "bounds" as a 94-frame query's
-    (most rows 0-23, a tail to 94, a tenth of the rows -1 outside the
-    context), "heavy ties" (-1 to 2: the k-th value tied thousands of
-    times), "overflow" ("bounds" with 1% of the rows at 2,044 to 2**31 - 1,
-    past the kernel's histogram: its radix path)."""
-    if kind == "heavy ties":
-        return rng.integers(-1, 3, (b, a)).astype(np.int32)
-    x = rng.integers(0, 24, (b, a))
-    tail = rng.random((b, a)) < 0.01
-    x[tail] = rng.integers(24, 95, int(tail.sum()))
-    x[rng.random((b, a)) < 0.1] = -1
-    if kind == "overflow":
-        big = rng.random((b, a)) < 0.01
-        x[big] = rng.choice([2044, 2045, 3000, 2**31 - 1], int(big.sum()))
-    return x.astype(np.int32)
+_SELECT_KERNELS = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import numpy as np, torch\n"
+    "import chip_smoke as cs\n"
+    "from tiresias_tpu_torch.ops import match_lattice as ml\n"
+    "from tiresias_tpu_torch.tools.select_timing import select_bounds\n"
+    "b, a, k = json.loads(sys.argv[2])\n"
+    "x = torch.from_numpy(select_bounds('bounds', b, a,"
+    " np.random.default_rng(0))).cuda()\n"
+    "print(json.dumps(cs.select_kernels_per_call("
+    "lambda: ml.select_candidates(x, k))))\n"
+)
+
+
+def select_kernels_fresh(b: int, a: int, k: int):
+    """:func:`select_kernels_per_call` of one select_candidates call on
+    bound-like ``[b, a]`` bounds at ``k``, in a fresh process (whose
+    profiler has recorded nothing before)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SELECT_KERNELS, here, json.dumps([b, a, k])],
+        env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+        text=True, timeout=300, cwd=here)
+    if proc.returncode != 0:
+        fail(f"K-b kernels per call in a fresh process: exit "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def phase_select(device) -> list[dict]:
-    """K-b (``select_candidates``) and the dialplan rescore
-    (``rescore_rows``), both of ``csrc/select.cu``, bit for bit against
-    their twins at the prefilters' shapes on bound-like, heavy-tie and
-    overflow bounds and the edge cases (k = 1, k = A, all -1, fewer than k
-    rows above -1); then each timed beside its twin, its bytes bound and,
-    for the selection, ``torch.topk`` of the same bounds at the same k."""
+    """K-b (``select_candidates``, one ``kb_select`` launch) and the dialplan
+    rescore (``rescore_rows``), both of ``csrc/select.cu``, bit for bit
+    against their twins at the prefilters' shapes on every kind of
+    ``SELECT_KINDS`` (``tools/select_timing.py``), at k = 1, the shape's k
+    and A, and on each side of the plan's switches (the longest row a
+    cluster holds in shared memory, the cooperative route, the first
+    streamed row); then each timed beside its twin, its bytes bound and,
+    for the selection, ``torch.topk`` of the same bounds at the same k, with
+    the overflow (refinement) and spread kinds timed at every shape. The
+    selection's time is the higher of the profiler's and CUDA events'
+    (``select_ms``)."""
     import torch
 
     from tiresias_tpu_torch.ops import match_lattice as ml
+    from tiresias_tpu_torch.tools.select_timing import (
+        SELECT_KINDS, SELECT_SHAPES, select_bounds, select_ms)
+    from tiresias_tpu_torch.utils import build, timing
 
     rng = np.random.default_rng(107)
+    index = torch.device(device).index or 0
+
+    def plan_of(b, a):
+        return ml._device_plan(index, b, a)[0]
 
     def same(kind, bnd, k) -> None:
         got = ml.select_candidates(bnd, k)
@@ -693,43 +746,83 @@ def phase_select(device) -> list[dict]:
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                               want[1])):
             fail(f"K-b select_candidates != twin on {kind} "
-                 f"{list(bnd.shape)} k={k}")
+                 f"{list(bnd.shape)} k={k} (plan {plan_of(*bnd.shape)})")
 
-    edges = {"k = A": ((3, 4097), 4097), "k = 1": ((64, 10_112), 1),
-             "all -1": ((64, 10_112), 256), "few rows above -1": (
-                 (8, 100_096), 1024), "k = A, 10,112 rows": ((1, 10_112),
-                                                             10_112)}
-    for name, ((b, a), k) in edges.items():
-        x = select_bounds("bounds", b, a, rng)
-        if name == "all -1":
-            x[:] = -1
-        elif name == "few rows above -1":
-            x[:, np.arange(a) % 200 != 0] = -1
-        same(name, torch.from_numpy(x).to(device), k)
+    def last(pred, lo=1, hi=ml.SELECT_MAX_ROWS):
+        # the longest row of batch 1 whose plan meets pred (pred(lo) holds)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if pred(plan_of(1, mid)) else (lo, mid)
+        return lo
+
+    fit = last(lambda p: not p.cooperative and p.resident)
+    grid = last(lambda p: p.resident, fit + 1)
+    shapes = [((b, a), k) for (b, a), k in SELECT_SHAPES]
+    shapes += [((1, fit), 256), ((1, fit + 1), 256), ((1, grid), 256),
+               ((1, grid + 1), 256), ((16, 1_000_000), 256), ((3, 4097), 4097),
+               ((1, 10_112), 10_112)]
+    for (b, a), k in shapes:
+        for kind in SELECT_KINDS:
+            bnd = torch.from_numpy(select_bounds(kind, b, a, rng)).to(device)
+            for kk in sorted({1, k, a} if a <= 100_096 else {1, k}):
+                same(kind, bnd, kk)
+            del bnd
     say(f"[kernels] K-b select_candidates: idx and unselected_max bitwise "
-        f"equal to the twin on {', '.join(edges)}")
+        f"equal to the twin on {', '.join(SELECT_KINDS)} at "
+        f"{', '.join(f'{list(s)} k={k}' for s, k in shapes)} (and k = 1, "
+        f"k = A up to 100,096 rows); the longest row a cluster holds "
+        f"{fit:,} (plan {plan_of(1, fit)}), then the cooperative route "
+        f"(plan {plan_of(1, fit + 1)}) to {grid:,}, the first streamed row "
+        f"{grid + 1:,} (plan {plan_of(1, grid + 1)})")
     cases = {}
     for (b, a), k in SELECT_SHAPES:
-        for kind in ("heavy ties", "overflow", "bounds"):
-            bnd = torch.from_numpy(select_bounds(kind, b, a, rng)).to(device)
-            same(kind, bnd, k)
+        bnd = torch.from_numpy(select_bounds("bounds", b, a, rng)).to(device)
         over = torch.from_numpy(select_bounds("overflow", b, a, rng)).to(
             device)
+        spread = torch.from_numpy(select_bounds("spread", b, a, rng)).to(
+            device)
+        plan = plan_of(b, a)
         label = f"K-b select_candidates [{b}, {a}] k={k}"
+        build.reset_launch_counts()
+        ml.select_candidates(bnd, k)
+        launches = build.LAUNCHES["select_candidates"]
+        kernels = select_kernels_per_call(lambda: ml.select_candidates(bnd,
+                                                                      k))
+        where = "this process"
+        if kernels is None:  # partial profiles here: a fresh process's
+            kernels, where = select_kernels_fresh(b, a, k), "a fresh process"
+        if launches != 1 or kernels is None or (
+                sum(kernels.values()) != 1
+                or not all("kb_select" in n for n in kernels)):
+            fail(f"{label}: {launches} launches, kernels per call "
+                 f"{kernels}: one kb_select kernel a call expected")
         t = timed(label, lambda: ml.select_candidates(bnd, k),
                   lambda: ml.select_candidates_reference(bnd, k), 5)
-        t["split"] = device_ms(lambda: ml.select_candidates(bnd, k),
-                               names=("kb_select_hist", "kb_select_finish",
-                                      "kb_select_compact"))
-        t["overflow_ms"] = device_ms(lambda: ml.select_candidates(over, k))
+        sel = select_ms(lambda: ml.select_candidates(bnd, k), timing)
+        t["device_ms"] = t["ms"]
+        t["ms"] = max(t["ms"], sel["ms"])  # the higher reading
+        t["select_ms"] = sel
+        t["overflow_ms"] = select_ms(lambda: ml.select_candidates(over, k),
+                                     timing)["ms"]
+        t["spread_ms"] = select_ms(lambda: ml.select_candidates(spread, k),
+                                   timing)["ms"]
         t["topk_ms"] = device_ms(lambda: torch.topk(bnd, k, dim=1))
+        t["launches_per_call"] = launches
+        t["kernels_per_call"] = kernels
+        t["plan"] = plan._asdict()
         t.update(bound(4 * b * a + 4 * b * k + 4 * b, 0))
-        say(f"[kernels] {label}: bitwise equal to the twin on bound-like, "
-            f"heavy-tie and overflow bounds; device {t['ms']} ms (hist, "
-            f"finish, compact {t['split']}), radix path (overflow) "
-            f"{t['overflow_ms']} ms, torch.topk {t['topk_ms']} ms, bound "
-            f"{t['bound_ms']:.6f} ms (bytes: the bounds read once, idx "
-            f"and the maximum written once)")
+        route = ("cooperative grid" if plan.cooperative else
+                 f"clusters, {'resident' if plan.resident else 'streamed'}")
+        say(f"[kernels] {label}: bitwise equal to the twin on every kind; "
+            f"{launches} launch a call ({', '.join(kernels)}, by the "
+            f"profiler in {where}); plan "
+            f"{plan.ctas} CTAs a row, {route}; device {t['ms']} ms (the "
+            f"higher of: device_ms {t['device_ms']}, kb_select by the "
+            f"profiler {sel['profiler_ms']}, CUDA events {sel['events_ms']})"
+            f", overflow (refinement) {t['overflow_ms']} ms, spread "
+            f"{t['spread_ms']} ms, torch.topk {t['topk_ms']} ms, bound "
+            f"{t['bound_ms']:.6f} ms (bytes: the bounds read once, idx and "
+            f"the maximum written once)")
         cases[f"[{b}, {a}] k={k}"] = t
     # the dialplan rescore: [64, 256] candidates of a 10,112- and a
     # 100,096-row float32 map, NaN rows, +inf, values exactly at tol

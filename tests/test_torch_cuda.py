@@ -686,19 +686,32 @@ def _select_bounds(kind, b, a, g):
         return x
     if kind == "int32_range":
         return g.integers(-2**31, 2**31 - 1, (b, a), endpoint=True)
+    if kind == "spread":  # 96 values, as chip_smoke's [64, 100,096] bounds
+        return g.integers(-1, 95, (b, a))
+    if kind == "wide":  # more values than bins: the refinement passes
+        return g.integers(0, 10**6, (b, a), endpoint=True)
+    if kind == "extremes":  # INT_MIN and INT_MAX tied at the threshold
+        x = g.integers(-1, 50, (b, a))
+        m = g.random((b, a))
+        x[m < 0.02] = 2**31 - 1
+        x[m > 0.98] = -2**31
+        return x
     raise ValueError(kind)
 
 
+SELECT_KINDS = ["random", "heavy_ties", "all_minus_one", "few_non_negative",
+                "overflow", "int32_range", "spread", "wide", "extremes"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "heavy_ties", "all_minus_one",
-                                  "few_non_negative", "overflow",
-                                  "int32_range"])
+@pytest.mark.parametrize("kind", SELECT_KINDS)
 @pytest.mark.parametrize("b,a", [(1, 1), (1, 7), (3, 4097), (64, 10112),
                                  (1, 100096), (2, 1000000)])
 def test_select_kernel_equals_twin_bitwise(dev, kind, b, a):
     """K-b: the kernel's rows and unselected maximum bit for bit equal to
     the twin's, at k = 1, 256, 1,024 and A (ties at the threshold, -1 rows,
-    values up to 2**31 - 1 and below -1)."""
+    values up to 2**31 - 1 and below -1, spread and wide bounds, INT_MIN
+    and INT_MAX at the threshold)."""
     g = np.random.default_rng(a + b)
     bound = torch.from_numpy(_select_bounds(kind, b, a, g).astype(
         np.int32)).to(dev)
@@ -711,6 +724,101 @@ def test_select_kernel_equals_twin_bitwise(dev, kind, b, a):
         assert idx.dtype == torch.int32 and rest.dtype == torch.int32
         assert torch.equal(idx, want_idx), (kind, k)
         assert torch.equal(rest, want_rest), (kind, k)
+
+
+def _select_plan(b, a):
+    return ml._device_plan(torch.cuda.current_device(), b, a)[0]
+
+
+def _select_switch_rows():
+    """The longest row a cluster holds in shared memory, and the longest
+    the cooperative route holds (the next streams)."""
+    def last(pred, lo=1, hi=ml.SELECT_MAX_ROWS):
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if pred(_select_plan(1, mid)) else (lo, mid)
+        return lo
+
+    fit = last(lambda p: p.resident and not p.cooperative)
+    return fit, last(lambda p: p.resident, fit + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [
+    "largest resident", "first cooperative", "largest cooperative",
+    "first streamed", "streamed batch 16", "cooperative batch 4",
+    "clusters of 8", "clusters of 4", "offset view",
+    "offset view cooperative"])
+@pytest.mark.parametrize("kind", ["random", "overflow", "extremes", "wide"])
+def test_select_kernel_at_the_switch_points(dev, route, kind):
+    """K-b on each side of its plan's switch points (the longest row a
+    cluster holds in shared memory, the cooperative route from the next
+    row to its longest, the first streamed row, the cluster sizes between,
+    a batch that shares the card and one that streams) and on bounds whose
+    rows start off 16 bytes: bitwise equal to the twin, one launch a
+    call."""
+    fit, grid = _select_switch_rows()
+    b, a = {"largest resident": (1, fit), "first cooperative": (1, fit + 1),
+            "largest cooperative": (1, grid), "first streamed": (1, grid + 1),
+            "streamed batch 16": (16, 1_000_000),
+            "cooperative batch 4": (4, 1_000_000),
+            "clusters of 8": (1, 10_112), "clusters of 4": (3, 4097),
+            "offset view": (5, 10_113),
+            "offset view cooperative": (1, 1_000_001)}[route]
+    g = np.random.default_rng(a + len(kind))
+    x = _select_bounds(kind, b, a, g).astype(np.int32)
+    if route == "cooperative batch 4":  # rows that refine to other depths
+        for r, other in enumerate(("wide", "int32_range", "heavy_ties"), 1):
+            x[r] = _select_bounds(other, 1, a, g)[0]
+    if route.startswith("offset view"):  # row starts at 4 (mod 16) bytes
+        flat = torch.from_numpy(np.concatenate([[7], x.ravel()]).astype(
+            np.int32)).to(dev)
+        bound = flat[1:].view(b, a)
+    else:
+        bound = torch.from_numpy(x).to(dev)
+    p = _select_plan(b, a)
+    want_plan = {"largest resident": (16, False, True),
+                 "first streamed": (16, False, False),
+                 "streamed batch 16": (16, False, False),
+                 "clusters of 8": (8, False, True),
+                 "clusters of 4": (4, False, True)}.get(route)
+    assert want_plan is None or (p.ctas, p.cooperative,
+                                 p.resident) == want_plan
+    if "cooperative" in route:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert p.cooperative and p.ctas == sms // b
+    for k in (1, 256, 1024):
+        build.reset_launch_counts()
+        idx, rest = ml.select_candidates(bound, k)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["select_candidates"] == 1
+        want_idx, want_rest = ml.select_candidates_reference(bound, k)
+        assert torch.equal(idx, want_idx), (route, kind, k)
+        assert torch.equal(rest, want_rest), (route, kind, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,a", [(64, 10112), (1, 100096), (64, 100096),
+                                 (1, 1000000)])
+def test_select_is_one_launch_of_one_kernel(dev, b, a):
+    """One select_candidates call is one kb_select kernel: no memset, topk
+    or sort kernel, no second launch (the profiler's device events)."""
+    g = np.random.default_rng(b)
+    bound = torch.from_numpy(_select_bounds("overflow", b, a, g).astype(
+        np.int32)).to(dev)
+    ml.select_candidates(bound, 256)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ml.select_candidates(bound, 256)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in kernels]
+    assert len(names) == 3 and all("kb_select" in n for n in names), names
+    assert not any(w in n.lower() for n in names
+                   for w in ("memset", "memcpy", "topk", "sort"))
 
 
 @pytest.mark.cuda

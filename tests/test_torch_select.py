@@ -5,8 +5,14 @@ rescore of the port, on the CPU with their plain twins.
 rule (every row above the k-th value v, then rows equal to v in ascending
 row order; ``idx`` ascending; the highest bound left out, -1 when none is)
 on heavy ties at the threshold, all -1 rows, fewer than k non-negative
-rows, k = A, k = 1 and values up to 2**31 - 1. ``rescore_rows_reference``
-is held int32 for int32 to JAX's ``_prefilter_core`` formula (the row
+rows, k = A, k = 1, values up to 2**31 - 1, spread bounds (96 values), wide
+ones (0..10**6: more values than the kernel's histogram has bins) and
+INT_MIN and INT_MAX tied at the threshold. The kernel's launch plan
+(``select_plan``: cluster size, slice, residency, shared memory) is held to
+its rules at the prefilters' shapes, at its switch points (cluster,
+cooperative grid, streamed) and at the 62,914,560-row limit.
+``rescore_rows_reference`` is held int32 for int32 to JAX's
+``_prefilter_core`` formula (the row
 gather, ``<= tol`` in float32, the HIGHEST-precision einsum, the context
 mask) with NaN rows and values exactly at ``tol``, and the whole selection
 and rescore to ``_prefilter_core`` itself at a tie-free k. The kernels
@@ -67,11 +73,21 @@ def _bounds(kind: str, b: int, a: int, seed: int) -> np.ndarray:
         return x
     if kind == "int32_range":
         return rng.integers(-1, INT_MAX, (b, a), endpoint=True)
+    if kind == "spread":  # 96 values, as a long query's bounds
+        return rng.integers(-1, 95, (b, a))
+    if kind == "wide":  # more distinct values than the histogram's bins
+        return rng.integers(0, 10**6, (b, a), endpoint=True)
+    if kind == "extremes":  # INT_MIN and INT_MAX, tied at the threshold
+        x = rng.integers(-1, 40, (b, a))
+        m = rng.random((b, a))
+        x[m < 0.2] = INT_MAX
+        x[m > 0.6] = -(2**31)
+        return x
     raise ValueError(kind)
 
 
 KINDS = ["random", "heavy_ties", "all_minus_one", "few_non_negative",
-         "overflow", "int32_range"]
+         "overflow", "int32_range", "spread", "wide", "extremes"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -85,6 +101,113 @@ def test_select_twin_follows_the_tie_rule(kind, k, b, a):
     assert idx.dtype == torch.int32 and rest.dtype == torch.int32
     np.testing.assert_array_equal(idx.numpy(), want_idx)
     np.testing.assert_array_equal(rest.numpy(), want_rest)
+
+
+# K-b's shapes on the prefilters' paths ([B, A], as SELECT_SHAPES in
+# tools/select_timing.py) and the plan each gets: (CTAs a row, None for one
+# an SM; cooperative; resident)
+PLAN_SHAPES = {(1, 1_000_000): (None, True, True),
+               (1, 100_096): (16, False, True),
+               (64, 10_112): (2, False, True), (64, 100_096): (2, False, True),
+               (1, 62_914_560): (16, False, False)}
+# clusters an H100 SXM (132 SMs) holds at once (tiresias_select_max_clusters
+# on the card, small CTAs): 4 CTAs 62, 8 CTAs 30, 16 CTAs 14; the 114-SM
+# card's are these counts scaled by 114 / 132 (a stand-in: its GPCs differ)
+H100_CLUSTERS = {2: 132, 4: 62, 8: 30, 16: 14}
+CARDS = {"h100": 132, "h100_114_sms": 114}
+
+
+def _clusters(sms):
+    def count(p):
+        return H100_CLUSTERS[p.ctas] * sms // 132 // (2 // p.ctas_per_sm)
+    return count
+
+
+def _plan(b, a, sms=132):
+    return tml.select_plan(b, a, sms, _clusters(sms))
+
+
+def _check_plan(p, rows, sms=132):
+    assert p.slice % 4 == 0 and p.slice * p.ctas >= rows
+    assert p.slice - 4 < -(-rows // p.ctas)  # the share, rounded up
+    assert p.chunk % tml.SELECT_TILE == 0 and 1 <= p.slots <= 8
+    assert p.slots * p.chunk >= p.data_elems
+    assert p.smem == tml._select_smem(p.cooperative, p.data_elems, p.slots)
+    assert p.smem <= tml._SMEM_BLOCK - tml._SMEM_STATIC
+    if p.cooperative:  # one CTA an SM, the slice resident
+        assert p.resident and p.ctas_per_sm == 1
+        assert tml.SELECT_GRID_MIN_CTAS <= p.ctas <= sms
+    else:
+        assert p.ctas in (2, 4, 8, 16)
+    if p.resident:  # the slice and its 16-byte alignment stay in the CTA
+        assert p.data_elems == p.slice + 4
+        assert -(-p.data_elems // p.chunk) <= p.slots
+    else:  # every pass streams it through the ring
+        assert (p.slots, p.chunk) == tml.SELECT_RING
+        assert p.data_elems == p.slots * p.chunk
+        assert tml._select_smem(False, p.slice + 4, 8) > (tml._SMEM_BLOCK
+                                                         - tml._SMEM_STATIC)
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES), ids=str)
+@pytest.mark.parametrize("card", list(CARDS))
+def test_select_plan_at_the_prefilters_shapes(shape, card):
+    b, a = shape
+    sms = CARDS[card]
+    p = _plan(b, a, sms)
+    _check_plan(p, a, sms)
+    ctas, coop, resident = PLAN_SHAPES[shape]
+    assert (p.ctas, p.cooperative, p.resident) == (ctas or sms, coop,
+                                                  resident)
+    # one wave: the card holds every row's CTAs at once (on the smaller
+    # card, 57 clusters of 2 large CTAs hold only part of a [64, 100,096]
+    # batch: no plan does better, and the plan widens no cluster then)
+    if p.cooperative:
+        assert b * p.ctas <= sms
+    elif card == "h100" or p.ctas > 2:
+        assert b <= _clusters(sms)(p)
+
+
+def test_select_plan_switch_points_and_range():
+    """The longest row a cluster holds in shared memory, then the
+    cooperative route up to the longest row its slices hold, then the
+    streamed clusters; small rows keep >= SELECT_MIN_SLICE rows a CTA,
+    never one CTA a row; a batch that leaves fewer than
+    SELECT_GRID_MIN_CTAS SMs a row streams; past the limit, or with no
+    batch, the plan raises."""
+    def last(pred, lo=1, hi=tml.SELECT_MAX_ROWS):
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if pred(_plan(1, mid)) else (lo, mid)
+        return lo
+
+    fit = last(lambda p: p.resident and not p.cooperative)
+    grid = last(lambda p: p.resident, fit + 1)
+    one, two = _plan(1, fit), _plan(1, fit + 1)
+    top, past = _plan(1, grid), _plan(1, grid + 1)
+    assert one.ctas == 16 and one.resident and not one.cooperative
+    assert two.cooperative and top.cooperative and two.ctas == 132
+    assert past.ctas == 16 and not past.resident and not past.cooperative
+    assert 800_000 < fit < 1_000_000 and 6_000_000 < grid < 8_000_000
+    for p, rows in ((one, fit), (two, fit + 1), (top, grid),
+                    (past, grid + 1)):
+        _check_plan(p, rows)
+    for b in (2, 4):  # the card shared between the rows
+        p = _plan(b, 1_000_000)
+        assert p.cooperative and p.ctas == 132 // b
+    for b in (8, 9):  # 16 slices past shared memory; 14 SMs a row
+        p = _plan(b, 1_000_000)
+        assert not p.cooperative and not p.resident
+    for rows in (1, 7, 4097, 10_112, 33_000, 250_000):
+        p = _plan(1, rows)
+        _check_plan(p, rows)
+        assert p.ctas >= 2 and p.resident and not p.cooperative
+        assert p.ctas == 2 or p.slice >= tml.SELECT_MIN_SLICE
+    assert _plan(3, 1).ctas == 2
+    with pytest.raises(ValueError, match="range"):
+        _plan(1, tml.SELECT_MAX_ROWS + 1)
+    with pytest.raises(ValueError, match="range"):
+        _plan(0, 100)
 
 
 def test_select_ties_at_the_threshold_by_row_order():

@@ -238,7 +238,7 @@ def link_mibs(device: torch.device, pinned: bool, n: int = 5) -> float:
 
 
 # the kernels of one prefiltered search, by a substring of their names:
-# K-a the bound scan, K-b the selection (csrc/select.cu's three kernels),
+# K-a the bound scan, K-b the selection (csrc/select.cu: one kb_select launch),
 # the dialplan rescore, K-c the candidate forms and their work list
 SPLIT = (("K1", "mfcc"), ("K-a", "bound_scan"), ("K-b", "kb_select"),
          ("rescore", "rescore_rows"), ("K-c", "match_votes"),

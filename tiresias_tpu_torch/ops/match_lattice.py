@@ -621,9 +621,128 @@ def select_candidates_reference(bound: torch.Tensor, k: int):
     return idx.to(torch.int32), rest
 
 
+# K-b's plan (csrc/select.cu): a thread-block cluster of CTAs per row, each
+# CTA one slice of it in shared memory, or streamed through a ring of chunks
+# where the slice does not fit; or, for a long row at a small batch, the
+# cooperative route: the row spread over the whole card, one CTA an SM
+SELECT_MAX_ROWS = 62_914_560        # rows a query (the selection's range)
+SELECT_TILE = 4_096                 # rows of a first-pass tile (8 a lane)
+SELECT_SLOTS = 8                    # chunks (mbarriers) of a resident slice
+SELECT_RING = (6, 8_192)            # streamed: slots, rows a slot
+SELECT_MIN_SLICE = 1_024            # no cluster splits a row finer
+SELECT_GRID_MIN_CTAS = 16           # the cooperative route: CTAs a row, least
+_SMEM_BLOCK = 232_448               # shared memory a block may use (opt-in)
+_SMEM_SM = 233_472                  # an SM's
+_SMEM_STATIC = 1_024                # the kernel's static shared memory, at most
+_SMEM_RESERVED = 1_024              # the system's share of a block
+
+
+class SelectPlan(NamedTuple):
+    """One ``kb_select`` launch: ``ctas`` CTAs per row, each over ``slice``
+    rows, as a thread-block cluster (``kb_select_kernel``) or, with
+    ``cooperative``, as a share of a cooperative grid of one CTA an SM
+    (``kb_select_grid_kernel``); ``resident``: the slice stays in shared
+    memory after the first pass (``data_elems`` = slice + 4: it is copied
+    from its 16-byte aligned start), else every pass streams it through
+    ``slots`` chunks of ``chunk`` rows; ``smem`` dynamic shared-memory bytes
+    a CTA; ``ctas_per_sm`` the CTAs an SM holds."""
+    ctas: int
+    cooperative: bool
+    slice: int
+    chunk: int
+    slots: int
+    resident: bool
+    data_elems: int
+    smem: int
+    ctas_per_sm: int
+
+
+def _select_smem(cooperative: bool, data_elems: int, slots: int) -> int:
+    # the slice, the histogram [2048], the cluster route's group maxima
+    # [2048], the mbarriers (the kernel's own: tiresias_select_smem)
+    return data_elems * 4 + 2048 * 4 + (0 if cooperative else 2048 * 4) \
+        + slots * 8
+
+
+def _select_slice_plan(rows: int, ctas: int, cooperative: bool) -> SelectPlan:
+    slice_ = -(-rows // ctas)
+    slice_ += -slice_ % 4
+    data = slice_ + 4
+    chunk = -(-data // SELECT_SLOTS)
+    chunk += -chunk % SELECT_TILE
+    slots = -(-data // chunk)
+    smem = _select_smem(cooperative, data, slots)
+    resident = smem <= _SMEM_BLOCK - _SMEM_STATIC
+    if not resident and not cooperative:
+        slots, chunk = SELECT_RING
+        data = slots * chunk
+        smem = _select_smem(cooperative, data, slots)
+    per_sm = 1 if cooperative else min(
+        2, _SMEM_SM // (smem + _SMEM_STATIC + _SMEM_RESERVED))
+    return SelectPlan(ctas, cooperative, slice_, chunk, slots, resident,
+                      data, smem, per_sm)
+
+
+def select_plan(batch: int, rows: int, sms: int,
+                max_clusters) -> SelectPlan:
+    """K-b's launch for bounds ``[batch, rows]`` on a card of ``sms`` SMs
+    that holds ``max_clusters(plan)`` clusters of a cluster plan at once
+    (``tiresias_select_max_clusters``): the smallest cluster (2 to 16 CTAs
+    a row) whose slices fit in shared memory, doubled while the batch
+    leaves SMs idle, each slice keeps ``SELECT_MIN_SLICE`` rows and the card
+    holds every cluster at once. A row past 16 slices (~860,000 rows) takes
+    the cooperative route, ``sms // batch`` CTAs a row, where that is at
+    least ``SELECT_GRID_MIN_CTAS`` and its slices fit in shared memory;
+    else its 16 slices stream."""
+    if batch < 1 or not 1 <= rows <= SELECT_MAX_ROWS:
+        raise ValueError(f"select_candidates: [{batch}, {rows}] bounds are "
+                         f"outside the kernel's range (1 to "
+                         f"{SELECT_MAX_ROWS:,} rows)")
+    plan = _select_slice_plan(rows, 2, False)
+    while plan.ctas < 16:
+        wider = _select_slice_plan(rows, 2 * plan.ctas, False)
+        if plan.resident and (
+                batch * plan.ctas >= sms
+                or wider.slice < SELECT_MIN_SLICE
+                or batch > max_clusters(wider)):
+            break
+        plan = wider
+    if not plan.resident and sms // batch >= SELECT_GRID_MIN_CTAS:
+        grid = _select_slice_plan(rows, sms // batch, True)
+        if grid.resident:
+            return grid
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _max_clusters(index: int, plan: SelectPlan) -> int:
+    with torch.cuda.device(index):
+        n = build.kernel_library().tiresias_select_max_clusters(
+            plan.slice * plan.ctas, plan.ctas, plan.slice, plan.chunk,
+            plan.slots, int(plan.resident), plan.data_elems)
+    if n < 0:
+        raise RuntimeError(f"select_candidates: the card refuses the plan "
+                           f"{plan} (CUDA error {-n})")
+    return n
+
+
 @functools.lru_cache(maxsize=1024)
-def _select_scratch_bytes(batch: int, rows: int) -> int:
-    return build.kernel_library().tiresias_select_scratch(batch, rows)
+def _device_plan(index: int, batch: int, rows: int):
+    """(plan, scratch words) of bounds ``[batch, rows]`` on device
+    ``index``, cached: a batch-1 search must not pay the plan's search. The
+    plan's shared memory is checked against the kernel's own layout."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    plan = select_plan(batch, rows, sms,
+                       functools.partial(_max_clusters, index))
+    lib = build.kernel_library()
+    smem = lib.tiresias_select_smem(int(plan.cooperative), plan.data_elems,
+                                    plan.slots)
+    if smem != plan.smem:
+        raise RuntimeError(f"select_candidates: the plan {plan} takes "
+                           f"{plan.smem} bytes of shared memory, the kernel "
+                           f"{smem}")
+    return plan, lib.tiresias_select_scratch(batch, plan.ctas,
+                                             int(plan.cooperative))
 
 
 def select_candidates(bound: torch.Tensor, k: int):
@@ -637,9 +756,12 @@ def select_candidates(bound: torch.Tensor, k: int):
     the TPU (recall 0.99): an exact selection only certifies more often, and
     no choice among tied rows moves a certificate (strict ``>``).
 
-    On a CUDA tensor: the three kernels of ``csrc/select.cu`` (a chunked
-    histogram, the threshold per row, an ordered compaction); on a CPU
-    tensor: :func:`select_candidates_reference`."""
+    On a CUDA tensor: one launch of a ``kb_select`` kernel
+    (``csrc/select.cu``, as :func:`select_plan` says: a cluster of CTAs per
+    row, or a cooperative grid over the card for a long row at a small
+    batch; a histogram merged across the CTAs finds the ``k``-th value, an
+    ordered compaction writes the rows); on a CPU tensor:
+    :func:`select_candidates_reference`."""
     if bound.device.type == "cpu":
         return select_candidates_reference(bound, k)
     if not (bound.device.type == "cuda" and bound.dim() == 2
@@ -650,19 +772,30 @@ def select_candidates(bound: torch.Tensor, k: int):
             f"CUDA device and 1 <= k <= A (got {tuple(bound.shape)} "
             f"{bound.dtype} on {bound.device}, k={k})")
     b, a = bound.shape
+    if b == 0:
+        return (torch.empty((0, k), dtype=torch.int32, device=bound.device),
+                torch.empty((0,), dtype=torch.int32, device=bound.device))
+    dev = bound.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _select_launch(bound, k, *_device_plan(index, b, a))
+
+
+def _select_launch(bound: torch.Tensor, k: int, plan: SelectPlan,
+                   words: int):
+    # one kb_select launch of ``plan`` (``words`` of scratch) on checked
+    # bounds; tools/select_timing.py forces a route through it
+    b, a = bound.shape
     dev = bound.device
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     unselected = torch.empty((b,), dtype=torch.int32, device=dev)
-    if b == 0:
-        return idx, unselected
-    n_bytes = _select_scratch_bytes(b, a)
-    if n_bytes < 0:
-        raise ValueError(f"select_candidates: {a} rows exceed the kernel's "
-                         f"chunking")
-    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    scratch = (torch.empty((words,), dtype=torch.int32, device=dev)
+               if words else None)
     rc = build.kernel_library().tiresias_select_candidates(
-        bound.data_ptr(), b, a, k, scratch.data_ptr(), idx.data_ptr(),
-        unselected.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        bound.data_ptr(), b, a, k, plan.ctas, int(plan.cooperative),
+        plan.slice, plan.chunk, plan.slots, int(plan.resident),
+        plan.data_elems, scratch.data_ptr() if words else None,
+        idx.data_ptr(), unselected.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check("select_candidates", rc)
     return idx, unselected
 

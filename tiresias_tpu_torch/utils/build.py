@@ -47,7 +47,7 @@ NVCC_FLAGS = (
 # group_candidates its work list (three kernels, one launch count); the
 # *_per_item names the per-item candidate form (the forced "per_item" route,
 # and batch 1); select_candidates is every prefilter's candidate selection
-# (K-b: three kernels, one launch count) and rescore_rows the dialplan
+# (K-b: one kernel, kb_select_kernel) and rescore_rows the dialplan
 # prefilter's rescore.
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
@@ -127,15 +127,22 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
         _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
     ],
-    # batch, rows -> scratch bytes (-1: too many rows)
-    "tiresias_select_scratch": [_I, _I],
-    # bound, batch, rows, k, scratch, idx, unselected_max, stream
-    "tiresias_select_candidates": [_P, _I, _I, _I, _P, _P, _P, _P],
+    # bound, batch, rows, k, the plan (ctas, cooperative, slice, chunk,
+    # slots, resident, data_elems), scratch (or null), idx, unselected_max,
+    # stream
+    "tiresias_select_candidates": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _P, _P, _P, _P],
+    # batch, ctas, cooperative -> 4-byte words of scratch
+    "tiresias_select_scratch": [_I, _I, _I],
+    # cooperative, data_elems, slots -> dynamic shared memory of a CTA
+    "tiresias_select_smem": [_I, _I, _I],
+    # rows, the plan (ctas, slice, chunk, slots, resident, data_elems) ->
+    # clusters the card holds at once
+    "tiresias_select_max_clusters": [_I, _I, _I, _I, _I, _I, _I],
     # value_map, k_size, counts, idx, batch, k, tol, ctx_ids (or null),
     # ctx_id, votes, stream
     "tiresias_rescore_rows": [_P, _I, _P, _P, _I, _I, _F, _P, _I, _P, _P],
 }
-_RESTYPES = {"tiresias_select_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 # the serve layer launches from several executor threads at once: an
@@ -233,7 +240,7 @@ def kernel_library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _RESTYPES.get(name, ctypes.c_int)
+            fn.restype = ctypes.c_int
         _lib = lib
         _build_seconds = time.perf_counter() - t0
         return _lib

@@ -81,15 +81,32 @@ def events_ms(fn, reps: int = 20, flush: bool = False) -> float:
     return total / reps
 
 
+# the spin kernel of torch.cuda._sleep, which edge_spin launches
+SPIN = "spin_kernel"
+
+
+def edge_spin() -> None:
+    """A ~0.5 ms spin kernel for each end of a profile window, meant to
+    take records CUPTI might lose at a window's edges. In a long process a
+    profile of ``reps`` calls still records some kernels ``reps - 1`` times
+    with the spins in place (H100, chip_smoke.py): the loss is not at the
+    edges, and :func:`device_ms` retakes such a profile. Profiles leave
+    ``SPIN`` out of their sums."""
+    torch.cuda._sleep(1_000_000)
+
+
 def device_ms(fn, reps: int = 20, attempts: int = 3, flush: bool = False,
               names: tuple | None = None):
     """Device time per call: the CUDA kernel and memory-op time
     torch.profiler records over ``reps`` calls, divided by ``reps``. With
     ``names``, a dict of each kernel name that contains one of them (the
     share of each launch of a pair). With ``flush``, the L2 cache is
-    flushed before each call, and the flush is left out of the sum. A
-    profile that records none of the summed time (CUPTI occasionally
-    delivers none for a short window) is taken again, up to ``attempts``
+    flushed before each call, and the flush is left out of the sum; so are
+    the spin kernels at the window's edges (:func:`edge_spin`). A
+    profile that records none of the summed time, or records a kernel a
+    number of times that is no multiple of ``reps`` (CUPTI occasionally
+    delivers none, or drops records, for a short window; every call
+    launches the same kernels), is taken again, up to ``attempts``
     profiles (one while the previous call's profiles were all empty); then
     this call times with CUDA events instead (:func:`events_ms`), and a split
     by ``names`` is unknown (None). The clock used is appended to
@@ -104,26 +121,35 @@ def device_ms(fn, reps: int = 20, attempts: int = 3, flush: bool = False,
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)  # per-cycle
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                edge_spin()
                 for _ in range(reps):
                     if buf is not None:
                         buf.bitwise_not_()
                     fn()
+                edge_spin()
                 torch.cuda.synchronize()
         per = {n: 0.0 for n in names or ("",)}
+        short = []
         for e in prof.key_averages():
-            if buf is not None and "bitwise_not" in e.key:
+            if SPIN in e.key or (buf is not None and "bitwise_not" in e.key):
                 continue
             us = getattr(e, "self_device_time_total", 0)
+            if us > 0 and e.count % reps:
+                short.append(f"{e.key[:48]} x{e.count}")
             for n in per:
                 if n in e.key:
                     per[n] += us / 1e3 / reps
-        if sum(per.values()) > 0:
+        if short:
+            print(f"[profiler] device records are no whole number a call "
+                  f"over {reps} calls ({'; '.join(short)})", flush=True)
+        elif sum(per.values()) > 0:
             CLOCKS.append("profiler")
             return per if names else per[""]
-        print(f"[profiler] no CUDA device time recorded over {reps} calls",
-              flush=True)
-    print(f"[profiler] no CUDA device time in {attempts} profile(s) in a "
-          f"row: this call times with CUDA events (events_ms)", flush=True)
+        else:
+            print(f"[profiler] no CUDA device time recorded over {reps} "
+                  f"calls", flush=True)
+    print(f"[profiler] no whole profile in {attempts} attempt(s) in a row: "
+          f"this call times with CUDA events (events_ms)", flush=True)
     CLOCKS.append("events")
     if names:
         return dict.fromkeys(names)
