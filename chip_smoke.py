@@ -35,7 +35,12 @@ checked, memory flat, the card's busy share from the profiler; and
 and the quickstart in subprocesses; and (``[bench]``) the port's benchmark
 harness, ``python -m tiresias_tpu_torch.bench``, over its headline and the
 search, engine_search and device_rank sections at their full sizes, each
-section's checks passed and its kernels launched. ``[catalog]`` also restores a
+section's checks passed and its kernels launched. ``[dryrun]`` (after
+``[shard]``) runs the port's dry run, ``tiresias_tpu_torch/dryrun.py``, in
+this process: ``entry()``'s fingerprint-and-match step, then
+``dryrun_multichip(8)`` with its served TCP search and its sharded ingest
+and checkpoint restore on eight cells of the card, counting each piece's
+launches. ``[catalog]`` also restores a
 hand-written version-2 checkpoint of the catalog's first 1,024 tracks,
 bitwise equal to their version-4 restore.
 
@@ -65,6 +70,7 @@ import numpy as np
 try:  # the port's CUDA timing helpers; main() fails first without the port
     from tiresias_tpu_torch.utils.timing import (
         CLOCKS,
+        LEAD_LOST,
         SPIN,
         call_ms,
         clocks_since,
@@ -655,17 +661,14 @@ def phase_kernels(device, dsp) -> list[dict]:
 def select_kernels_per_call(fn, calls: int = 8, attempts: int = 6):
     """The CUDA kernels ``calls`` calls of ``fn`` ran, by name, per call
     (torch.profiler's device events, between spin kernels at the window's
-    edges), or None where
-    ``attempts`` profiles in a row recorded no device event or some kernel
-    a number of times that is no multiple of ``calls`` (a partial
-    profile; ``device_ms`` retries the same way)."""
+    edges), or None where ``attempts`` profiles in a row recorded no device
+    event or some kernel a number of times that is no multiple of
+    ``calls`` (a partial profile)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        if attempt:
-            time.sleep(0.2)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             edge_spin()
@@ -692,21 +695,25 @@ _SELECT_KERNELS = (
     "import chip_smoke as cs\n"
     "from tiresias_tpu_torch.ops import match_lattice as ml\n"
     "from tiresias_tpu_torch.tools.select_timing import select_bounds\n"
-    "b, a, k = json.loads(sys.argv[2])\n"
-    "x = torch.from_numpy(select_bounds('bounds', b, a,"
+    "out = []\n"
+    "for b, a, k in json.loads(sys.argv[2]):\n"
+    "    x = torch.from_numpy(select_bounds('bounds', b, a,"
     " np.random.default_rng(0))).cuda()\n"
-    "print(json.dumps(cs.select_kernels_per_call("
-    "lambda: ml.select_candidates(x, k))))\n"
+    "    out.append(cs.select_kernels_per_call("
+    "lambda: ml.select_candidates(x, k)))\n"
+    "    del x\n"
+    "print(json.dumps(out))\n"
 )
 
 
-def select_kernels_fresh(b: int, a: int, k: int):
+def select_kernels_fresh(shapes: list) -> list:
     """:func:`select_kernels_per_call` of one select_candidates call on
-    bound-like ``[b, a]`` bounds at ``k``, in a fresh process (whose
-    profiler has recorded nothing before)."""
+    bound-like ``[b, a]`` bounds at ``k`` for each ``(b, a, k)`` of
+    ``shapes``, in one fresh process (whose profiler has recorded nothing
+    before)."""
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
-        [sys.executable, "-c", _SELECT_KERNELS, here, json.dumps([b, a, k])],
+        [sys.executable, "-c", _SELECT_KERNELS, here, json.dumps(shapes)],
         env=dict(os.environ, PYTHONPATH=here), capture_output=True,
         text=True, timeout=300, cwd=here)
     if proc.returncode != 0:
@@ -775,7 +782,8 @@ def phase_select(device) -> list[dict]:
         f"(plan {plan_of(1, fit + 1)}) to {grid:,}, the first streamed row "
         f"{grid + 1:,} (plan {plan_of(1, grid + 1)})")
     cases = {}
-    for (b, a), k in SELECT_SHAPES:
+    per_call = select_kernels_fresh([[b, a, k] for (b, a), k in SELECT_SHAPES])
+    for ((b, a), k), kernels in zip(SELECT_SHAPES, per_call, strict=True):
         bnd = torch.from_numpy(select_bounds("bounds", b, a, rng)).to(device)
         over = torch.from_numpy(select_bounds("overflow", b, a, rng)).to(
             device)
@@ -786,11 +794,6 @@ def phase_select(device) -> list[dict]:
         build.reset_launch_counts()
         ml.select_candidates(bnd, k)
         launches = build.LAUNCHES["select_candidates"]
-        kernels = select_kernels_per_call(lambda: ml.select_candidates(bnd,
-                                                                      k))
-        where = "this process"
-        if kernels is None:  # partial profiles here: a fresh process's
-            kernels, where = select_kernels_fresh(b, a, k), "a fresh process"
         if launches != 1 or kernels is None or (
                 sum(kernels.values()) != 1
                 or not all("kb_select" in n for n in kernels)):
@@ -815,7 +818,7 @@ def phase_select(device) -> list[dict]:
                  f"clusters, {'resident' if plan.resident else 'streamed'}")
         say(f"[kernels] {label}: bitwise equal to the twin on every kind; "
             f"{launches} launch a call ({', '.join(kernels)}, by the "
-            f"profiler in {where}); plan "
+            f"profiler in a fresh process); plan "
             f"{plan.ctas} CTAs a row, {route}; device {t['ms']} ms (the "
             f"higher of: device_ms {t['device_ms']}, kb_select by the "
             f"profiler {sel['profiler_ms']}, CUDA events {sel['events_ms']})"
@@ -1853,21 +1856,23 @@ def phase_search(device, eng, queries):
                  f"{tol}")
         results[tol] = got["prefilter"]
     p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
-    dev_ms = {}
+    dev_ms, clock = {}, {}
     for path in paths:
         with (gates_closed() if path == "full" else contextlib.nullcontext()):
             dev_ms[path, 1] = device_ms(
                 lambda: eng.search_pcm(None, queries[0], SR), reps=10)
+            clock[path, 1] = CLOCKS[-1]
             dev_ms[path, 64] = device_ms(
                 lambda: eng.search_pcm_batch(None, queries[:64], SR),
                 reps=5) / 64
+            clock[path, 64] = CLOCKS[-1]
     for path in paths:
         say(f"[search] {path}: device time {dev_ms[path, 1]:.4f} ms/query at "
             f"batch 1 ({100 * dev_ms[path, 1] / p50[path, 1]:.1f}% of the p50 "
-            f"wall time), {dev_ms[path, 64]:.4f} ms/query at batch 64 "
-            f"({100 * dev_ms[path, 64] / p50[path, 64]:.1f}%); p50 "
-            f"{p50[path, 1]:.4f} ms/query at batch 1, {p50[path, 64]:.4f} "
-            f"ms/query at batch 64")
+            f"wall time; {clock[path, 1]}), {dev_ms[path, 64]:.4f} ms/query "
+            f"at batch 64 ({100 * dev_ms[path, 64] / p50[path, 64]:.1f}%; "
+            f"{clock[path, 64]}); p50 {p50[path, 1]:.4f} ms/query at batch "
+            f"1, {p50[path, 64]:.4f} ms/query at batch 64")
     found = sum(r.found for r in results[1.0][:N_EXCERPTS])
     cert, miss = notes.get("lattice", [0, 0])
     say(f"[search] {len(queries)} queries ({N_EXCERPTS} excerpts + "
@@ -1883,6 +1888,7 @@ def phase_search(device, eng, queries):
     return results, {k: p50[("prefilter", k)] for k in (1, 64)}, {
         "p50": {f"{p}_b{b}": v for (p, b), v in p50.items()},
         "device_ms": {f"{p}_b{b}": v for (p, b), v in dev_ms.items()},
+        "clock": {f"{p}_b{b}": v for (p, b), v in clock.items()},
         "certified": cert, "fell_back": miss}
 
 
@@ -3547,6 +3553,111 @@ def phase_shard(device, eng, cfg, media: str, queries, excerpts: dict,
     return out
 
 
+DRYRUN_CELLS = 8  # dryrun_multichip's (4, 2) mesh, every cell on this card
+FP_KERNELS = ("mfcc_rows", "mfcc_framed")
+
+
+def phase_dryrun(device, card: str) -> dict:
+    """The port's dry run (``tiresias_tpu_torch/dryrun.py``) in this process
+    on the card: ``entry()``'s fingerprint-and-match step, its fingerprints
+    within the bound of the twin's and its K4 votes int32-equal to the
+    twin's on the same fingerprints; then ``dryrun_multichip(8)`` on a (4,
+    2) mesh of eight cells on this card, its op checks and its three pieces
+    (a TCP recognition through ``RecognitionServer``, a meshed ``sync()``
+    with a search, a checkpoint restored into a fresh meshed engine that
+    must answer the same). The launch counts are zeroed around each piece:
+    ``entry()`` must launch a fingerprint kernel and K4 ``match_votes``,
+    each search K4 once per cell, and every batch of the meshed sync a
+    fingerprint kernel on every cell. Returns each piece's wall seconds and
+    launches, and the summary."""
+    import torch
+
+    from tiresias_tpu_torch import dryrun
+    from tiresias_tpu_torch.engine import sync as esync
+    from tiresias_tpu_torch.utils import build
+
+    pieces = {}
+
+    @contextlib.contextmanager
+    def piece(name):
+        torch.cuda.synchronize(device)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize(device)
+        pieces[name] = {"s": time.perf_counter() - t0,
+                        "launches": {k: v for k, v in build.LAUNCHES.items()
+                                     if v}}
+
+    def fp_launches() -> int:
+        return sum(build.LAUNCHES[n] for n in FP_KERNELS)
+
+    with piece("entry"):
+        fn, args = dryrun.entry(device)
+        best, count = fn(*args)
+    shapes = [tuple(x.shape) for x in (best, count)]
+    got = pieces["entry"]["launches"]
+    if not (got.get("match_votes", 0) > 0
+            and any(got.get(n, 0) > 0 for n in FP_KERNELS)):
+        fail(f"[dryrun] entry() launched {got}: a fingerprint kernel and "
+             f"match_votes expected")
+    pcm, db, mask = args
+    fp = dryrun.fingerprint_padded_batch(pcm, SR, dryrun.DspConfig(),
+                                         device=device)
+    twin = dryrun.fingerprint_padded_batch(pcm, SR, dryrun.DspConfig(),
+                                           device="cpu")
+    err, ratio = fp_within_bound(fp.cpu(), twin)
+    votes = dryrun.entry_votes(fp, db, mask)
+    if ratio > 1.0 or not torch.equal(
+            votes.cpu(), dryrun.entry_votes(fp.cpu(), db, mask)):
+        fail(f"[dryrun] entry(): fingerprints {err} dB from the twin's "
+             f"({ratio:.3f}x the bound), or K4 votes differ from the twin's "
+             f"on the same fingerprints")
+    say(f"[dryrun] entry ok: {shapes} best {best.tolist()} count "
+        f"{count.tolist()} in {pieces['entry']['s']:.3f} s (launches "
+        f"{got}); fingerprints {err} dB from the twin ({ratio:.3f}x the "
+        f"bound), K4 votes int32-equal to the twin's; {card}")
+    # every batch of a meshed sync: one fingerprint kernel per cell
+    batches = []
+    real = esync.sharded_fingerprint
+
+    def counted(mesh, *a, **kw):
+        n0 = fp_launches()
+        out = real(mesh, *a, **kw)
+        batches.append((mesh.size, fp_launches() - n0))
+        return out
+
+    t0 = time.perf_counter()
+    esync.sharded_fingerprint = counted
+    try:
+        summary = dryrun.dryrun_multichip(DRYRUN_CELLS, device.type,
+                                          piece=piece)
+    finally:
+        esync.sharded_fingerprint = real
+    wall = time.perf_counter() - t0
+    searched = ("served_search", "sharded_ingest", "mesh_checkpoint")
+    for name in searched:  # one search each
+        n = pieces[name]["launches"].get("match_votes", 0)
+        if n != DRYRUN_CELLS:
+            fail(f"[dryrun] {name}: match_votes launched {n} times in its "
+                 f"one search, once per cell ({DRYRUN_CELLS}) expected")
+    if not batches or any(n != cells for cells, n in batches):
+        fail(f"[dryrun] the meshed sync's batches launched (cells, "
+             f"fingerprint kernels) {batches}: one per cell expected")
+    say(f"[dryrun] dryrun_multichip ok: {json.dumps(summary)} in "
+        f"{wall:.3f} s; {card}")
+    for name in searched:
+        say(f"[dryrun] {name}: {summary[name]} in {pieces[name]['s']:.3f} s,"
+            f" launches {pieces[name]['launches']}; {card}")
+    say(f"[dryrun] the meshed sync: {len(batches)} batch(es), fingerprint "
+        f"kernels per batch {[n for _, n in batches]} on {DRYRUN_CELLS} "
+        f"cells")
+    return {"entry": {"shapes": shapes, "s": pieces["entry"]["s"],
+                      "fp_err_db": err},
+            "summary": summary, "s": wall, "pieces": pieces,
+            "sync_batches": batches}
+
+
 def shard_certs(votes, certs, full) -> dict:
     """Per-shard and all-shard certificate counts of a sharded prefilter;
     fails unless every query whose shards all certify has the full scan's
@@ -4234,6 +4345,8 @@ def run(device) -> dict:
                             card["card"])
         shard_launches = shard["launches"]
         took("[shard]")
+        dry = phase_dryrun(device, card["card"])
+        took("[dryrun]")
         torch.cuda.synchronize(device)
         build.reset_launch_counts()  # --- the serve path starts here ---
         serve_launches = phase_serve(device, eng, cfg, queries)
@@ -4271,13 +4384,21 @@ def run(device) -> dict:
         k["launches_serve"] = serve_launches[k["name"]]
         k["launches_shard"] = shard_launches[k["name"]]
         k["launches_soak"] = soak_launches[k["name"]]
-    clocks = {c: CLOCKS.count(c) for c in ("profiler", "events")}
+        k["launches_dryrun"] = sum(p["launches"].get(k["name"], 0)
+                                   for p in dry["pieces"].values())
+    clocks = {c: CLOCKS.count(c)
+              for c in ("profiler", "profiler-scaled", "events")}
+    lost = [n for n in LEAD_LOST if n]
+    clocks["lead_in_lost"] = {"profiles": len(lost), "of": len(LEAD_LOST),
+                              "records_max": max(lost, default=0),
+                              "records_total": sum(lost)}
     say(f"[clocks] device_ms calls by clock: {clocks}")
     return {"kernels": kernels, "card": card["card"], "ingest_rate": rate,
             "p50": p50, "strict_p50": strict_p50,
             "summary": {"search": search_info, "strict": strict_info,
                         "library_ms": library, "prefilter": prefilter,
                         "mutate": mutate, "shard": shard, "soak": soak,
+                        "dryrun": dry,
                         "tools": {k: v["s"] for k, v in tools.items()},
                         "bench": bench,
                         "bound_scan": SCAN, "clocks": clocks}}

@@ -323,3 +323,156 @@ def test_serve_and_cli_import_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+# ---- utils/timing: the arithmetic of a profile's reading (no card) ------ #
+
+
+def _records(per_call: dict, reps: int, us: dict, lost: dict | None = None):
+    """A synthetic profile: ``per_call[name]`` records a call of ``us[name]``
+    microseconds each over ``reps`` calls, the first ``lost[name]`` of each
+    name missing (CUPTI loses a profile's first records)."""
+    out = []
+    for name, n in per_call.items():
+        out += [(name, us[name])] * (n * reps - (lost or {}).get(name, 0))
+    return out
+
+
+def test_profile_reading_of_a_whole_profile():
+    from tiresias_tpu_torch.utils import timing
+
+    recs = _records({"k_a": 1, "k_b": 2}, 20, {"k_a": 10.0, "k_b": 3.0})
+    per, scaled = timing.profile_reading(recs, 20)
+    assert scaled == [] and per[""] == pytest.approx(0.016)
+    per, _ = timing.profile_reading(recs, 20, names=("k_a", "k_b"))
+    assert per == pytest.approx({"k_a": 0.010, "k_b": 0.006})
+
+
+def test_profile_reading_scales_lost_records_by_the_counters():
+    """Records lost from two kernels: each reads as its mean record time
+    times its launches a call (the counters'); the reading equals the
+    whole profile's where every record of a kernel takes the same time."""
+    from tiresias_tpu_torch.utils import timing
+
+    calls = {"k_a": 1, "k_b": 2, "k_c": 3}
+    us = {"k_a": 10.0, "k_b": 3.0, "k_c": 1.5}
+    whole, _ = timing.profile_reading(_records(calls, 20, us), 20)
+    lost = {"k_a": 3, "k_b": 25, "k_c": 2}  # k_b lost more than a call
+    per, scaled = timing.profile_reading(_records(calls, 20, us, lost), 20,
+                                         per_call=calls)
+    assert sorted(scaled) == ["k_a", "k_b", "k_c"]
+    assert per[""] == pytest.approx(whole[""])
+
+
+def test_profile_reading_without_a_counter_takes_the_fewest_launches():
+    """A kernel no counter names (plain torch, a memset) reads with the
+    fewest whole launches a call its records allow: right while it lost
+    less than a call's worth of records, low past that."""
+    from tiresias_tpu_torch.utils import timing
+
+    us = {"k_b": 3.0}
+    per, scaled = timing.profile_reading(
+        _records({"k_b": 2}, 20, us, {"k_b": 1}), 20)
+    assert scaled == ["k_b"] and per[""] == pytest.approx(0.006)
+    per, _ = timing.profile_reading(
+        _records({"k_b": 2}, 20, us, {"k_b": 21}), 20)
+    assert per[""] == pytest.approx(0.003)
+
+
+def test_launches_per_call_from_the_counters():
+    """The counters' launches over the profile give each kernel name the
+    table (build.KERNEL_NAMES) links to them, where they are a whole number
+    a call; K3''s counter names both of its kernels."""
+    from tiresias_tpu_torch.utils import build, timing
+
+    before = dict.fromkeys(build.LAUNCHES, 0)
+    after = dict(before, lattice_votes=20, select_candidates=21,
+                 match_votes=40, match_votes_cand_per_item=20)
+    names = {"void lattice_planes_kernel(int const*)",
+             "void lattice_votes_kernel<1, float>(float const*)",
+             "void (anonymous namespace)::kb_select_kernel<false>(int*)",
+             "void (anonymous namespace)::match_votes_kernel<false>(float)",
+             "void (anonymous namespace)::match_votes_kernel<true>(float)",
+             "void at::native::vectorized_elementwise_kernel<4>(int)"}
+    got = timing.launches_per_call(names, before, after, 20)
+    assert got == {
+        "void lattice_planes_kernel(int const*)": 1,
+        "void lattice_votes_kernel<1, float>(float const*)": 1,
+        "void (anonymous namespace)::match_votes_kernel<false>(float)": 2,
+        "void (anonymous namespace)::match_votes_kernel<true>(float)": 1}
+
+
+def test_kernel_names_cover_every_counter_and_kernel():
+    """Every launch counter names its kernels, and every __global__ kernel
+    of csrc/ is named by one counter."""
+    import re
+
+    from tiresias_tpu_torch.utils import build
+
+    assert set(build.KERNEL_NAMES) == set(build.LAUNCHES)
+    parts = [(c, p) for c, ps in build.KERNEL_NAMES.items() for p in ps]
+    src = "".join(open(os.path.join(build.CSRC, f)).read()
+                  for f in build.SOURCES)
+    kernels = set(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*"
+                             r"\)\s*)?(\w+)\(", src))
+    assert len(kernels) >= 20
+    for k in kernels:
+        owners = {c for c, p in parts if p.split("<")[0] == k}
+        assert owners, k
+
+
+def test_profiler_loss_accountant_splits_device_ms_time():
+    """tools/profiler_loss's Accountant on stand-ins for a tree's timing
+    module and chip_smoke: a device_ms call that profiles three times and
+    falls back to CUDA events counts two further profiles and a fallback;
+    a direct events_ms call, a fresh-process check and each [time] line are
+    counted apart."""
+    import time
+    import types
+
+    from tiresias_tpu_torch.tools.profiler_loss import Accountant
+
+    class Profile:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    timing = types.SimpleNamespace(CLOCKS=[], profile=Profile)
+
+    def events_ms(fn, reps=20):
+        time.sleep(0.01)
+        return 1.0
+
+    def device_ms(fn, reps=20):
+        for _ in range(3 if fn() else 1):
+            with timing.profile(activities=()):
+                pass
+        if fn():
+            timing.CLOCKS.append("events")
+            return timing.events_ms(fn, reps)
+        timing.CLOCKS.append("profiler")
+        return 0.5
+
+    timing.events_ms, timing.device_ms = events_ms, device_ms
+    said = []
+    cs = types.SimpleNamespace(say=said.append, device_ms=device_ms,
+                               events_ms=events_ms,
+                               select_kernels_fresh=lambda shapes: shapes)
+    acct = Accountant(timing, cs)
+    cs.device_ms(lambda: False)
+    cs.device_ms(lambda: True)
+    cs.events_ms(None)
+    cs.say("[time] a done at 1.0 s")
+    cs.select_kernels_fresh([1])
+    got = acct.totals()
+    assert (got["device_ms_calls"], got["profiles"], got["further_profiles"],
+            got["events_fallbacks"], got["events_direct_calls"],
+            got["fresh_processes_calls"]) == (2, 4, 2, 1, 1, 1)
+    assert got["events_fallback_s"] >= 0.01 and got["events_direct_s"] >= 0.01
+    assert said == ["[time] a done at 1.0 s"]
+    assert acct.phases[0][1]["fresh_processes_calls"] == 0

@@ -83,8 +83,9 @@ def select_bounds(kind: str, b: int, a: int, rng) -> np.ndarray:
 def select_ms(fn, timing, reps: int = 50) -> dict:
     """Device ms per call of ``fn`` (one ``select_candidates`` call) by two
     clocks of the ``timing`` module (``tiresias_tpu_torch.utils.timing``):
-    torch.profiler's ``kb_select`` kernel time (``profiler_ms``; None where
-    it recorded no whole number of kernels a call) and CUDA events around
+    torch.profiler's ``kb_select`` kernel time (``profiler_ms``, whole or
+    read from the records that arrived; None where the profile recorded no
+    device time) and CUDA events around
     each call with the host ahead (``events_ms``: the kernel, and anything
     else the call puts on the stream). ``ms`` is the higher. ``host_ms``:
     the host's time to enqueue one call (``reps`` calls on the host clock

@@ -62,6 +62,35 @@ LAUNCHES: dict[str, int] = {
     "select_candidates": 0, "rescore_rows": 0,
 }
 
+# The CUDA kernels each counted launch runs once, by a part of their names
+# as torch.profiler records them (demangled; template arguments kept): a
+# profile's launches per call of a kernel are its counter's per call
+# (utils/timing.py reads a profile that lost records with them).
+KERNEL_NAMES: dict[str, tuple[str, ...]] = {
+    "mfcc_rows": ("mfcc_rows_fft_kernel",),
+    "mfcc_framed": ("mfcc_framed_fft_kernel",),
+    "mfcc_rows_dft": ("mfcc_rows_kernel",),
+    "mfcc_framed_dft": ("mfcc_framed_kernel",),
+    "lattice_votes": ("lattice_planes_kernel", "lattice_votes_kernel"),
+    "bound_scan_planes": ("bound_scan_planes_kernel",),
+    "bound_scan": ("bound_scan_kernel",),
+    "match_votes": ("match_votes_kernel<false>",),
+    "match_votes_aligned": ("match_votes_aligned_kernel<false>",),
+    "match_votes_aligned_dense": ("match_votes_aligned_dense_kernel<false>",),
+    "group_candidates": ("group_count_kernel", "group_scan_kernel",
+                         "group_scatter_kernel"),
+    "match_votes_cand": ("match_votes_group_kernel",),
+    "match_votes_aligned_cand": ("match_votes_aligned_group_kernel",),
+    "match_votes_aligned_cand_dense": (
+        "match_votes_aligned_group_dense_kernel",),
+    "match_votes_cand_per_item": ("match_votes_kernel<true>",),
+    "match_votes_aligned_cand_per_item": ("match_votes_aligned_kernel<true>",),
+    "match_votes_aligned_cand_dense_per_item": (
+        "match_votes_aligned_dense_kernel<true>",),
+    "select_candidates": ("kb_select_kernel", "kb_select_grid_kernel"),
+    "rescore_rows": ("rescore_rows_kernel",),
+}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float

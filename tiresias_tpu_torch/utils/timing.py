@@ -2,9 +2,11 @@
 and back-to-back launches on one stream.
 
 ``python3 chip_smoke.py`` and ``tiresias_tpu_torch/bench.py`` time with
-these. Every helper takes a callable that launches the work on the current
-stream and needs a card; :data:`CLOCKS` records which clock each
-:func:`device_ms` call used, so a figure can carry its clock.
+these. Every helper that times takes a callable that launches the work on
+the current stream and needs a card; :data:`CLOCKS` records which clock
+each :func:`device_ms` call used, so a figure can carry its clock.
+:func:`profile_reading` and :func:`launches_per_call` are the arithmetic of
+a profile's reading, and need none.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import warnings
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from tiresias_tpu_torch.utils import build
 
 
 def call_ms(fn, reps: int = 20) -> float:
@@ -35,14 +39,20 @@ def call_ms(fn, reps: int = 20) -> float:
 
 
 _FLUSH = {}
-# the clock of each device_ms call, in order: "profiler", or "events" where
-# torch.profiler recorded no device time and the call timed with CUDA events
+# the clock of each device_ms call, in order: "profiler" (every kernel
+# recorded a whole number of times a call), "profiler-scaled" (some kernel
+# lost records: read from the records that arrived, see profile_reading), or
+# "events" where torch.profiler recorded no device time at all and the call
+# timed with CUDA events
 CLOCKS: list = []
+# the spin-kernel records (lead_in's LEAD_IN + 1 and the end's edge_spin)
+# each device_ms profile lost, in order
+LEAD_LOST: list = []
 
 
 def clocks_since(n0: int) -> str:
-    """The clocks the device_ms calls since ``CLOCKS[n0]`` timed with:
-    "profiler", "events", or "events+profiler" where they differed."""
+    """The clocks the device_ms calls since ``CLOCKS[n0]`` timed with, in
+    sorted order joined by "+" ("profiler", "profiler-scaled", "events")."""
     return "+".join(sorted(set(CLOCKS[n0:]))) or "none"
 
 
@@ -81,74 +91,123 @@ def events_ms(fn, reps: int = 20, flush: bool = False) -> float:
     return total / reps
 
 
-# the spin kernel of torch.cuda._sleep, which edge_spin launches
+# the spin kernel of torch.cuda._sleep, which edge_spin and lead_in launch
 SPIN = "spin_kernel"
+# spin kernels of ~1 us at the start of every device_ms profile
+LEAD_IN = 64
 
 
 def edge_spin() -> None:
-    """A ~0.5 ms spin kernel for each end of a profile window, meant to
-    take records CUPTI might lose at a window's edges. In a long process a
-    profile of ``reps`` calls still records some kernels ``reps - 1`` times
-    with the spins in place (H100, chip_smoke.py): the loss is not at the
-    edges, and :func:`device_ms` retakes such a profile. Profiles leave
-    ``SPIN`` out of their sums."""
+    """A ~0.5 ms spin kernel for each end of a profile window. Profiles
+    leave ``SPIN`` out of their sums."""
     torch.cuda._sleep(1_000_000)
 
 
-def device_ms(fn, reps: int = 20, attempts: int = 3, flush: bool = False,
+def lead_in() -> None:
+    """``LEAD_IN`` spin kernels of ~1 us and one of ~0.5 ms at the start of
+    a profile window. In a process that has run for minutes, CUPTI loses
+    the first device records of some profiles (H100, chip_smoke.py); these
+    come first, so a loss of fewer than ``LEAD_IN + 1`` records misses the
+    timed calls, and the spins' own count says how many were lost."""
+    for _ in range(LEAD_IN):
+        torch.cuda._sleep(2_000)
+    edge_spin()
+
+
+def launches_per_call(kernels, before: dict, after: dict, reps: int) -> dict:
+    """Launches a call of each kernel name in ``kernels`` that a counted
+    wrapper runs (``build.KERNEL_NAMES``): its counter's launches between
+    the snapshots ``before`` and ``after`` of ``build.LAUNCHES`` over
+    ``reps`` calls, where that is a whole number."""
+    out = {}
+    for counter, parts in build.KERNEL_NAMES.items():
+        n, rest = divmod(after[counter] - before[counter], reps)
+        if rest or n <= 0:
+            continue
+        for name in kernels:
+            if any(p in name for p in parts):
+                out[name] = n
+    return out
+
+
+def profile_reading(records, reps: int, per_call: dict | None = None,
+                    names: tuple | None = None):
+    """Device ms per call from one profile of ``reps`` calls, given its
+    device records ``(kernel name, us)``: each kernel's recorded time over
+    ``reps``. A kernel recorded a number of times that is no multiple of
+    ``reps`` lost records; it reads as its mean record time times its
+    launches a call: ``per_call[name]`` (the launch counters',
+    :func:`launches_per_call`), else the fewest whole launches a call its
+    records allow. Returns (ms by each of ``names`` that a kernel's name
+    contains, or under "" the total; the kernel names read from lost
+    records)."""
+    totals: dict = {}
+    for name, us in records:
+        t = totals.setdefault(name, [0, 0.0])
+        t[0] += 1
+        t[1] += us
+    per = dict.fromkeys(names or ("",), 0.0)
+    scaled = []
+    for name, (count, us) in totals.items():
+        if count % reps:
+            n = (per_call or {}).get(name) or -(-count // reps)
+            ms = us / count * n / 1e3
+            scaled.append(name)
+        else:
+            ms = us / reps / 1e3
+        for key in per:
+            if key in name:
+                per[key] += ms
+    return per, scaled
+
+
+def device_ms(fn, reps: int = 20, flush: bool = False,
               names: tuple | None = None):
     """Device time per call: the CUDA kernel and memory-op time
-    torch.profiler records over ``reps`` calls, divided by ``reps``. With
-    ``names``, a dict of each kernel name that contains one of them (the
-    share of each launch of a pair). With ``flush``, the L2 cache is
-    flushed before each call, and the flush is left out of the sum; so are
-    the spin kernels at the window's edges (:func:`edge_spin`). A
-    profile that records none of the summed time, or records a kernel a
-    number of times that is no multiple of ``reps`` (CUPTI occasionally
-    delivers none, or drops records, for a short window; every call
-    launches the same kernels), is taken again, up to ``attempts``
-    profiles (one while the previous call's profiles were all empty); then
-    this call times with CUDA events instead (:func:`events_ms`), and a split
-    by ``names`` is unknown (None). The clock used is appended to
+    torch.profiler records over ``reps`` calls, divided by ``reps``
+    (:func:`profile_reading`; a kernel that lost records reads from those
+    that arrived and the launch counters). With ``names``, a dict of each
+    kernel name that contains one of them (the share of each launch of a
+    pair). With ``flush``, the L2 cache is flushed before each call, and
+    the flush is left out of the sum; so are the spin kernels of the
+    window's lead-in and end (:func:`lead_in`, :func:`edge_spin`). A
+    profile that records no device time at all (CUPTI occasionally
+    delivers none) times with CUDA events instead (:func:`events_ms`), and
+    a split by ``names`` is unknown (None). The clock used is appended to
     ``CLOCKS``."""
-    if CLOCKS and CLOCKS[-1] == "events":
-        attempts = 1
     buf = flush_buffer() if flush else None
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)  # per-cycle
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                edge_spin()
-                for _ in range(reps):
-                    if buf is not None:
-                        buf.bitwise_not_()
-                    fn()
-                edge_spin()
-                torch.cuda.synchronize()
-        per = {n: 0.0 for n in names or ("",)}
-        short = []
-        for e in prof.key_averages():
-            if SPIN in e.key or (buf is not None and "bitwise_not" in e.key):
-                continue
-            us = getattr(e, "self_device_time_total", 0)
-            if us > 0 and e.count % reps:
-                short.append(f"{e.key[:48]} x{e.count}")
-            for n in per:
-                if n in e.key:
-                    per[n] += us / 1e3 / reps
-        if short:
-            print(f"[profiler] device records are no whole number a call "
-                  f"over {reps} calls ({'; '.join(short)})", flush=True)
-        elif sum(per.values()) > 0:
-            CLOCKS.append("profiler")
+    before = dict(build.LAUNCHES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # per-cycle
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            for _ in range(reps):
+                if buf is not None:
+                    buf.bitwise_not_()
+                fn()
+            edge_spin()
+            torch.cuda.synchronize()
+    after = dict(build.LAUNCHES)
+    records, spins = [], 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if SPIN in e.name:
+            spins += 1
+        elif buf is None or "bitwise_not" not in e.name:
+            records.append((e.name, e.self_device_time_total))
+    LEAD_LOST.append(max(0, LEAD_IN + 2 - spins))
+    if records:
+        per_call = launches_per_call({n for n, _ in records}, before, after,
+                                     reps)
+        per, scaled = profile_reading(records, reps, per_call, names)
+        if sum(per.values()) > 0:
+            CLOCKS.append("profiler-scaled" if scaled else "profiler")
             return per if names else per[""]
-        else:
-            print(f"[profiler] no CUDA device time recorded over {reps} "
-                  f"calls", flush=True)
-    print(f"[profiler] no whole profile in {attempts} attempt(s) in a row: "
+    print(f"[profiler] no CUDA device time recorded over {reps} calls: "
           f"this call times with CUDA events (events_ms)", flush=True)
     CLOCKS.append("events")
     if names:
