@@ -953,18 +953,23 @@ def band_stats(index, q, active, use2, tol: float, cand=None) -> dict:
     index chunks, from the index's own binary search: mean, p99, max, the
     total (the in-band pairs) and the active frames; the pairs a bag
     search must test, up to and including each band's first entry that
-    also passes coefficient 1 (``walked``); and the binary-search compares
-    (``probes``). With ``cand [B, k]`` the rows of query b are its
-    candidates only (the candidate form's work)."""
+    also passes coefficient 1 (``walked``); the binary-search compares
+    (``probes``); and the bit-sliced design's operations on the bands
+    (``bits_ops``, :func:`bits_bound`). With ``cand [B, k]`` the rows of
+    query b are its candidates only (the candidate form's work)."""
     import torch
 
     from tiresias_tpu_torch.ops import match_index as mi
 
     hist = torch.zeros(index.chunk * index.n_chunks + 1, dtype=torch.int64,
                        device=q.device)
-    walked, probes = 0, 0.0
+    walked, probes, bits_ops = 0, 0.0, 0.0
     steps = 2 * torch.ceil(torch.log2(index.n_live.double() + 1)).sum(dim=1)
     u = torch.arange(index.chunk, device=q.device)
+    # each chunk's 32-time words
+    words = torch.tensor([-(-min(index.chunk, index.t_len - c * index.chunk)
+                            // 32) for c in range(index.n_chunks)],
+                         device=q.device)
     for lo in range(q.shape[0]):
         s = slice(lo, lo + 1)
         rows = slice(None) if cand is None else cand[lo].long()
@@ -974,7 +979,9 @@ def band_stats(index, q, active, use2, tol: float, cand=None) -> dict:
         b0, b1 = mi.band_bounds_plain(sub, q[s, :, 0], tol)
         d1 = sub.entries[..., 1][None, None]
         probes += int(active[s].sum()) * float(steps[rows].sum())
-        w = (b1 - b0).sum(dim=-1)[active[s]]  # [frames, rows]
+        wc = (b1 - b0)[active[s]]  # [frames, rows, chunks]
+        bits_ops += float(torch.minimum(4 * wc, 6 * words).sum())
+        w = wc.sum(dim=-1)  # [frames, rows]
         hist += torch.bincount(w.reshape(-1), minlength=hist.shape[0])
         hit = (u >= b0[..., None]) & (u < b1[..., None])
         hit &= ((d1 - q[s, :, 1][:, :, None, None, None]).abs() <= tol) | (
@@ -994,7 +1001,7 @@ def band_stats(index, q, active, use2, tol: float, cand=None) -> dict:
     return {"mean": pairs / max(n, 1), "p99": p99,
             "max": int(vals[hist > 0].max()) if n else 0, "pairs": pairs,
             "walked": walked, "active_frames": int(active.sum()),
-            "live": int(used.sum()), "probes": probes,
+            "live": int(used.sum()), "probes": probes, "bits_ops": bits_ops,
             "rows": int(index.n_live.shape[0] if cand is None
                         else cand.shape[1]),
             "cand_bytes": 0 if cand is None else 4 * cand.numel()}
@@ -1127,12 +1134,25 @@ def index_bound(index, stats: dict, b: int, f: int, aligned: bool,
     n_bytes = (10 * stats["live"] + b * (coefs + 2) * f * 4
                + b * stats["rows"] * 4 + stats["cand_bytes"])
     tested = stats["pairs"] if aligned else stats["walked"]
-    return bound(n_bytes, stats["probes"] + 4 * tested)
+    return {**bound(n_bytes, stats["probes"] + 4 * tested), "bytes": n_bytes}
+
+
+def bits_bound(stats: dict, n_bytes: float) -> dict:
+    """The bound of the bit-sliced design (K5's bit-sliced kernel) on this
+    run's inputs: ``n_bytes`` (:func:`index_bound`'s: each row's index read
+    once, as the design is row-stationary, the queries and the votes), and
+    per (active query frame, row, chunk) coefficient 0's bisection compares
+    plus, for a band of w entries, the cheaper of testing its entries (4
+    operations each) and 6 operations on each 32-time word of the chunk
+    (the two and-nots and the and of the prefix bitsets, a funnel shift, a
+    carry-save add); coefficient 1's bisection is left out."""
+    return bound(n_bytes, stats["probes"] + stats["bits_ops"])
 
 
 def routes_delta(device, fn) -> tuple:
     """The work items of each route one call of ``fn`` adds: (K4 index, K4
-    dense, K5 index, K5 dense)."""
+    dense, K5 index, K5 wide, K5 bit-sliced items, its frames on the
+    bitsets, its frames entry by entry)."""
     import torch
 
     from tiresias_tpu_torch.ops import match_kernels as tk
@@ -1151,7 +1171,7 @@ def timed_match(label: str, fns: dict, plain=None, plain_reps: int = 2,
     around them when given. With ``events``, each turn also takes the
     CUDA-event time of back-to-back calls (``stream_ms``), printed with
     both rounds of both clocks: a check on the profiler's sums."""
-    extra = [k for k in ("index", "per_item", "grouped") if k in fns]
+    extra = [k for k in ("index", "bits", "per_item", "grouped") if k in fns]
     order = ["dense", "auto"] + extra
     times = {k: [] for k in order}
     ev = {k: [] for k in order}
@@ -1178,13 +1198,16 @@ def timed_match(label: str, fns: dict, plain=None, plain_reps: int = 2,
 
 
 def say_bands(label: str, st: dict, routes: tuple, aligned: bool) -> None:
-    idx, dense = routes[2:] if aligned else routes[:2]
+    idx, dense = routes[2:4] if aligned else routes[:2]
     share = 100 * st["mean"] * st["rows"] / max(1, st["live"])
+    bits = (f"; the bit-sliced kernel served {routes[4]} items, {routes[5]} "
+            f"frame tests on the bitsets and {routes[6]} entry by entry"
+            if aligned else "")
     say(f"[kernels] {label} bands: {st['mean']:.3f} in-band frames per "
         f"(active query frame, row) on average ({share:.2f}% of a row's "
         f"live frames), p99 {st['p99']}, max {st['max']}; items on the "
-        f"index route {idx}, on the dense route {dense} "
-        f"({100 * dense / max(1, idx + dense):.1f}% dense)")
+        f"index route {idx}, on the {'wide' if aligned else 'dense'} route "
+        f"{dense} ({100 * dense / max(1, idx + dense):.1f}%){bits}")
 
 
 def phase_match_kernels(device) -> list[dict]:
@@ -1207,16 +1230,23 @@ def phase_match_kernels(device) -> list[dict]:
     from tiresias_tpu_torch.ops.mfcc import PAD_VALUE
 
     fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
-    checked = 0
+    checked = plain_checked = 0
 
-    def check(db, qq, act, use2, tol, coefs, tag):
-        nonlocal checked
+    def check(db, qq, act, use2, tol, coefs, tag, plain=False):
+        nonlocal checked, plain_checked
         index = mi.build_match_index(db)
         mask = (db[..., 0] != PAD_VALUE) & ~torch.isnan(db[..., 0])
         for aligned, fn in fns.items():
             want = tm.match_votes(db, mask, qq, act, use2, tol, coefs=coefs,
                                   aligned=aligned)
-            for route in ("auto", "dense", "index"):
+            if aligned and plain:  # the bit-sliced kernel's own statement
+                if not torch.equal(mi.aligned_votes_bits_plain(
+                        index, db, qq, act, use2, tol, coefs), want):
+                    fail(f"aligned_votes_bits_plain != twin at {tag} tol "
+                         f"{tol}")
+                plain_checked += 1
+            for route in ("auto", "dense", "index") + (
+                    ("bits",) if aligned else ()):
                 got = fn(db, qq, act, use2, tol, coefs, index=index,
                          route=route)
                 if not torch.equal(got, want):
@@ -1237,15 +1267,29 @@ def phase_match_kernels(device) -> list[dict]:
                                                  trunc_coef1=False)
                 for tol in (0.05, 1.0, 2e5):
                     check(db, qq, act, use2, tol, coefs,
-                          (coefs, t, f, band))
+                          (coefs, t, f, band),
+                          plain=tol == 1.0 and band == (1, 300)
+                          and f != 300)
     db, (qq, act, use2) = match_edge_case(device)
     for tol in (0.0, 0.1, 1.0, float("inf")):
-        check(db, qq, act, use2, tol, 2, ("edge values",))
+        check(db, qq, act, use2, tol, 2, ("edge values",), plain=True)
+    # NaN and +-inf d1 on live d0 frames, NaN query values
+    dbn = db.clone()
+    dbn[5:9, ::3, 1] = float("nan")
+    dbn[9, ::2, 1] = float("inf")
+    dbn[10, ::2, 1] = -float("inf")
+    qn = qq.clone()
+    qn[2, ::4, 1] = float("nan")
+    qn[3, ::5, 0] = float("nan")
+    for tol in (0.1, 1.0, float("inf")):
+        check(dbn, qn, act, use2, tol, 2, ("NaN d1",), plain=True)
     say(f"[kernels] K4 match_votes / K5 match_votes_aligned == twins (int32 "
-        f"exact) in {checked} cases: routes auto, dense and index x coefs "
-        f"1, 2, 4, 8 x band off/on x tol 0.05, 1, 2e5; tiers 256, 1536 and "
-        f"5000 (3 index chunks), queries of 24, 300 and 40 frames; edge "
-        f"values at tol 0, 0.1, 1, inf")
+        f"exact) in {checked} cases: routes auto, dense, index (and K5's "
+        f"bits) x coefs 1, 2, 4, 8 x band off/on x tol 0.05, 1, 2e5; tiers "
+        f"256, 1536 and 5000 (3 index chunks), queries of 24, 300 and 40 "
+        f"frames; edge values at tol 0, 0.1, 1, inf; NaN and +-inf d1 on "
+        f"live d0, NaN query values at tol 0.1, 1, inf; "
+        f"aligned_votes_bits_plain == twin in {plain_checked} of them")
     # [strict] shapes: 10,112 rows (10,000 tracks of 938 frames, 128-row
     # padding) x 1,024 frames x 2 coefs; 94 active frames in a 128 bucket
     db, _, _ = match_case(device, 300, 10112, 1024, 2, 2, 128,
@@ -1286,7 +1330,8 @@ def phase_match_kernels(device) -> list[dict]:
             for aligned, fn in fns.items():
                 name = f"K{5 if aligned else 4} {fn.__name__} ({case}) B={b}"
                 routes_timed = ("auto", "dense") + (
-                    ("index",) if case in "de" else ())
+                    ("index",) if case in "de" or aligned else ()) + (
+                    ("bits",) if aligned else ())
                 call = {r: (lambda r=r: fn(d, qc, act, use2, tol, 2,
                                            index=idx, route=r))
                         for r in routes_timed}
@@ -1359,6 +1404,13 @@ def phase_match_kernels(device) -> list[dict]:
             "dense_route_ms_b1": a1["dense"], "bound_ms_b1":
                 a1["bound"]["bound_ms"], "ms_tol_2e5": c64["auto"],
             "dense_route_ms_tol_2e5": c64["dense"],
+            **({"index_route_ms": a64["index"], "bits_route_ms": a64["bits"],
+                "index_route_ms_b1": a1["index"], "bits_route_ms_b1":
+                    a1["bits"], "bits_route_ms_tol_2e5": c64["bits"],
+                "cases": {f"{cs}_B{bb}": {r: res[cs, True, bb][r] for r in
+                                          ("auto", "dense", "index", "bits")}
+                          for cs in "acde" for bb in (64, 1)}}
+               if aligned else {}),
             "bands": {k: v for k, v in a64["stats"].items()},
             "index_build_ms": build_ms,
         })
@@ -1370,7 +1422,7 @@ def phase_match_kernels(device) -> list[dict]:
         "plain_ms": res["a", True, 64]["plain"], **dense_bound,
         "library_ms": None, "library": none,
         "shape": "every (query, row) item: B=64 x 10,112 rows x 1,024 "
-                 "frames x 2 coefs (K5's forced dense route, both kernels)",
+                 "frames x 2 coefs (K5's forced dense route: the every-pair kernel)",
         "ms_tol_2e5": res["c", True, 64]["dense"],
     })
     return out
@@ -1379,12 +1431,15 @@ def phase_match_kernels(device) -> list[dict]:
 def phase_match_real(device, eng, queries) -> list[dict]:
     """K4 and K5 on the traffic the strict path sends (case b): the restored
     catalog's own view and index, the 64 excerpts + 8 noise queries at tol
-    0.1, batch 64 and 1; int32-exact against the twin on every route, then
-    the auto and dense routes in turns, with band statistics, route shares
-    and this run's bound."""
+    0.1, batch 64 and 1; int32-exact against the twin on every route (and
+    K5's bit-sliced kernel against its plain statement on the catalog's
+    first 1,024 rows), then the routes in turns, with band statistics,
+    route shares and this run's bound. Returns the bit-sliced kernel's entry
+    and the candidate forms'."""
     import torch
 
     from tiresias_tpu_torch.ops import match as tm
+    from tiresias_tpu_torch.ops import match_index as mi
     from tiresias_tpu_torch.ops import match_kernels as tk
     from tiresias_tpu_torch.ops.mfcc import (
         fingerprint_padded_batch,
@@ -1399,6 +1454,19 @@ def phase_match_real(device, eng, queries) -> list[dict]:
                                        trunc_coef1=False)
     f = q.shape[1]
     fns = {False: tk.match_votes_fused, True: tk.match_votes_fused_aligned}
+    # the bit-sliced kernel against its plain statement: 4 queries on the
+    # catalog's first 1,024 rows (the statement's bitsets of every frame
+    # and row are held at once)
+    sub_db = view.db[:1024].contiguous()
+    sub_idx = mi.build_match_index(sub_db)
+    sub = (q[:4], active[:4], use2[:4])
+    plain = mi.aligned_votes_bits_plain(sub_idx, sub_db, *sub, STRICT_TOL, 2)
+    for r in ("auto", "bits"):
+        if not torch.equal(tk.match_votes_fused_aligned(
+                sub_db, *sub, STRICT_TOL, 2, index=sub_idx, route=r), plain):
+            fail(f"[kernels] K5 (b) {r} route != aligned_votes_bits_plain on "
+                 f"the catalog's first 1,024 rows")
+    res = {}
     for b in (64, 1):
         qq, act, u2 = q[:b], active[:b], use2[:b]
         st = band_stats(index, qq, act, u2, STRICT_TOL)
@@ -1409,7 +1477,8 @@ def phase_match_real(device, eng, queries) -> list[dict]:
                                   STRICT_TOL, coefs=2, aligned=aligned)
             call = {r: (lambda r=r: fn(view.db, qq, act, u2, STRICT_TOL, 2,
                                        index=index, route=r))
-                    for r in ("auto", "dense", "index")}
+                    for r in ("auto", "dense", "index")
+                    + (("bits",) if aligned else ())}
             for r, c in call.items():
                 if not torch.equal(c(), want):
                     fail(f"{name}: the {r} route != twin")
@@ -1419,8 +1488,58 @@ def phase_match_real(device, eng, queries) -> list[dict]:
             bd = index_bound(index, st, b, f, aligned)
             say(f"[kernels] {name}: bound {bd['bound_ms']:.5f} ms "
                 f"({bd['bound_by']}), {100 * bd['bound_ms'] / t['auto']:.1f}%"
-                f" of it; votes exact on the auto, dense and index routes")
-    out = phase_match_cand(device, eng, view, index, q, active, use2, f)
+                f" of it; votes exact on every route")
+            res[aligned, b] = dict(t, bound=bd, routes=routes, stats=st)
+    # the twin on the same call, once (CUDA events: it runs seconds)
+    a_ev = torch.cuda.Event(enable_timing=True)
+    b_ev = torch.cuda.Event(enable_timing=True)
+    a_ev.record()
+    tm.match_votes(view.db, view.mask, q[:64], active[:64], use2[:64],
+                   STRICT_TOL, coefs=2, aligned=True)
+    b_ev.record()
+    b_ev.synchronize()
+    r64, r1 = res[True, 64], res[True, 1]
+    bd = r64["bound"]
+    bb = bits_bound(r64["stats"], bd["bytes"])
+    say(f"[kernels] K5's bit-sliced kernel (b) B=64: {r64['bits']} ms "
+        f"against the design's bound {bb['bound_ms']:.5f} ms "
+        f"({bb['bound_by']}), {100 * bb['bound_ms'] / r64['bits']:.2f}% of "
+        f"it; the index route's bound {bd['bound_ms']:.5f} ms, the bytes "
+        f"{1e3 * bd['bytes'] / HBM_BYTES_S:.5f} ms")
+    out = [{
+        "name": "match_votes_aligned_bits", "route": "cuda",
+        "source": "tiresias_tpu_torch/csrc/match.cu",
+        "replaces": "tiresias_tpu/ops/match_pallas.py:171",
+        "max_abs_err": 0.0, "ms": r64["bits"],
+        "plain_ms": a_ev.elapsed_time(b_ev),
+        "plain_timing": "one call of the twin match.match_votes, CUDA events",
+        "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
+        "bound": "the bit-sliced design: the bytes below, coefficient 0's "
+                 "bisection compares and per band the cheaper of 4 "
+                 "operations an entry and 6 a 32-time word of the chunk, at "
+                 "67 TFLOP/s",
+        "index_ops_bound_ms": bd["bound_ms"],
+        "index_ops_bound": "K5's index route's bound: bisection compares "
+                           "and 4 operations every in-band pair",
+        "bytes_bound_ms": 1e3 * bd["bytes"] / HBM_BYTES_S,
+        "bytes_bound": "each row's index read once (row-stationary), the "
+                       "queries and the votes, at 3.35 TB/s",
+        "library_ms": None,
+        "library": "no single PyTorch call computes tolerance votes",
+        "shape": "B=64 x the catalog's 10,112 rows x 1,024 frames x 2 "
+                 "coefs, tol 0.1 (case b; the forced route 'bits', every "
+                 "item; on the auto route it takes the items with wide "
+                 "bands)",
+        "auto_ms": r64["auto"], "index_route_ms": r64["index"],
+        "dense_route_ms": r64["dense"], "ms_b1": r1["bits"],
+        "auto_ms_b1": r1["auto"], "index_route_ms_b1": r1["index"],
+        "dense_route_ms_b1": r1["dense"], "bound_ms_b1": bits_bound(
+            r1["stats"], r1["bound"]["bytes"])["bound_ms"],
+        "routes_auto": list(r64["routes"]), "routes_auto_b1":
+            list(r1["routes"]),
+        "bands": dict(r64["stats"]),
+    }]
+    out += phase_match_cand(device, eng, view, index, q, active, use2, f)
     phase_cand_sharing(device, view, q[:64], active[:64], use2[:64])
     return out
 
@@ -1681,7 +1800,9 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
         out.append({
             "name": kname + "_per_item", **common, "ms": r64["per_item"],
             "shape": shape + " (per-item form: one block per (query, "
-                     "candidate); the auto route at batch 1)",
+                     + ("candidate); the forced route 'per_item', the index "
+                        "kernel on every slot)" if aligned else
+                        "candidate); the auto route at batch 1)"),
             "grouped_ms": r64["auto"], "ms_b1": r1["per_item"],
         })
     d64 = {"max_abs_err": 0.0, "route": "cuda",
@@ -1698,14 +1819,6 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
                  "route: its index kernel lists every item, the dense "
                  "kernel serves them)",
         "ms_b1": res["catalog", True, 1]["dense"],
-    })
-    out.append({
-        "name": "match_votes_aligned_cand_dense_per_item", **d64,
-        "ms": res["catalog", True, 64]["per_item"],
-        "shape": "the per-item K5 call at B=64 x 1,024 candidates (its index "
-                 "kernel and its dense kernel, which takes the items with "
-                 "wide bands: most of them on the catalog)",
-        "ms_b1": res["catalog", True, 1]["per_item"],
     })
     s64 = sharing["catalog", 64]
     out.append({
@@ -4318,21 +4431,27 @@ def run(device) -> dict:
         routes = (tk.route_counts(device) - routes0).tolist()
         # the candidate forms: grouped at batch > 1, per item at batch 1
         match_names = ("match_votes", "match_votes_aligned",
-                       "match_votes_aligned_dense", "group_candidates",
+                       "match_votes_aligned_bits", "group_candidates",
                        "match_votes_cand", "match_votes_aligned_cand",
                        "match_votes_aligned_cand_dense",
-                       "match_votes_cand_per_item",
-                       "match_votes_aligned_cand_per_item",
-                       "match_votes_aligned_cand_dense_per_item")
+                       "match_votes_cand_per_item")
         scan_names = ("bound_scan_planes", "bound_scan", "select_candidates")
         for name in match_names + scan_names:
             if strict_launches[name] <= 0:
                 fail(f"the strict path never launched {name}")
         if routes[0] <= 0 or routes[2] <= 0:
             fail(f"the strict path never took the index route: {routes}")
+        if routes[4] <= 0:
+            fail(f"the strict path gave the bit-sliced kernel no item: "
+                 f"{routes}")
         say(f"[launches] strict path: {strict_launches}; work items (K4 "
-            f"index, K4 dense, K5 index, K5 dense): {routes}")
-        launches.update({k: strict_launches[k] for k in match_names})
+            f"index, K4 dense, K5 index, K5 wide, K5 bit-sliced; its frame "
+            f"tests on the bitsets, entry by entry): {routes}")
+        # forced routes and forms (K5 groups at batch 1 too): counted all
+        # the same
+        forced = ("match_votes_aligned_dense",
+                  "match_votes_aligned_cand_per_item")
+        launches.update({k: strict_launches[k] for k in match_names + forced})
         for name in scan_names:
             launches[name] += strict_launches[name]
         took("[strict]")

@@ -220,7 +220,15 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     q = torch.zeros((1, 8, 2), device=dev)
     flags = torch.ones((1, 8), dtype=torch.bool, device=dev)
     tk.match_votes_fused(db, q, flags, flags, 0.1, 2)
+    # batch 1: the grouped form, each row one work item (its index and
+    # dense kernels, no work list); batch 8: the index kernel, then the
+    # bit-sliced kernel; the forced routes: the every-pair and the
+    # bit-sliced kernel alone
     tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2)
+    q8, flags8 = q.repeat(8, 1, 1), flags.repeat(8, 1)
+    tk.match_votes_fused_aligned(db, q8, flags8, flags8, 0.1, 2)
+    tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2, route="dense")
+    tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2, route="bits")
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
                               "mfcc_rows_dft": 0, "mfcc_framed_dft": 0,
                               "lattice_votes": 1,
@@ -229,11 +237,11 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
                               "match_votes_aligned_dense": 1,
                               "group_candidates": 0,
                               "match_votes_cand": 0,
-                              "match_votes_aligned_cand": 0,
-                              "match_votes_aligned_cand_dense": 0,
+                              "match_votes_aligned_cand": 1,
+                              "match_votes_aligned_cand_dense": 1,
                               "match_votes_cand_per_item": 0,
                               "match_votes_aligned_cand_per_item": 0,
-                              "match_votes_aligned_cand_dense_per_item": 0,
+                              "match_votes_aligned_bits": 2,
                               "select_candidates": 0, "rescore_rows": 0}
     with pytest.raises(ValueError):
         mk.mfcc_rows(torch.zeros((4, 512), device=dev, dtype=torch.float64),
@@ -255,6 +263,13 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
                       (maps[0].float(),), q[..., 0], flags)
     with pytest.raises(ValueError):
         tk.match_votes_fused(db.double(), q, flags, flags, 0.1, 2)
+    with pytest.raises(ValueError):  # K4 has no bit-sliced route
+        tk.match_votes_fused(db, q, flags, flags, 0.1, 2, route="bits")
+    with pytest.raises(ValueError):  # nor K5's candidate forms
+        tk.match_votes_cand(db, q, flags, flags, 0.1,
+                            torch.zeros((1, 4), dtype=torch.int32,
+                                        device=dev), 2, route="bits",
+                            aligned=True)
 
 
 # thresholds of the uint8 maps' tests: below, at and past the saturation
@@ -359,10 +374,12 @@ def _match_case(dev, seed, rows, t, c, b, f):
 @pytest.mark.parametrize("aligned", [False, True])
 @pytest.mark.parametrize("coefs", [1, 2, 4, 8])
 def test_match_kernels_equal_twin_exactly(dev, coefs, aligned):
-    """K4/K5 vs the twin, int32 exact, on each route: a one-chunk tier, a
-    tier of 1,536 frames, one of 5,000 (three index chunks of 2,048, the
-    last ragged), a 300-frame query, band filters that drop q0 frames and
-    bypass q1 conditions, and tol 2e5 (every frame in every band)."""
+    """K4/K5 vs the twin, int32 exact, on each route (K5's bit-sliced route
+    too, and at tol 1 K5 against the bit-sliced kernel's plain statement): a
+    one-chunk tier, a tier of 1,536 frames, one of 5,000 (three index chunks
+    of 2,048, the last ragged), a 300-frame query (past one counter fold),
+    band filters that drop q0 frames and bypass q1 conditions, and tol 2e5
+    (every frame in every band)."""
     fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
     for rows, t, f in ((200, 256, 24), (300, 1536, 300), (40, 5000, 40)):
         db, q, n_frames = _match_case(dev, coefs + t, rows, t, 8, 5, f)
@@ -374,10 +391,14 @@ def test_match_kernels_equal_twin_exactly(dev, coefs, aligned):
                 want = tm.match_votes(db, db[..., 0] != PAD_VALUE, qq, act,
                                       use2, tol, coefs=coefs,
                                       aligned=aligned)
-                for route in ("auto", "dense", "index"):
+                for route in ("auto", "dense", "index") + (
+                        ("bits",) if aligned else ()):
                     got = fn(db, qq, act, use2, tol, coefs, index=index,
                              route=route)
                     assert torch.equal(got, want), (t, f, band, tol, route)
+                if aligned and tol == 1.0:
+                    assert torch.equal(mi.aligned_votes_bits_plain(
+                        index, db, qq, act, use2, tol, coefs), want)
                 assert (got[:, 1] == 0).all()  # the empty row
                 assert torch.equal(fn(db, qq, act, use2, tol, coefs), want)
 
@@ -387,8 +408,10 @@ def test_match_kernels_equal_twin_exactly(dev, coefs, aligned):
 def test_match_kernel_routes_are_counted_and_exact(dev, b):
     """Batches of 1, 64 and 130 queries; at tol 0.05 every item takes the
     index route, at tol 2e5 every K5 item of a row with frames takes the
-    dense one (an empty row's items count as index items), and the device
-    counters see both."""
+    wide route (an empty row's items count as index items): the bit-sliced
+    kernel serves it from batch SMALL_BATCH on, the grouped dense kernel
+    below (the grouped form over every row); the device counters see
+    both."""
     db, q, n_frames = _match_case(dev, 900 + b, 200, 256, 2, max(b, 3), 24)
     q, n_frames = q[:b], n_frames[:b]
     qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1, trunc_coef1=False)
@@ -405,13 +428,16 @@ def test_match_kernel_routes_are_counted_and_exact(dev, b):
                                   tol, coefs=2, aligned=aligned)
             assert torch.equal(got, want), (tol, aligned)
             moved = (counts - before).tolist()
-            index_items, dense_items = moved[2:] if aligned else moved[:2]
+            index_items, dense_items = moved[2:4] if aligned else moved[:2]
             assert sum(moved[:2] if aligned else moved[2:]) == 0
             if tol == 0.05:
                 assert index_items > 0 and dense_items == 0, moved
             elif aligned:
                 assert dense_items == b * (200 - empty), moved
                 assert index_items == b * empty, moved
+                # the bit-sliced kernel's items
+                assert moved[4] == (dense_items if b >= tk.SMALL_BATCH
+                                    else 0), moved
 
 
 @pytest.mark.cuda
@@ -450,7 +476,8 @@ def test_match_kernels_exact_at_edge_values(dev):
                             (True, tk.match_votes_fused_aligned)):
             want = tm.match_votes(dbt, mask, qq, act, use2, tol, coefs=2,
                                   aligned=aligned)
-            for route in ("auto", "dense", "index"):
+            for route in ("auto", "dense", "index") + (
+                    ("bits",) if aligned else ()):
                 got = fn(dbt, qq, act, use2, tol, 2, index=index,
                          route=route)
                 assert torch.equal(got, want), (tol, aligned, route)
@@ -461,11 +488,20 @@ _CAND_ROUTES = ("auto", "dense", "index", "grouped", "per_item")
 
 def _cand_launched(name, route, b):
     """Holds the launch counts of one candidate-form call: the grouped form
-    (its work list and kernel) or the per-item form."""
-    grouped = route != "per_item" and not (route == "auto" and b == 1)
-    assert build.LAUNCHES[name + ("" if grouped else "_per_item")] == 1
+    (its work list, but for K5 at batch 1, and kernels; K5's forced dense
+    route runs its dense kernel alone) or the per-item form (forced, and
+    K4's auto at batch 1; K5's runs its index kernel alone)."""
+    aligned = "aligned" in name
+    grouped = route != "per_item" and not (
+        b == 1 and route == "auto" and not aligned)
+    alone = aligned and route == "dense"
+    form = "" if grouped else "_per_item"
+    assert build.LAUNCHES[name + form] == int(not alone)
     assert build.LAUNCHES[name + ("_per_item" if grouped else "")] == 0
-    assert build.LAUNCHES["group_candidates"] == int(grouped)
+    if aligned:  # the grouped form's dense kernel: its wide items, or alone
+        assert build.LAUNCHES[name + "_dense"] == int(grouped)
+    assert build.LAUNCHES["group_candidates"] == int(
+        grouped and not (aligned and b == 1))
 
 
 @pytest.mark.cuda
@@ -908,15 +944,34 @@ def test_prefilters_launch_select_and_rescore(dev):
 
 @pytest.mark.cuda
 def test_aligned_long_query_takes_the_dense_kernel(dev):
-    """A 30,000-frame query's offset histogram does not fit in shared
-    memory: K5 runs only its dense kernel, held to a numpy brute force."""
+    """A 30,000-frame query's offset histogram does not fit in the index
+    kernel's shared memory: K5 runs only its bit-sliced kernel (offset tiles
+    of 3,072, counts folded every 255 frames), held to a numpy brute force,
+    as is the forced every-pair route; the forced index route and K5's
+    per-item candidate form raise, and the grouped candidate form runs its
+    dense kernel alone, equal."""
     db, _, _ = _match_case(dev, 77, 8, 256, 2, 3, 24)
     q = db[3:4, torch.arange(30000, device=dev) % 20].clone() + 0.01
     qq, act, use2 = tm.prepare_query(q, None, -1, -1, trunc_coef1=False)
     build.reset_launch_counts()
     got = tk.match_votes_fused_aligned(db, qq, act, use2, 1.0, 2)
-    assert build.LAUNCHES["match_votes_aligned_dense"] == 1
+    assert build.LAUNCHES["match_votes_aligned_bits"] == 1
     assert build.LAUNCHES["match_votes_aligned"] == 0
+    assert build.LAUNCHES["match_votes_aligned_dense"] == 0
+    assert torch.equal(got, tk.match_votes_fused_aligned(
+        db, qq, act, use2, 1.0, 2, route="dense"))
+    with pytest.raises(ValueError):
+        tk.match_votes_fused_aligned(db, qq, act, use2, 1.0, 2,
+                                     route="index")
+    cand = torch.arange(8, device=dev, dtype=torch.int32)[None]
+    build.reset_launch_counts()
+    assert torch.equal(tk.match_votes_cand(
+        db, qq, act, use2, 1.0, cand, 2, route="grouped", aligned=True), got)
+    assert build.LAUNCHES["match_votes_aligned_cand_dense"] == 1
+    assert build.LAUNCHES["match_votes_aligned_cand"] == 0
+    with pytest.raises(ValueError):
+        tk.match_votes_cand(db, qq, act, use2, 1.0, cand, 2,
+                            route="per_item", aligned=True)
     d = db.cpu().numpy()
     qn = q[0].cpu().numpy()
     want = []
@@ -1035,8 +1090,10 @@ def test_topk_on_card_equals_cpu(dev, tmp_path, monkeypatch, mode):
     for r1, r2 in zip(listing, listing[1:]):
         assert r1.match_count > r2.match_count or (
             r1.match_count == r2.match_count and r1.name < r2.name)
+    # a batch-1 aligned search runs as the grouped form over every row
     name = ("lattice_votes" if mode["coefs"] == 1 else
-            "match_votes_aligned" if mode.get("aligned") else "match_votes")
+            "match_votes_aligned_cand" if mode.get("aligned") else
+            "match_votes")
     assert build.LAUNCHES[name] > 0
 
 

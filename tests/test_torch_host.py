@@ -421,6 +421,52 @@ def test_kernel_names_cover_every_counter_and_kernel():
         assert owners, k
 
 
+def test_kernel_names_cover_every_instantiation():
+    """Each instantiation of a kernel template that csrc/ launches (its
+    template arguments written out, e.g. ``<true, 2>``) is named by a
+    counter, so the profiler's name of every launch links to its count."""
+    import re
+
+    from tiresias_tpu_torch.utils import build
+
+    parts = [p for ps in build.KERNEL_NAMES.values() for p in ps]
+    src = "".join(open(os.path.join(build.CSRC, f)).read()
+                  for f in build.SOURCES)
+    kernels = set(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*"
+                             r"\)\s*)?(\w+)\(", src))
+    found = set()
+    for k, args in re.findall(r"(\w+)<([\w\s,]+)>", src):
+        if k in kernels and re.fullmatch(r"[\s,0-9]*(?:true|false)?[\s,0-9"
+                                         r"a-z]*", args):
+            name = f"{k}<{', '.join(a.strip() for a in args.split(','))}>"
+            found.add(name)
+            assert any(name.startswith(p) for p in parts
+                       if "<" in p or p == k), name
+    assert "match_votes_aligned_bits_kernel<true, 1>" in found
+    assert "match_votes_aligned_bits_kernel<false, 3>" in found
+
+
+def test_ctypes_signatures_match_the_entry_points():
+    """Every ``extern "C"`` entry point of csrc/ has a ctypes signature of
+    its own parameters, kind for kind (pointer, int, float)."""
+    import ctypes
+    import re
+
+    from tiresias_tpu_torch.utils import build
+
+    src = "".join(open(os.path.join(build.CSRC, f)).read()
+                  for f in build.SOURCES)
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+    seen = set()
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        ps = [p.strip() for p in params.split(",") if p.strip()]
+        got = "".join("P" if "*" in p else "F" if p.startswith("float")
+                      else "I" for p in ps)
+        assert got == "".join(kind[t] for t in build._SIGNATURES[name]), name
+        seen.add(name)
+    assert seen == set(build._SIGNATURES)
+
+
 def test_profiler_loss_accountant_splits_device_ms_time():
     """tools/profiler_loss's Accountant on stand-ins for a tree's timing
     module and chip_smoke: a device_ms call that profiles three times and

@@ -240,9 +240,12 @@ def link_mibs(device: torch.device, pinned: bool, n: int = 5) -> float:
 # the kernels of one prefiltered search, by a substring of their names:
 # K-a the bound scan, K-b the selection (csrc/select.cu: one kb_select launch),
 # the dialplan rescore, K-c the candidate forms and their work list
+# kernel groups by a part of the profiler's kernel names (the work list's
+# three kernels by their namespace's "::", or K5's grouped vote kernels
+# would count twice)
 SPLIT = (("K1", "mfcc"), ("K-a", "bound_scan"), ("K-b", "kb_select"),
          ("rescore", "rescore_rows"), ("K-c", "match_votes"),
-         ("K-c work list", "group_"))
+         ("K-c work list", "::group_"))
 
 
 def kernel_split(fn, device: torch.device, reps: int = 16) -> str:

@@ -42,11 +42,11 @@
 // row, plus the in-band pairs. Where the bands are wide (a large tolerance,
 // or a catalog whose coefficient 0 varies little) testing every pair is
 // cheaper again, so a work item whose bands hold more than a share of its
-// pairs takes the dense route, decided per item on the device: K4 sweeps
+// pairs takes the wide route, decided per item on the device: K4 sweeps
 // the sorted chunk with the whole warp, as a dense K4 sweeps a row; K5 puts
-// the item on a work list that a dense K5 kernel serves right after, on the
-// same stream. The kernels add the items of each route into a device
-// counter.
+// the item on a work list that its bit-sliced kernel serves right after, on
+// the same stream (the every-pair kernel stays as a forced route). The
+// kernels add the items of each route into a device counter.
 //
 // Candidate form (the certified strict/aligned prefilter's rescore, the
 // Pallas kernels run over each query's candidate rows at
@@ -405,6 +405,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                                int n_cand, int* __restrict__ votes,
                                int* __restrict__ work,
                                unsigned long long* __restrict__ n_work,
+                               unsigned* __restrict__ qmask, int mw,
+                               int* __restrict__ row_flag,
                                unsigned long long* __restrict__ routes) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned long long s_routes[2];
@@ -426,6 +428,55 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (kCand && (a < 0 || a >= rows)) return;  // uniform; the votes stay 0
   const float* row = db + (size_t)a * t_len * n_coefs;
   if (threadIdx.x < 2) s_routes[threadIdx.x] = 0ull;
+  if (!kCand && share < INFINITY) {
+    // the row first: the bands of the first round's queries (each query's
+    // first 32 frames with an active one, in the row's first chunk with
+    // stored frames) hand every query of a wide row to the bit-sliced kernel
+    __shared__ int s_band[2];  // in-band entries, active frames
+    int c0 = 0;
+    while (c0 < n_chunks && n_live[(size_t)a * n_chunks + c0] == 0) ++c0;
+    if (c0 < n_chunks) {  // uniform
+      const int n = n_live[(size_t)a * n_chunks + c0];
+      if (threadIdx.x < 2) s_band[threadIdx.x] = 0;
+      stage_chunk(s_ent, s_pos, ent, pos, ((size_t)a * n_chunks + c0) * chunk,
+                  (n + 1) & ~1);
+      __syncthreads();
+      if (warp < batch) {
+        const float* qb = q + (size_t)warp * (coefs + 2) * f_len;
+        for (int f0 = 0; f0 < f_len; f0 += 32) {
+          const int f = f0 + lane;
+          int width = 0, act = 0;
+          if (f < f_len && qb[(size_t)(coefs + 1) * f_len + f] > 0.f) {
+            const float q0 = qb[f];
+            const int lo = band_lo(s_ent, n, q0, tol);
+            width = band_hi(s_ent, lo, n, q0, tol) - lo;
+            act = 1;
+          }
+          const int a_all = __reduce_add_sync(kFull, act);
+          if (a_all > 0) {  // uniform
+            const int w_all = __reduce_add_sync(kFull, width);
+            if (lane == 0) {
+              atomicAdd(s_band, w_all);
+              atomicAdd(s_band + 1, a_all);
+            }
+            break;
+          }
+        }
+      }
+      __syncthreads();
+      if ((float)s_band[0] > share * (float)n * (float)s_band[1]) {  // uniform
+        for (int i = threadIdx.x; i < mw; i += blockDim.x) {
+          const int tail = batch - 32 * i;
+          qmask[(size_t)a * mw + i] = tail >= 32 ? kFull : (1u << tail) - 1u;
+        }
+        if (threadIdx.x == 0) {
+          work[atomicAdd(n_work, 1ull)] = a;
+          atomicAdd(routes + 1, (unsigned long long)batch);
+        }
+        return;
+      }
+    }
+  }
   for (int r0 = 0; r0 < (kCand ? 1 : batch); r0 += warps) {
     const int b = kCand ? (int)(item / n_cand) : r0 + warp;
     bool mine = kCand ? warp == 0 : b < batch;
@@ -504,7 +555,13 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     if (mine && lane == 0) {
       atomicAdd(&s_routes[dense ? 1 : 0], 1ull);
-      if (dense) work[atomicAdd(n_work, 1ull)] = (int)out;
+      if (dense && !kCand) {
+        // the query in its row's mask, the row listed once
+        atomicOr(qmask + (size_t)a * mw + (b >> 5), 1u << (b & 31));
+        if (atomicAdd(row_flag + a, 1) == 0) {
+          work[atomicAdd(n_work, 1ull)] = a;
+        }
+      }
     }
     if (mine && !dense) {
       best = __reduce_max_sync(kFull, best);
@@ -535,21 +592,15 @@ __device__ __forceinline__ void stage_query(float4* qs, int n, const float* qb,
   }
 }
 
-// Votes of (query b, row a) = work[w] = b * rows + a for w < n_work[0], or
-// of w = b * rows + a for every pair when work is null. With cand, an item
-// is a candidate slot b * n_cand + j of row cand[item] instead, and its
-// votes go to votes[item]. Blocks take items in turn from the counter
-// n_work[1] (zero on entry), so a grid of the resident blocks stays busy to
-// the end.
-template <bool kCand>
+// The every-pair kernel (K5's forced route "dense", to measure
+// against): votes of every (query b, row a) item w = b * rows + a. Blocks
+// take items in turn from the counter n_work[1] (zero on entry), so a grid
+// of the resident blocks stays busy to the end.
 __global__ void __launch_bounds__(kThreads5)
     match_votes_aligned_dense_kernel(const float* __restrict__ db,
                                      const float* __restrict__ q, int batch,
                                      int rows, int t_len, int n_coefs,
                                      int coefs, int f_len, float tol,
-                                     const int* __restrict__ cand,
-                                     int n_cand,
-                                     const int* __restrict__ work,
                                      unsigned long long* n_work,
                                      int* __restrict__ votes) {
   __shared__ float4 qs[kStage5];
@@ -557,9 +608,7 @@ __global__ void __launch_bounds__(kThreads5)
   __shared__ float w1[kWin];
   __shared__ int red[kThreads5 / 32];
   __shared__ unsigned long long s_next;
-  const unsigned long long total =
-      work ? n_work[0]
-           : (unsigned long long)batch * (kCand ? n_cand : rows);
+  const unsigned long long total = (unsigned long long)batch * rows;
   const bool two = coefs > 1;
   const int n_off = t_len + f_len - 1;
   const bool one_stage = f_len <= kStage5;
@@ -570,10 +619,8 @@ __global__ void __launch_bounds__(kThreads5)
     __syncthreads();
     const unsigned long long w = s_next;
     if (w >= total) break;
-    const long long item = work ? work[w] : (long long)w;
-    const int b = (int)(item / (kCand ? n_cand : rows));
-    const int a = kCand ? cand[item] : (int)(item % rows);
-    if (kCand && (a < 0 || a >= rows)) continue;  // uniform; votes stay 0
+    const int b = (int)(w / rows);
+    const int a = (int)(w % rows);
     const float* qb = q + (size_t)b * (coefs + 2) * f_len;
     const float* row = db + (size_t)a * t_len * n_coefs;
     if (one_stage) stage_query(qs, kStage5, qb, coefs, f_len, 0, f_len);
@@ -650,7 +697,7 @@ __global__ void __launch_bounds__(kThreads5)
     if (threadIdx.x == 0) {
       int m = red[0];
       for (int i = 1; i < kThreads5 / 32; ++i) m = max(m, red[i]);
-      votes[kCand ? (size_t)item : (size_t)b * rows + a] = m;
+      votes[(size_t)b * rows + a] = m;
     }
   }
 }
@@ -665,6 +712,28 @@ __global__ void __launch_bounds__(kThreads5)
 constexpr int kGroup4 = 16;  // queries per K4 work item, at most
 constexpr int kGroup5 = 8;   // queries per K5 work item (its query stage)
 constexpr int kScan = 1024;  // threads of the scan block
+
+// Work item i of K5's grouped form: items[i] (row, first slot in slots,
+// queries, 0); or, with no list (items null), for the full scan of `every`
+// (<= kGroup5) queries row i with all of them, query b's slot b * n_cand + i
+// (n_cand: the rows); or, with every 0, batch 1's candidate slot i, slots
+// then holding the row ids (an id outside [0, rows) makes an item of no
+// query: its vote stays 0).
+__device__ __forceinline__ int4 group_item(const int4* items,
+                                           const int* slots, int i,
+                                           int every, int rows) {
+  if (items) return items[i];
+  if (every) return make_int4(i, i, every, 0);
+  const int a = slots[i];
+  const bool ok = a >= 0 && a < rows;
+  return make_int4(ok ? a : 0, i, ok ? 1 : 0, 0);
+}
+
+// The slot of query k of item wi.
+__device__ __forceinline__ int item_slot(const int4* items, const int* slots,
+                                         int4 wi, int k, int n_cand) {
+  return items ? slots[wi.y + k] : k * n_cand + wi.y;
+}
 
 __global__ void group_count_kernel(const int* __restrict__ cand, long long n,
                                    int rows, int* __restrict__ counts) {
@@ -896,7 +965,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         const float2* __restrict__ ent, const short* __restrict__ pos,
         const int* __restrict__ n_live, int t_len, int n_coefs, int coefs,
         int f_len, int chunk, int n_chunks, float tol, float share,
-        float share_small, int shared_min, int n_cand,
+        float share_small, int shared_min, int n_cand, int every, int rows,
         const int* __restrict__ slots, const int4* __restrict__ items,
         const int* __restrict__ n_items, int* __restrict__ votes,
         int* __restrict__ work, unsigned long long* __restrict__ n_work,
@@ -905,7 +974,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   __shared__ int s_slot[kGroup5];
   __shared__ int s_band[2];  // in-band entries, active frames
   __shared__ int s_best[kWarps];
-  if ((int)blockIdx.x >= *n_items) return;  // uniform
+  if (items && (int)blockIdx.x >= *n_items) return;  // uniform
   const int warps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -915,11 +984,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   int* hists = reinterpret_cast<int*>(s_pos + chunk);  // one per query
   unsigned* bnd = reinterpret_cast<unsigned*>(hists + (size_t)warps * win) +
                   (size_t)warp * f_len;
-  const int4 wi = items[blockIdx.x];
+  const int4 wi = group_item(items, slots, blockIdx.x, every, rows);
   const int a = wi.x, nq = wi.z;
   const float* row = db + (size_t)a * t_len * n_coefs;
   const int* nl = n_live + (size_t)a * n_chunks;
-  if (threadIdx.x < nq) s_slot[threadIdx.x] = slots[wi.y + threadIdx.x];
+  if (threadIdx.x < nq) {
+    s_slot[threadIdx.x] = item_slot(items, slots, wi, threadIdx.x, n_cand);
+  }
   if (threadIdx.x < 2) s_band[threadIdx.x] = 0;
   int c0 = 0;
   while (c0 < n_chunks && nl[c0] == 0) ++c0;
@@ -1138,9 +1209,10 @@ __global__ void __launch_bounds__(kThreads5)
     match_votes_aligned_group_dense_kernel(
         const float* __restrict__ db, const float* __restrict__ q,
         int t_len, int n_coefs, int coefs, int f_len, float tol, int n_cand,
-        const int* __restrict__ slots, const int4* __restrict__ items,
-        const int* __restrict__ n_items, const int* __restrict__ work,
-        unsigned long long* n_work, int* __restrict__ votes) {
+        int every, int rows, const int* __restrict__ slots,
+        const int4* __restrict__ items, const int* __restrict__ n_items,
+        const int* __restrict__ work, unsigned long long* n_work,
+        int* __restrict__ votes) {
   __shared__ float4 qs[kGroup5 * kStage5];
   __shared__ float w0[kWin];
   __shared__ float w1[kWin];
@@ -1148,7 +1220,7 @@ __global__ void __launch_bounds__(kThreads5)
   __shared__ int s_best[kGroup5];
   __shared__ unsigned long long s_next;
   const unsigned long long total =
-      work ? n_work[0] : (unsigned long long)*n_items;
+      work ? n_work[0] : (unsigned long long)(items ? *n_items : n_cand);
   const bool two = coefs > 1;
   const int n_off = t_len + f_len - 1;
   const bool one_stage = f_len <= kStage5;
@@ -1159,20 +1231,23 @@ __global__ void __launch_bounds__(kThreads5)
   __syncthreads();
   unsigned long long w = s_next;
   while (w < total) {  // uniform
-    const int4 wi = items[work ? work[w] : (int)w];
+    const int4 wi =
+        group_item(items, slots, work ? work[w] : (int)w, every, rows);
     const int nq = wi.z;
     const float* row = db + (size_t)wi.x * row_len;
     __syncthreads();  // s_next is read; the previous item's votes written
     if (threadIdx.x == 0) s_next = atomicAdd(n_work + 1, 1ull);
     if (threadIdx.x < nq) {
-      s_slot[threadIdx.x] = slots[wi.y + threadIdx.x];
+      s_slot[threadIdx.x] = item_slot(items, slots, wi, threadIdx.x, n_cand);
       s_best[threadIdx.x] = 0;
     }
     __syncthreads();
     const unsigned long long next = s_next;
     if (next < total) {  // the next item's row toward L2 meanwhile
       const float* nrow =
-          db + (size_t)items[work ? work[next] : (int)next].x * row_len;
+          db + (size_t)group_item(items, slots, work ? work[next] : (int)next,
+                                  every, rows)
+                        .x * row_len;
       for (size_t i = threadIdx.x * 32; i < row_len; i += kThreads5 * 32) {
         asm volatile("prefetch.global.L2 [%0];" ::"l"(nrow + i));
       }
@@ -1257,12 +1332,754 @@ __global__ void __launch_bounds__(kThreads5)
   }
 }
 
+// ------------------------------------------------- K5, bit-sliced --- //
+// Replaces the every-pair test (match_votes_aligned_dense_kernel) as the
+// full scan's route for rows with wide bands: the index kernel lists each
+// such row once, with the mask of its queries, and this kernel serves the
+// list in the same call (kListed); or it serves every row for every query
+// (the forced route "bits", and queries whose offset histogram the index
+// kernel cannot hold). The votes of
+// tiresias_tpu/ops/match_pallas.py::_make_aligned_kernel, exact.
+//
+// What bounds it. Testing every frame pair is issue-bound (~5 instructions
+// a pair, 2.8e11 at B=64 on a 10,000-track catalog), and the index route's
+// serial band walks and shared atomics grow with the bands. Here a query
+// frame's hits in a chunk are a bitset over its stored times, built from
+// rank bands, and the offset histogram is bit-sliced: a thread adds 32
+// offsets at once.
+//  - Row-stationary: one CTA per stored row stages each index chunk once
+//    for every query it serves (rounds of kBitsWarps queries, a warp each;
+//    below kBitsWarps queries a query's 16-frame batches are split over
+//    several warps, their counters merged by bit-sliced adds at the end of
+//    a tile).
+//  - Rank bands: four bisections at once (bands4) on fl(d - q): coefficient
+//    0's band [lo, hi) of the d0-sorted chunk and coefficient 1's over a d1
+//    order of the chunk's live entries, sorted in shared memory at staging
+//    (NaN d1 last, left out).
+//  - Block-prefix bitsets: P[k] holds the times ranked below k*g (g = 8, or
+//    32 for chunks over 1,024 frames), built by ballots over a time-to-rank
+//    map. A band's bitset is P[hb] & ~P[lb] on the whole blocks inside it
+//    plus its <= 2(g-1) edge entries (OR'ed in by the frame's two lanes with
+//    shared atomics): a few instructions a word whatever the band's width.
+//    Hits = B0 & (B1 or no use2); coefficients 2..coefs-1 are tested exactly
+//    on the surviving bits only.
+//  - A band of at most kDirect entries, or any band when fewer than
+//    kShareMin queries share the staged chunk (the sort would not pay), is
+//    tested entry by entry instead (the frame's two lanes, or the whole
+//    warp for a band over kPairWalk); the d1 order and the prefix bitsets
+//    are built only when a sample of the first queries' bands holds a wider
+//    one. Either way the votes are exact.
+//  - Offsets without atomics: offsets run in tiles of 1,024 x kNW; a lane
+//    owns kNW words of 32 consecutive offsets, funnel-shifts each frame's
+//    hit words into place and adds eight frames at a time into kPlanes
+//    bit-sliced counters (Harley-Seal: seven carry-save adders, two LOP3s
+//    each). Queries of more than 255 frames fold the planes into int32
+//    counts in shared memory. The max is taken at the end of each tile.
+// Measured (PERF.md): it wins at batch >= SMALL_BATCH on wide bands and
+// loses to the index route on narrow ones and wherever one query has a row
+// to itself, so the wrappers hand it only the former.
+constexpr int kBitsWarps = 8;
+constexpr int kBatch = 16;                   // frames a warp takes at once
+constexpr int kPlanes = 8;                   // counts < 256 between folds
+constexpr int kFoldAt = (1 << kPlanes) - 1;  // inputs between folds
+constexpr int kDirect = 32;                  // widest band tested entry-wise
+constexpr int kShareMin = 8;  // queries sharing a staged chunk for bitsets
+constexpr int kPairWalk = 16;  // longest band a frame's two lanes walk
+constexpr int kIntMax = 0x7fffffff;
+
+// Dynamic shared memory of the bit-sliced kernel, in bytes (host and
+// device agree on it): the staged chunk (entries and times), its d1 order
+// (keys, then values, and times), both prefix bitsets, and per warp 2 x
+// kBatch rows of a chunk's words (a batch's hits, and its coefficient-1
+// bitsets; padded to nwc + 1 words against bank conflicts), which are also
+// the merge area at a tile's end and, in warp 0, the time-to-rank maps while
+// a chunk is staged; for queries of more than kFoldAt frames, per warp a
+// tile's fold counts.
+struct BitsSmem {
+  int npow, nwc, lg, nb, rstride, wstride;
+  long long ent, pos0, d1, pos1, p0, p1, wbuf, fold, total;
+  __host__ __device__ BitsSmem(int chunk, int nw, int warps, int folds) {
+    npow = 1;
+    while (npow < chunk) npow <<= 1;
+    nwc = (chunk + 31) / 32;
+    lg = chunk <= 1024 ? 3 : 5;
+    nb = (chunk + (1 << lg) - 1) >> lg;
+    rstride = nwc + 1;
+    wstride = 2 * kBatch * rstride > kPlanes * 32 * nw ? 2 * kBatch * rstride
+                                                        : kPlanes * 32 * nw;
+    long long o = 0;
+    ent = o;
+    o += 8LL * chunk;
+    pos0 = o;
+    o += 2LL * chunk;
+    o = (o + 15) & ~15LL;
+    d1 = o;
+    o += 4LL * npow;
+    pos1 = o;
+    o += 2LL * npow;
+    o = (o + 15) & ~15LL;
+    p0 = o;
+    o += 4LL * (nb + 1) * rstride;
+    p1 = o;
+    o += 4LL * (nb + 1) * rstride;
+    wbuf = o;
+    o += 4LL * warps * wstride;
+    fold = o;
+    o += folds ? 4096LL * warps * nw : 0;
+    total = o;
+  }
+};
+
+// Order-preserving int32 key of a float (ops/match_index.py::sort_keys);
+// NaN sorts last as kIntMax.
+__device__ __forceinline__ int float_key(float d) {
+  if (d != d) return kIntMax;
+  const int b = __float_as_int(d);
+  return b < 0 ? b ^ 0x7fffffff : b;
+}
+
+__device__ __forceinline__ float key_float(int k) {
+  return __int_as_float(k < 0 ? k ^ 0x7fffffff : k);
+}
+
+// Entry d lies after query value q's band: fl(d - q) > tol, or NaN other
+// than from d = q = -inf (those entries sort first, before the band).
+__device__ __forceinline__ bool after_band(float d, float q, float tol) {
+  const float x = d - q;
+  return !(x <= tol || (x != x && d < 0.f));
+}
+
+// The rank bands [lo0, hi0) of q0 in e0[0, n0) (the d0 order) and [lo1,
+// hi1) of q1 in e1[0, n1) (the d1 order; n1 0 skips it): four bisections
+// of [0, n) at once, lo the entries before the band, hi those not after it
+// (both prefixes), so each step's four probes are independent and their
+// latencies overlap. The bands equal band_lo/band_hi's.
+__device__ __forceinline__ void bands4(const float2* e0, int n0, float q0,
+                                       const float* e1, int n1, float q1,
+                                       float tol, int& lo0, int& hi0,
+                                       int& lo1, int& hi1) {
+  int l0 = n0, h0 = n0, l1 = n1, h1 = n1;  // remaining lengths
+  lo0 = hi0 = lo1 = hi1 = 0;
+  while ((l0 | h0 | l1 | h1) > 0) {
+    if (l0 > 0) {
+      const int half = l0 >> 1;
+      const bool p = before_band(e0[lo0 + half].x, q0, tol);
+      lo0 = p ? lo0 + half + 1 : lo0;
+      l0 = p ? l0 - half - 1 : half;
+    }
+    if (h0 > 0) {
+      const int half = h0 >> 1;
+      const bool p = !after_band(e0[hi0 + half].x, q0, tol);
+      hi0 = p ? hi0 + half + 1 : hi0;
+      h0 = p ? h0 - half - 1 : half;
+    }
+    if (l1 > 0) {
+      const int half = l1 >> 1;
+      const bool p = before_band(e1[lo1 + half], q1, tol);
+      lo1 = p ? lo1 + half + 1 : lo1;
+      l1 = p ? l1 - half - 1 : half;
+    }
+    if (h1 > 0) {
+      const int half = h1 >> 1;
+      const bool p = !after_band(e1[hi1 + half], q1, tol);
+      hi1 = p ? hi1 + half + 1 : hi1;
+      h1 = p ? h1 - half - 1 : half;
+    }
+  }
+}
+
+// Carry-save adder: l + a + b = 2 * (returned carry) + l (bitwise).
+__device__ __forceinline__ unsigned csa(unsigned& l, unsigned a, unsigned b) {
+  const unsigned u = l ^ a;
+  const unsigned h = (l & a) | (u & b);
+  l = u ^ b;
+  return h;
+}
+
+// kNW words of 32 bit-sliced counters: planes[j][k] holds bit k of word
+// j's counts. Inputs come eight at a time (Harley-Seal, unrolled: seven
+// carry-save adders and a ripple from the fours up); n[j] counts the
+// inputs since the last fold. Each word takes its own inputs, so a word
+// that eight frames cannot reach skips them.
+template <int kNW>
+struct Counters {
+  unsigned planes[kNW][kPlanes];
+  int n[kNW];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int j = 0; j < kNW; ++j) {
+#pragma unroll
+      for (int k = 0; k < kPlanes; ++k) planes[j][k] = 0u;
+      n[j] = 0;
+    }
+  }
+
+  __device__ __forceinline__ void ripple(int j, unsigned x, int k0) {
+#pragma unroll
+    for (int k = 0; k < kPlanes; ++k) {
+      if (k >= k0) {
+        const unsigned t = planes[j][k] & x;
+        planes[j][k] ^= x;
+        x = t;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void add8(int j, const unsigned (&x)[8]) {
+    unsigned* p = planes[j];
+    const unsigned a = csa(p[0], x[0], x[1]);
+    const unsigned b = csa(p[0], x[2], x[3]);
+    const unsigned c = csa(p[1], a, b);
+    const unsigned d = csa(p[0], x[4], x[5]);
+    const unsigned e = csa(p[0], x[6], x[7]);
+    const unsigned f = csa(p[1], d, e);
+    ripple(j, csa(p[2], c, f), 3);
+    n[j] += 8;
+  }
+
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int j = 0; j < kNW; ++j) n[j] = 0;
+  }
+
+  // The planes' counts added into fold[i * 32 kNW + word] (shared int32);
+  // the planes restart at zero. Call after flush().
+  __device__ __forceinline__ void fold_into(int* fold) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < kNW; ++j) {
+      unsigned any = 0u;
+#pragma unroll
+      for (int k = 0; k < kPlanes; ++k) any |= planes[j][k];
+      for (int i = 0; any && i < 32; ++i) {
+        int c = 0;
+#pragma unroll
+        for (int k = 0; k < kPlanes; ++k) c |= ((planes[j][k] >> i) & 1) << k;
+        if (c) atomicAdd(fold + i * 32 * kNW + lane + 32 * j, c);
+      }
+#pragma unroll
+      for (int k = 0; k < kPlanes; ++k) planes[j][k] = 0u;
+    }
+  }
+
+  // The largest count in the lane's words. Call after flush().
+  __device__ __forceinline__ int max_count() const {
+    int m = 0;
+#pragma unroll
+    for (int j = 0; j < kNW; ++j) {
+      unsigned cand = ~0u;
+      int v = 0;
+#pragma unroll
+      for (int k = kPlanes - 1; k >= 0; --k) {
+        const unsigned t = cand & planes[j][k];
+        if (t) {
+          cand = t;
+          v |= 1 << k;
+        }
+      }
+      m = max(m, v);
+    }
+    return m;
+  }
+};
+
+template <bool kListed, int kNW>
+__global__ void __launch_bounds__(kBitsWarps * 32)
+    match_votes_aligned_bits_kernel(
+        const float* __restrict__ db, const float* __restrict__ q,
+        const float2* __restrict__ ent, const short* __restrict__ pos,
+        const int* __restrict__ n_live, int batch, int rows, int t_len,
+        int n_coefs, int coefs, int f_len, int chunk, int n_chunks,
+        float tol, int fold, const int* __restrict__ work,
+        const unsigned long long* __restrict__ n_work,
+        const unsigned* __restrict__ qmask, int mw, int share_min,
+        int* __restrict__ votes, unsigned long long* __restrict__ routes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_slot[kBitsWarps];
+  __shared__ int s_flag, s_n1, s_nq, s_scan_w;
+  __shared__ unsigned s_scan_bits;
+  __shared__ unsigned long long s_count[3];
+  constexpr int kOT = 1024 * kNW;  // offsets per tile
+  const int warps = kBitsWarps;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // the work item: a stored row and every query, or (kListed) a listed row
+  // and the queries of its mask
+  if (kListed && (unsigned long long)blockIdx.x >= *n_work) return;  // uniform
+  const int a = kListed ? work[blockIdx.x] : (int)blockIdx.x;
+  int nq = batch;
+  if (kListed) {
+    if (warp == 0) {
+      int c = 0;
+      for (int i = lane; i < mw; i += 32) {
+        c += __popc(qmask[(size_t)a * mw + i]);
+      }
+      c = __reduce_add_sync(kFull, c);
+      if (lane == 0) {
+        s_nq = c;
+        s_scan_w = -1;
+        s_scan_bits = 0u;
+      }
+    }
+    __syncthreads();
+    nq = s_nq;
+  }
+  const int* nl = n_live + (size_t)a * n_chunks;
+  {
+    int live = 0;
+    for (int c = lane; c < n_chunks; c += 32) live |= nl[c];
+    if (!__syncthreads_or(live)) return;  // no stored frame: votes stay 0
+  }
+  const BitsSmem L(chunk, kNW, warps, fold);
+  float2* s_ent = reinterpret_cast<float2*>(smem + L.ent);
+  unsigned short* s_pos0 = reinterpret_cast<unsigned short*>(smem + L.pos0);
+  int* s_key1 = reinterpret_cast<int*>(smem + L.d1);
+  float* s_d1 = reinterpret_cast<float*>(smem + L.d1);
+  unsigned short* s_pos1 = reinterpret_cast<unsigned short*>(smem + L.pos1);
+  unsigned* s_p0 = reinterpret_cast<unsigned*>(smem + L.p0);
+  unsigned* s_p1 = reinterpret_cast<unsigned*>(smem + L.p1);
+  const int nwc = L.nwc, lg = L.lg, nb = L.nb;
+  unsigned* wbase = reinterpret_cast<unsigned*>(smem + L.wbuf);
+  const int rs = L.rstride;
+  unsigned* rows_a = wbase + (size_t)warp * L.wstride;  // [kBatch][rs] hits
+  unsigned* rows_b = rows_a + kBatch * rs;  // [kBatch][rs] coefficient 1
+  unsigned short* s_rank = reinterpret_cast<unsigned short*>(wbase);
+  if (fold) {
+    int* fb = reinterpret_cast<int*>(smem + L.fold);
+    for (int i = threadIdx.x; i < warps * kNW * 1024; i += blockDim.x) {
+      fb[i] = 0;
+    }
+  }
+  if (threadIdx.x < 3) s_count[threadIdx.x] = 0ull;
+  const bool two = coefs > 1;
+  const size_t q_len = (size_t)(coefs + 2) * f_len;
+  const float* row = db + (size_t)a * t_len * n_coefs;
+  const int n_off = t_len + f_len - 1;
+  unsigned long long n_bits = 0, n_direct = 0;
+  int staged = -1, n0 = 0, n1 = 0;
+  bool bits = false;
+  for (int r0 = 0; r0 < nq; r0 += warps) {
+    const int nr = min(warps, nq - r0);
+    const int wpq = warps / nr;  // warps per query of this round
+    const int qr = warp / wpq, sub = warp % wpq;
+    const bool mine = qr < nr;
+    if (kListed) {  // this round's queries: the mask's next set bits
+      __syncthreads();  // the last round's are read
+      if (threadIdx.x == 0) {
+        int w = s_scan_w;
+        unsigned m = s_scan_bits;
+        for (int k = 0; k < nr; ++k) {
+          while (!m) m = qmask[(size_t)a * mw + ++w];
+          s_slot[k] = w * 32 + __ffs(m) - 1;
+          m &= m - 1;
+        }
+        s_scan_w = w;
+        s_scan_bits = m;
+      }
+      __syncthreads();
+    }
+    const int b = !mine ? 0 : kListed ? s_slot[qr] : r0 + qr;
+    const int out = b * rows + a;
+    const float* qb = q + (size_t)b * q_len;
+    int* fq = reinterpret_cast<int*>(smem + L.fold) +
+              (size_t)qr * wpq * kNW * 1024;
+    int best = 0;
+    for (int o0 = 0; o0 < n_off; o0 += kOT) {
+      Counters<kNW> cnt;
+      cnt.clear();
+      const int c_lo = max(0, o0 - (f_len - 1)) / chunk;
+      const int c_hi = min(t_len - 1, o0 + kOT - 1) / chunk;
+      for (int c = c_lo; c <= c_hi; ++c) {
+        if (nl[c] == 0) continue;  // uniform
+        const int t0 = c * chunk;
+        if (c != staged) {  // uniform
+          __syncthreads();  // the previous chunk is consumed
+          n0 = nl[c];
+          stage_chunk_async(s_ent, s_pos0, ent, pos,
+                            ((size_t)a * n_chunks + c) * chunk,
+                            (n0 + 1) & ~1);
+          if (threadIdx.x == 0) {
+            s_flag = 0;
+            s_n1 = 0;
+          }
+          __syncthreads();
+          // a sample decides the bitsets, when enough queries share them:
+          // the first 32 frames of this round's queries, any band wider
+          // than kDirect
+          if (nq >= share_min && mine && sub == 0) {
+            bool wide = false;
+            if (lane < f_len && qb[(size_t)(coefs + 1) * f_len + lane] > 0.f) {
+              const float q0 = qb[lane];
+              const int lo = band_lo(s_ent, n0, q0, tol);
+              wide = band_hi(s_ent, lo, n0, q0, tol) - lo > kDirect;
+            }
+            if (__any_sync(kFull, wide) && lane == 0) s_flag = 1;
+          }
+          __syncthreads();
+          bits = s_flag != 0;
+          if (bits) {
+            if (two) {  // coefficient 1's order of the live entries
+              int live1 = 0;
+              for (int i = threadIdx.x; i < L.npow; i += blockDim.x) {
+                const int k = i < n0 ? float_key(s_ent[i].y) : kIntMax;
+                s_key1[i] = k;
+                s_pos1[i] = i < n0 ? s_pos0[i] : (unsigned short)0xffff;
+                live1 += k != kIntMax;
+              }
+              if (live1) atomicAdd(&s_n1, live1);
+              __syncthreads();
+              for (int k = 2; k <= L.npow; k <<= 1) {  // bitonic sort
+                for (int j = k >> 1; j > 0; j >>= 1) {
+                  for (int i = threadIdx.x; i < L.npow / 2; i += blockDim.x) {
+                    const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+                    const int hi = lo + j;
+                    const int kl = s_key1[lo], kh = s_key1[hi];
+                    if ((kl > kh) == ((lo & k) == 0)) {
+                      s_key1[lo] = kh;
+                      s_key1[hi] = kl;
+                      const unsigned short pl = s_pos1[lo];
+                      s_pos1[lo] = s_pos1[hi];
+                      s_pos1[hi] = pl;
+                    }
+                  }
+                  __syncthreads();
+                }
+              }
+              n1 = s_n1;
+              for (int i = threadIdx.x; i < n1; i += blockDim.x) {
+                s_d1[i] = key_float(s_key1[i]);
+              }
+            }
+            // each time's rank in both orders (warp 0's edge rows), then
+            // the prefix bitsets: bit b of P[k][w] is rank(32 w + b) < k g
+            for (int i = threadIdx.x; i < 2 * chunk; i += blockDim.x) {
+              s_rank[i] = 0xffff;
+            }
+            __syncthreads();
+            for (int r = threadIdx.x; r < n0; r += blockDim.x) {
+              s_rank[s_pos0[r]] = (unsigned short)r;
+            }
+            if (two) {
+              for (int r = threadIdx.x; r < n1; r += blockDim.x) {
+                s_rank[chunk + s_pos1[r]] = (unsigned short)r;
+              }
+            }
+            __syncthreads();
+            for (int task = warp; task < (two ? 2 : 1) * nwc; task += warps) {
+              const int cf = task / nwc, w = task - cf * nwc;
+              const int t = 32 * w + lane;
+              const int rk = t < chunk ? s_rank[cf * chunk + t] : 0xffff;
+              unsigned* p = (cf ? s_p1 : s_p0) + w;
+              for (int k = 0; k <= nb; ++k) {
+                const unsigned m = __ballot_sync(kFull, rk < (k << lg));
+                if (lane == (k & 31)) p[k * rs] = m;
+              }
+            }
+            __syncthreads();
+          }
+          staged = c;
+        }
+        if (!mine) continue;
+        // the frames whose offsets [t0 + d, t0 + clen + d) (d = F-1-f)
+        // meet this tile, in 32-frame groups, a query's groups split over
+        // its warps
+        const int clen = min(chunk, t_len - t0);
+        const int f_a = max(0, f_len - o0 - kOT + t0);
+        const int f_b = min(f_len, f_len - 1 - o0 + t0 + clen);
+        // units of work: 32-frame groups, or (a query with several warps)
+        // half groups, each warp finding its group's bands
+        const int per = wpq > 1 ? 2 : 1;  // units a group
+        for (int u = sub; u * (32 / per) < f_b - f_a; u += wpq) {
+          const int g0 = f_a + (u / per) * 32;
+          // a lane per frame: its bands
+          const int f = g0 + lane;
+          const bool act = f < f_b && (per == 1 || (lane >> 4) == (u & 1)) &&
+                           qb[(size_t)(coefs + 1) * f_len + f] > 0.f;
+          int lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+          float q1 = 0.f;
+          bool use2 = false, wide = false;
+          if (act) {
+            use2 = two && qb[(size_t)coefs * f_len + f] > 0.f;
+            q1 = two ? qb[(size_t)f_len + f] : 0.f;
+            // coefficient 1's band too where bitsets are built (any frame
+            // may turn out wide), found beside coefficient 0's
+            bands4(s_ent, n0, qb[f], s_d1, bits && use2 ? n1 : 0, q1, tol,
+                   lo0, hi0, lo1, hi1);
+            wide = bits && hi0 - lo0 > kDirect;
+          }
+          const bool go = act && hi0 > lo0 && !(wide && use2 && hi1 == lo1);
+          const unsigned todo = __ballot_sync(kFull, go);
+          if (!todo) continue;  // uniform
+          const unsigned wides = __ballot_sync(kFull, go && wide);
+          // the whole blocks of each band, and its two edges [lo, e) and
+          // [s, hi) (a band inside one block is all edge)
+          const int lb0 = (lo0 + (1 << lg) - 1) >> lg, hb0 = hi0 >> lg;
+          const int lb1 = (lo1 + (1 << lg) - 1) >> lg, hb1 = hi1 >> lg;
+          const int e0 = min(hi0, lb0 << lg), s0e = max(hb0 << lg, e0);
+          const int e1 = min(hi1, lb1 << lg), s1e = max(hb1 << lg, e1);
+          const unsigned pk0 = (unsigned)lo0 | ((unsigned)e0 << 16);
+          const unsigned pk1 = (unsigned)s0e | ((unsigned)hi0 << 16);
+          const unsigned pk2 = (unsigned)lo1 | ((unsigned)e1 << 16);
+          const unsigned pk3 = (unsigned)s1e | ((unsigned)hi1 << 16);
+          const unsigned pkb = (unsigned)lb0 | ((unsigned)hb0 << 8) |
+                               ((unsigned)lb1 << 16) | ((unsigned)hb1 << 24);
+          const int flags = (use2 ? 1 : 0) | (wide ? 2 : 0);
+          // batches of kBatch frames, two lanes a frame: lane fi + 16 hf
+          // builds frame h + fi's hits in words [hf * nwh, (hf + 1) * nwh)
+          const int fi = lane & (kBatch - 1), hf = lane >> 4;
+          const int nwh = (nwc + 1) >> 1;
+          const int w_lo = hf * nwh, w_hi = min(nwc, w_lo + nwh);
+          const int h_lo = per == 2 ? (u & 1) * kBatch : 0;
+          const int h_hi = per == 2 ? h_lo + kBatch : 32;
+          for (int h = h_lo; h < h_hi; h += kBatch) {
+            const unsigned bm = todo & (((1u << kBatch) - 1u) << h);
+            if (!bm) continue;  // uniform
+            const int src = h + fi;
+            const unsigned a0 = __shfl_sync(kFull, pk0, src);
+            const unsigned a1 = __shfl_sync(kFull, pk1, src);
+            const unsigned a2 = __shfl_sync(kFull, pk2, src);
+            const unsigned a3 = __shfl_sync(kFull, pk3, src);
+            const unsigned blk = __shfl_sync(kFull, pkb, src);
+            const int fl = __shfl_sync(kFull, flags, src);
+            const float q1j = __shfl_sync(kFull, q1, src);
+            const bool in = (bm >> src) & 1u;
+            const bool wd = fl & 2, u2 = fl & 1;
+            const int fj = g0 + src;
+            unsigned* ra = rows_a + fi * rs;
+            unsigned* rb = rows_b + fi * rs;
+            // whole blocks from the prefix bitsets (a narrow band: none)
+            if (in) {
+              const int blb0 = blk & 0xff, bhb0 = (blk >> 8) & 0xff;
+              const int blb1 = (blk >> 16) & 0xff, bhb1 = blk >> 24;
+              const bool full0 = wd && bhb0 > blb0;
+              const bool full1 = wd && bhb1 > blb1;
+#pragma unroll 4
+              for (int w = w_lo; w < w_hi; ++w) {
+                ra[w] = full0 ? s_p0[bhb0 * rs + w] & ~s_p0[blb0 * rs + w]
+                              : 0u;
+                if (wd && u2) {
+                  rb[w] = full1 ? s_p1[bhb1 * rs + w] & ~s_p1[blb1 * rs + w]
+                                : 0u;
+                }
+              }
+            }
+            __syncwarp();
+            // the edges (every other one each of the frame's two lanes), or
+            // a narrow band's entries that pass coefficient 1 and the rest
+            if (in) {
+              const int l0 = a0 & 0xffffu, ee0 = a0 >> 16;
+              const int ss0 = a1 & 0xffffu, h0 = a1 >> 16;
+              if (wd) {
+                const int n_a0 = ee0 - l0, n_a = n_a0 + (h0 - ss0);
+                for (int i = hf; i < n_a; i += 2) {
+                  const int t = s_pos0[i < n_a0 ? l0 + i : ss0 + i - n_a0];
+                  atomicOr(ra + (t >> 5), 1u << (t & 31));
+                }
+                if (u2) {
+                  const int l1 = a2 & 0xffffu, ee1 = a2 >> 16;
+                  const int ss1 = a3 & 0xffffu, h1 = a3 >> 16;
+                  const int n_b0 = ee1 - l1, n_b = n_b0 + (h1 - ss1);
+                  for (int i = hf; i < n_b; i += 2) {
+                    const int t = s_pos1[i < n_b0 ? l1 + i : ss1 + i - n_b0];
+                    atomicOr(rb + (t >> 5), 1u << (t & 31));
+                  }
+                }
+              } else if (h0 - l0 <= kPairWalk) {
+                for (int i = hf; i < h0 - l0; i += 2) {
+                  const int r = l0 + i;
+                  const int t = s_pos0[r];
+                  bool ok = !u2 || fabsf(s_ent[r].y - q1j) <= tol;
+                  if (ok && coefs > 2) {
+                    ok = rest_close(row + (size_t)(t0 + t) * n_coefs, qb, fj,
+                                    f_len, coefs, tol);
+                  }
+                  if (ok) atomicOr(ra + (t >> 5), 1u << (t & 31));
+                }
+              }
+            }
+            // a longer band tested entry by entry: the whole warp walks it
+            const unsigned longs = __ballot_sync(
+                kFull, hf == 0 && in && !wd &&
+                           (int)(a1 >> 16) - (int)(a0 & 0xffffu) > kPairWalk);
+            for (unsigned m = longs; m; m &= m - 1) {  // uniform
+              const int k = __ffs(m) - 1;
+              const unsigned b0 = __shfl_sync(kFull, a0, k);
+              const unsigned b1 = __shfl_sync(kFull, a1, k);
+              const int flk = __shfl_sync(kFull, fl, k);
+              const float q1k = __shfl_sync(kFull, q1j, k);
+              const int l0 = b0 & 0xffffu, h0 = b1 >> 16;
+              const int fk = g0 + h + k;
+              unsigned* rk = rows_a + k * rs;
+#pragma unroll 2
+              for (int i = lane; i < h0 - l0; i += 32) {
+                const int r = l0 + i;
+                const int t = s_pos0[r];
+                bool ok = !(flk & 1) || fabsf(s_ent[r].y - q1k) <= tol;
+                if (ok && coefs > 2) {
+                  ok = rest_close(row + (size_t)(t0 + t) * n_coefs, qb, fk,
+                                  f_len, coefs, tol);
+                }
+                if (ok) atomicOr(rk + (t >> 5), 1u << (t & 31));
+              }
+            }
+            __syncwarp();
+            // hits = B0 & B1, then coefficients 2.. on what survives; the
+            // first and last word with a hit
+            int w_first = nwc, w_last = -1;
+            if (in) {
+#pragma unroll 4
+              for (int w = w_lo; w < w_hi; ++w) {
+                unsigned x = ra[w];
+                if (wd && u2) x &= rb[w];
+                if (wd && coefs > 2) {
+                  for (unsigned m = x; m; m &= m - 1) {
+                    const int bit = __ffs(m) - 1;
+                    if (!rest_close(row + (size_t)(t0 + w * 32 + bit) *
+                                              n_coefs,
+                                    qb, fj, f_len, coefs, tol)) {
+                      x &= ~(1u << bit);
+                    }
+                  }
+                }
+                if (wd) ra[w] = x;
+                if (x) {
+                  w_first = min(w_first, w);
+                  w_last = w;
+                }
+              }
+            }
+            w_first = min(w_first, __shfl_xor_sync(kFull, w_first, 16));
+            w_last = max(w_last, __shfl_xor_sync(kFull, w_last, 16));
+            const unsigned counted =
+                __ballot_sync(kFull, w_last >= 0) & ((1u << kBatch) - 1u);
+            const unsigned span = (unsigned)w_first | ((unsigned)w_last << 16);
+            __syncwarp();
+            if (lane == 0) {
+              n_bits += __popc(bm & wides);
+              n_direct += __popc(bm & ~wides);
+            }
+            // offset o of the tile reads time o - d of the chunk: bit
+            // base + 32 k + i of the frame's hits, base = o0 - d - t0; a
+            // word reads hit words qw and qw + 1, so it skips a frame whose
+            // hits lie outside them
+            // eight frames at a time (zeros past the last one), so their
+            // loads overlap and the adds need no branches
+            for (unsigned m = counted; m;) {  // uniform
+              int base[8];
+              unsigned sp[8];
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                const int k = m ? __ffs(m) - 1 : -1;
+                m &= m - 1;
+                sp[i] = __shfl_sync(kFull, span, k < 0 ? 0 : k);
+                if (k < 0) sp[i] = 0x0000ffffu;  // nothing: first > last
+                base[i] = o0 - (f_len - 1 - (g0 + h + max(k, 0))) - t0;
+                sp[i] |= (unsigned)max(k, 0) << 8;
+              }
+#pragma unroll
+              for (int j = 0; j < kNW; ++j) {
+                unsigned x[8];
+                bool any = false;
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                  const int qw = (base[i] >> 5) + 32 * j;  // lane 0's word
+                  const int wf = sp[i] & 0xffu, wl = (int)(sp[i] >> 16);
+                  // a word skips a frame whose hits lie outside its reach
+                  const bool r = !(qw + 32 < wf || qw > wl);
+                  any |= r;
+                  const unsigned* hr = rows_a + ((sp[i] >> 8) & 0xffu) * rs;
+                  const int w = qw + lane;
+                  x[i] = r ? __funnelshift_r(
+                                 (unsigned)w < (unsigned)nwc ? hr[w] : 0u,
+                                 (unsigned)(w + 1) < (unsigned)nwc ? hr[w + 1]
+                                                                   : 0u,
+                                 base[i] & 31)
+                           : 0u;
+                }
+                if (!any) continue;  // uniform
+                cnt.add8(j, x);
+                if (fold && cnt.n[j] > kFoldAt - 8) {  // uniform
+                  cnt.flush();
+                  cnt.fold_into(fq);
+                }
+              }
+            }
+            __syncwarp();  // the rows are read
+          }
+        }
+      }
+      // the tile's counts are complete: merge the query's warps, take the max
+      cnt.flush();
+      if (fold) {
+        if (mine) cnt.fold_into(fq);
+        __syncthreads();
+        if (mine && sub == 0) {
+          int m = 0;
+          for (int i = lane; i < 32 * 32 * kNW; i += 32) {
+            m = max(m, fq[i]);
+            fq[i] = 0;
+          }
+          best = max(best, __reduce_max_sync(kFull, m));
+        }
+        __syncthreads();
+      } else {
+        if (wpq > 1) {  // uniform
+          __syncwarp();
+          if (mine && sub > 0) {  // the planes into this warp's hit rows
+#pragma unroll
+            for (int j = 0; j < kNW; ++j) {
+#pragma unroll
+              for (int k = 0; k < kPlanes; ++k) {
+                rows_a[(j * kPlanes + k) * 32 + lane] = cnt.planes[j][k];
+              }
+            }
+          }
+          __syncthreads();
+          if (mine && sub == 0) {  // bit-sliced adds of the other warps'
+            for (int s = 1; s < wpq; ++s) {
+              const unsigned* o = wbase + (size_t)(warp + s) * L.wstride;
+#pragma unroll
+              for (int j = 0; j < kNW; ++j) {
+                unsigned carry = 0u;
+#pragma unroll
+                for (int k = 0; k < kPlanes; ++k) {
+                  const unsigned y = o[(j * kPlanes + k) * 32 + lane];
+                  const unsigned p = cnt.planes[j][k];
+                  cnt.planes[j][k] = p ^ y ^ carry;
+                  carry = (p & y) | (carry & (p ^ y));
+                }
+              }
+            }
+          }
+          __syncthreads();
+        }
+        if (mine && sub == 0) {
+          best = max(best, __reduce_max_sync(kFull, cnt.max_count()));
+        }
+      }
+    }
+    if (mine && sub == 0 && lane == 0) {
+      votes[out] = best;
+      atomicAdd(&s_count[0], 1ull);
+    }
+  }
+  if (lane == 0 && (n_bits | n_direct)) {
+    atomicAdd(&s_count[1], n_bits);
+    atomicAdd(&s_count[2], n_direct);
+  }
+  __syncthreads();
+  if (threadIdx.x < 3 && s_count[threadIdx.x]) {
+    atomicAdd(routes + threadIdx.x, s_count[threadIdx.x]);
+  }
+}
+
 }  // namespace
 
 // Warps per block of the aligned index kernel for this chunk, query length
 // and batch (at most 8 and at most one per query); 0 when not even one
-// warp's histogram fits in shared memory (then every pair takes the dense
-// kernel).
+// warp's histogram fits in shared memory (then the full scan takes the
+// bit-sliced kernel, the grouped candidate form its dense kernel).
 extern "C" int tiresias_match_aligned_warps(int chunk, int f_len, int batch) {
   int w = min(kWarps, batch);
   while (w > 0 && aligned_smem(chunk, f_len, w) > kMaxSmem) --w;
@@ -1296,8 +2113,71 @@ extern "C" int tiresias_match_votes(const void* db, const void* q,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks of a dense kernel on this device (its grid).
-template <bool kCand>
+// Launches the bit-sliced kernel on grid rows: every row (listed false),
+// or the rows of work with the queries of their masks (qmask [rows, mw]
+// u32), n_work[0] of them. routes: three u64 (items, frames on the bitsets,
+// frames tested entry by entry).
+static int launch_bits(bool listed, const void* db, const void* q,
+                       const void* ent, const void* pos, const void* n_live,
+                       int batch, int rows, int t_len, int n_coefs,
+                       int coefs, int f_len, int chunk, int n_chunks,
+                       float tol, long long grid, const int* work,
+                       const unsigned long long* n_work,
+                       const unsigned* qmask, int mw, int* votes,
+                       unsigned long long* routes, cudaStream_t st) {
+  if (chunk > kMaxChunk || chunk < 2 || chunk % 2 || f_len < 1 ||
+      t_len < 1 || grid > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (grid < 1) return (int)cudaSuccess;
+  const long long n_off = (long long)t_len + f_len - 1;
+  int nw = n_off <= 1024 ? 1 : n_off <= 2048 ? 2 : 3;
+  const int fold = f_len > kFoldAt;
+  while (nw > 1 && BitsSmem(chunk, nw, kBitsWarps, fold).total > kMaxSmem) {
+    --nw;  // smaller offset tiles
+  }
+  const BitsSmem L(chunk, nw, kBitsWarps, fold);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const float*, const float*, const float2*,
+                          const short*, const int*, int, int, int, int, int,
+                          int, int, int, float, int, const int*,
+                          const unsigned long long*, const unsigned*, int,
+                          int, int*, unsigned long long*);
+  static const Kernel kernels[2][3] = {
+      {match_votes_aligned_bits_kernel<false, 1>,
+       match_votes_aligned_bits_kernel<false, 2>,
+       match_votes_aligned_bits_kernel<false, 3>},
+      {match_votes_aligned_bits_kernel<true, 1>,
+       match_votes_aligned_bits_kernel<true, 2>,
+       match_votes_aligned_bits_kernel<true, 3>}};
+  const Kernel kernel = kernels[listed ? 1 : 0][nw - 1];
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)grid, kBitsWarps * 32, (size_t)L.total, st>>>(
+      (const float*)db, (const float*)q, (const float2*)ent,
+      (const short*)pos, (const int*)n_live, batch, rows, t_len, n_coefs,
+      coefs, f_len, chunk, n_chunks, tol, fold, work, n_work, qmask, mw,
+      kShareMin, votes, routes);
+  return (int)cudaGetLastError();
+}
+
+// K5's full scan by the bit-sliced kernel alone, every row for every query
+// (the forced route "bits", and queries whose offset histogram the index
+// kernel cannot hold): votes [batch, rows] zeroed; routes: three u64
+// (items, frames on the bitsets, frames entry by entry).
+extern "C" int tiresias_match_votes_aligned_bits(
+    const void* db, const void* q, const void* ent, const void* pos,
+    const void* n_live, int batch, int rows, int t_len, int n_coefs,
+    int coefs, int f_len, int chunk, int n_chunks, float tol, void* votes,
+    void* routes, void* stream) {
+  return launch_bits(false, db, q, ent, pos, n_live, batch, rows, t_len,
+                     n_coefs, coefs, f_len, chunk, n_chunks, tol, rows,
+                     nullptr, nullptr, nullptr, 0, (int*)votes,
+                     (unsigned long long*)routes, (cudaStream_t)stream);
+}
+
+// Resident blocks of the every-pair kernel on this device (its grid).
 static int dense_grid() {
   static int grid = 0;
   if (grid == 0) {
@@ -1305,7 +2185,7 @@ static int dense_grid() {
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, match_votes_aligned_dense_kernel<kCand>, kThreads5, 0);
+        &per_sm, match_votes_aligned_dense_kernel, kThreads5, 0);
     grid = max(1, sms * per_sm);
   }
   return grid;
@@ -1317,23 +2197,31 @@ static int match_votes_aligned(
     const void* n_live, int batch, int rows, int t_len, int n_coefs,
     int coefs, int f_len, int chunk, int n_chunks, float tol, float share,
     int warps, const int* cand, int n_cand, void* votes, void* work,
-    void* n_work, void* routes, cudaStream_t st) {
+    void* n_work, void* qmask, void* row_flag, void* routes,
+    cudaStream_t st) {
   unsigned long long* nw = (unsigned long long*)n_work;
+  unsigned long long* rt = (unsigned long long*)routes;
   cudaError_t err = cudaMemsetAsync(nw, 0, 2 * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return (int)err;
   const long long pairs = (long long)batch * (kCand ? n_cand : rows);
-  const int grid =
-      pairs < dense_grid<kCand>() ? (int)pairs : dense_grid<kCand>();
-  if (warps == 0) {
-    match_votes_aligned_dense_kernel<kCand><<<grid, kThreads5, 0, st>>>(
+  if (warps == 0 && !kCand) {  // forced: the every-pair kernel
+    const int grid = pairs < dense_grid() ? (int)pairs : dense_grid();
+    match_votes_aligned_dense_kernel<<<grid, kThreads5, 0, st>>>(
         (const float*)db, (const float*)q, batch, rows, t_len, n_coefs,
-        coefs, f_len, tol, cand, n_cand, nullptr, nw, (int*)votes);
+        coefs, f_len, tol, nw, (int*)votes);
     return (int)cudaGetLastError();
   }
   const long long smem = aligned_smem(chunk, f_len, warps);
   if (warps < 0 || warps > (kCand ? 1 : kWarps) || smem > kMaxSmem ||
-      chunk % 2) {
+      chunk % 2 || (kCand && share < INFINITY)) {
     return (int)cudaErrorInvalidValue;
+  }
+  const int mw = (batch + 31) / 32;
+  if (!kCand) {
+    err = cudaMemsetAsync(qmask, 0, (size_t)rows * mw * sizeof(unsigned), st);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(row_flag, 0, (size_t)rows * sizeof(int), st);
+    if (err != cudaSuccess) return (int)err;
   }
   err = cudaFuncSetAttribute(match_votes_aligned_kernel<kCand>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1345,37 +2233,46 @@ static int match_votes_aligned(
           (const float*)db, (const float*)q, (const float2*)ent,
           (const short*)pos, (const int*)n_live, batch, rows, t_len,
           n_coefs, coefs, f_len, chunk, n_chunks, tol, share, cand, n_cand,
-          (int*)votes, (int*)work, nw, (unsigned long long*)routes);
+          (int*)votes, (int*)work, nw, (unsigned*)qmask, mw, (int*)row_flag,
+          rt);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  match_votes_aligned_dense_kernel<kCand><<<grid, kThreads5, 0, st>>>(
-      (const float*)db, (const float*)q, batch, rows, t_len, n_coefs, coefs,
-      f_len, tol, cand, n_cand, (const int*)work, nw, (int*)votes);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess || kCand || !(share < INFINITY)) return (int)err;
+  // the wide items: the listed rows with their queries
+  return launch_bits(true, db, q, ent, pos, n_live, batch, rows, t_len,
+                     n_coefs, coefs, f_len, chunk, n_chunks, tol, rows,
+                     (const int*)work, nw, (const unsigned*)qmask, mw,
+                     (int*)votes, rt + 2, st);
 }
 
-// routes: [index items, dense items]; work: one int per item (batch * rows,
-// or batch * n_cand with cand) and n_work two u64 of scratch. warps 0 runs
-// the dense kernel on every item. cand as for tiresias_match_votes; the
-// candidate form runs one warp per item (warps must be 1 or 0).
+// routes: [index items, wide items, then the bit-sliced kernel's three];
+// work: one int per row, n_work two u64 of scratch, qmask rows * ceil(batch
+// / 32) u32 and row_flag rows ints of scratch (all null with cand). The
+// index kernel takes each item whose bands hold at most share of its pairs
+// and hands the others to the bit-sliced kernel (not launched with share
+// infinite). warps 0 runs the every-pair kernel on every item (a forced
+// route of the full scan only). cand as for tiresias_match_votes: the
+// per-item candidate form, one warp per item (warps must be 1), has no
+// wide route (share must be infinite).
 extern "C" int tiresias_match_votes_aligned(
     const void* db, const void* q, const void* ent, const void* pos,
     const void* n_live, int batch, int rows, int t_len, int n_coefs,
     int coefs, int f_len, int chunk, int n_chunks, float tol, float share,
     int warps, const void* cand, int n_cand, void* votes, void* work,
-    void* n_work, void* routes, void* stream) {
+    void* n_work, void* qmask, void* row_flag, void* routes, void* stream) {
   const int* cd = (const int*)cand;
   const cudaStream_t st = (cudaStream_t)stream;
   if (cd) {
     return match_votes_aligned<true>(db, q, ent, pos, n_live, batch, rows,
                                      t_len, n_coefs, coefs, f_len, chunk,
                                      n_chunks, tol, share, warps, cd, n_cand,
-                                     votes, work, n_work, routes, st);
+                                     votes, work, n_work, nullptr, nullptr,
+                                     routes, st);
   }
   return match_votes_aligned<false>(db, q, ent, pos, n_live, batch, rows,
                                     t_len, n_coefs, coefs, f_len, chunk,
                                     n_chunks, tol, share, warps, nullptr, 0,
-                                    votes, work, n_work, routes, st);
+                                    votes, work, n_work, qmask, row_flag,
+                                    routes, st);
 }
 
 // The candidate form's work list (see group_scan_kernel): counts [rows] int
@@ -1454,18 +2351,24 @@ static int group_dense_grid() {
 // kWarps), then the dense kernel over the items it listed; warps 0 runs the
 // dense kernel on every item. work: max_items ints, n_work two u64 of
 // scratch, routes as for tiresias_match_votes_aligned; items of up to g
-// (<= kGroup5) queries.
+// (<= kGroup5) queries. With items and n_items null there is no list (see
+// group_item): every > 0 serves the full scan of that many queries
+// (slots null, max_items = n_cand = rows: votes [every, rows]); every 0
+// batch 1's candidates (slots = cand [1, n_cand], max_items = n_cand).
 extern "C" int tiresias_match_votes_aligned_group(
     const void* db, const void* q, const void* ent, const void* pos,
     const void* n_live, int t_len, int n_coefs, int coefs, int f_len,
     int chunk, int n_chunks, float tol, float share, float share_small,
-    int shared_min, int warps, int n_cand, int g, const void* slots,
-    const void* items, const void* n_items, int max_items, void* votes,
-    void* work, void* n_work, void* routes, void* stream) {
+    int shared_min, int warps, int n_cand, int g, int every, int rows,
+    const void* slots, const void* items, const void* n_items, int max_items,
+    void* votes, void* work, void* n_work, void* routes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long smem = aligned_smem(chunk, f_len, warps);
   if (g < 1 || g > kGroup5 || max_items < 1 || warps < 0 ||
-      warps > kWarps || (warps && (smem > kMaxSmem || chunk % 2))) {
+      warps > kWarps || (warps && (smem > kMaxSmem || chunk % 2)) ||
+      rows < 1 || every < 0 || every > kGroup5 ||
+      (items ? every != 0 || !slots || !n_items
+             : max_items != n_cand || (every ? n_cand != rows : !slots))) {
     return (int)cudaErrorInvalidValue;
   }
   unsigned long long* nw = (unsigned long long*)n_work;
@@ -1483,8 +2386,8 @@ extern "C" int tiresias_match_votes_aligned_group(
                                        (size_t)smem, st>>>(
         (const float*)db, (const float*)q, (const float2*)ent,
         (const short*)pos, (const int*)n_live, t_len, n_coefs, coefs, f_len,
-        chunk, n_chunks, tol, share, share_small, shared_min, n_cand,
-        (const int*)slots, (const int4*)items, (const int*)n_items,
+        chunk, n_chunks, tol, share, share_small, shared_min, n_cand, every,
+        rows, (const int*)slots, (const int4*)items, (const int*)n_items,
         (int*)votes, (int*)work, nw, (unsigned long long*)routes);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -1493,7 +2396,8 @@ extern "C" int tiresias_match_votes_aligned_group(
                          : match_votes_aligned_group_dense_kernel<false>;
   dense<<<grid, kThreads5, 0, st>>>(
       (const float*)db, (const float*)q, t_len, n_coefs, coefs, f_len, tol,
-      n_cand, (const int*)slots, (const int4*)items, (const int*)n_items,
-      warps > 0 ? (const int*)work : nullptr, nw, (int*)votes);
+      n_cand, every, rows, (const int*)slots, (const int4*)items,
+      (const int*)n_items, warps > 0 ? (const int*)work : nullptr, nw,
+      (int*)votes);
   return (int)cudaGetLastError();
 }

@@ -124,12 +124,18 @@ def band_bounds_plain(index: MatchIndex, q0: torch.Tensor, tol: float):
     ``[lo, hi)`` of each chunk's live run whose d0 passes
     ``|fl(d0 − q0)| <= tol`` — exactly those, found by binary search on
     the float32 expression itself, as the kernels search."""
+    return _band_bounds(index.entries[..., 0], index.n_live, q0, tol)
+
+
+def _band_bounds(keys: torch.Tensor, n_live: torch.Tensor, q0: torch.Tensor,
+                 tol: float):
+    """:func:`band_bounds_plain` over sorted ``keys [A, nc, chunk]`` with
+    ``n_live [A, nc]`` live entries each."""
     tol = float(np.float32(tol))
-    keys = index.entries[..., 0]  # [A, nc, chunk]
     a, nc, chunk = keys.shape
     b, f = q0.shape
     q = q0.to(torch.float32)[:, :, None, None, None]
-    n = index.n_live.to(torch.int64)[None, None].expand(b, f, a, nc)
+    n = n_live.to(torch.int64)[None, None].expand(b, f, a, nc)
     flat = keys[None, None].expand(b, f, a, nc, chunk)
     steps = int(chunk).bit_length() + 1
 
@@ -187,3 +193,188 @@ def votes_by_index_plain(index: MatchIndex, db, q, active, use2, tol,
     if aligned:
         return _aligned_scores(ok)
     return ok.any(dim=-1).sum(dim=1, dtype=torch.int32)
+
+
+# The bit-sliced K5 (csrc/match.cu, match_votes_aligned_bits_kernel):
+# counter planes (counts below 2**PLANES between folds) and the block of
+# ranks a prefix bitset steps by (16, or 32 past 1,024-frame chunks).
+PLANES = 8
+FOLD_AT = 2**PLANES - 1
+_WORD = 0xFFFFFFFF
+
+
+def block_shift(chunk: int) -> int:
+    """log2 of the ranks per block of the prefix bitsets of a chunk."""
+    return 4 if chunk <= 1024 else 5
+
+
+def coef1_order(index: MatchIndex):
+    """Coefficient 1's order of each chunk's live entries, as the bit-sliced
+    kernel sorts it in shared memory: ``(d1 [A, nc, chunk]`` float32
+    ascending (NaN past the run), ``pos1 [A, nc, chunk]`` int64 times in the
+    chunk, ``n1 [A, nc]`` int64 the entries whose d1 is not NaN)."""
+    d1 = index.entries[..., 1]
+    chunk = index.chunk
+    live = (torch.arange(chunk, device=d1.device)
+            < index.n_live[..., None].to(torch.int64))
+    ok = live & ~torch.isnan(d1)
+    keys = torch.where(ok, sort_keys(torch.where(ok, d1, 0.0)), _DEAD_KEY)
+    order = torch.sort(keys, dim=-1, stable=True).indices
+    d1s = d1.gather(-1, order)
+    n1 = ok.sum(dim=-1)
+    run = torch.arange(chunk, device=d1.device) < n1[..., None]
+    nan = torch.full((), float("nan"), device=d1.device)
+    pos1 = index.pos.to(torch.int64).gather(-1, order)
+    return torch.where(run, d1s, nan), pos1, n1
+
+
+def prefix_bitsets(pos: torch.Tensor, n: torch.Tensor, chunk: int):
+    """``P [A, nc, nb + 1, nwc]`` int64 (32-bit words): ``P[..., k, :]``
+    holds the times (bits of the chunk's ``nwc`` words) of the entries
+    ranked below ``k * g`` in the order ``pos [A, nc, chunk]`` (times), of
+    which the first ``n [A, nc]`` are live."""
+    a, nc, _ = pos.shape
+    lg = block_shift(chunk)
+    nb = -(-chunk // (1 << lg))
+    nwc = -(-chunk // 32)
+    r = torch.arange(chunk, device=pos.device)
+    live = r < n[..., None].to(torch.int64)
+    t = pos.to(torch.int64).clamp(0, chunk - 1)
+    slot = (r >> lg) * nwc + (t >> 5)
+    bit = torch.where(live, torch.ones_like(t) << (t & 31), 0)
+    blocks = torch.zeros((a, nc, nb * nwc), dtype=torch.int64,
+                         device=pos.device)
+    blocks.scatter_add_(-1, slot, bit)  # distinct times: a sum is an OR
+    blocks = blocks.reshape(a, nc, nb, nwc)
+    zero = torch.zeros((a, nc, 1, nwc), dtype=torch.int64, device=pos.device)
+    return torch.cat([zero, torch.cumsum(blocks, dim=2)], dim=2)
+
+
+def band_bitsets(p: torch.Tensor, pos: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The bitsets ``[B, F, A, nc, nwc]`` int64 of the rank bands ``[lo,
+    hi)`` (``[B, F, A, nc]``): the whole blocks inside a band from the
+    prefix bitsets ``p``, ``P[hb] & ~P[lb]``, and its at most ``2 (g − 1)``
+    edge entries set from their times ``pos``."""
+    lg = block_shift(chunk)
+    g = 1 << lg
+    b, f, a, nc = lo.shape
+    nwc = p.shape[-1]
+    lb = (lo + g - 1) >> lg
+    hb = hi >> lg
+    pb = p[None, None].expand(b, f, a, nc, -1, nwc)
+
+    def row(k):
+        return pb.gather(4, k[..., None, None].expand(b, f, a, nc, 1, nwc))[
+            ..., 0, :]
+
+    full = torch.where((hb > lb)[..., None], row(hb) & ~row(lb) & _WORD, 0)
+    e1 = torch.minimum(hi, lb << lg)  # first edge [lo, e1)
+    s2 = torch.maximum(hb << lg, e1)  # second edge [s2, hi)
+    i = torch.arange(2 * g, device=lo.device)
+    n1 = (e1 - lo)[..., None]
+    r = torch.where(i < n1, lo[..., None] + i, s2[..., None] + i - n1)
+    ok = i < n1 + (hi - s2)[..., None]
+    posb = pos.to(torch.int64)[None, None].expand(b, f, a, nc, chunk)
+    t = posb.gather(-1, r.clamp(0, chunk - 1))
+    edges = torch.zeros_like(full)
+    edges.scatter_add_(-1, t >> 5,
+                       torch.where(ok, torch.ones_like(t) << (t & 31), 0))
+    return full | edges
+
+
+def _ripple(planes: list, x: torch.Tensor) -> None:
+    """Adds the bits of ``x`` into the bit-sliced counters ``planes``."""
+    for k in range(len(planes)):
+        carry = planes[k] & x
+        planes[k] = planes[k] ^ x
+        x = carry
+
+
+def _fold(planes: list, counts: torch.Tensor) -> None:
+    """Adds the counters' values into ``counts [..., 32 * words]`` int32 and
+    clears them."""
+    bits = torch.arange(32, device=counts.device)
+    for k, p in enumerate(planes):
+        v = ((p[..., None] >> bits) & 1) << k  # [..., words, 32]
+        counts += v.reshape(counts.shape).to(torch.int32)
+        planes[k] = torch.zeros_like(p)
+
+
+def aligned_votes_bits_plain(index: MatchIndex, db, q, active, use2, tol,
+                             coefs: int = 1):
+    """The bit-sliced K5 in plain torch: aligned votes ``[B, A]`` int32
+    (PARITY.md D9), equal to :func:`match.match_votes` with ``aligned``.
+
+    Per chunk of the index: coefficient 0's rank bands over the d0 order
+    and coefficient 1's over :func:`coef1_order` (:func:`_band_bounds`,
+    the kernels' bisection on ``fl(d − q)``); each band's bitset over the
+    chunk's times from :func:`prefix_bitsets` and its edge entries
+    (:func:`band_bitsets`); hits ``B0 & (B1 | ~use2)``, then coefficients
+    2..coefs-1 on the hits; each frame's hits shifted to its offsets
+    ``t − f + F − 1`` (words funnel-shifted as the kernel shifts them) and
+    added into ``PLANES`` bit-sliced counters, folded into int32 counts
+    every ``FOLD_AT`` frames and at the chunk's end; the max offset count.
+    """
+    tol = float(np.float32(tol))
+    a, t_len, c = db.shape
+    b, f = active.shape
+    if coefs < 1 or coefs > c:
+        raise ValueError(f"coefs must be in [1, {c}]")
+    dev = db.device
+    votes = torch.zeros((b, a), dtype=torch.int32, device=dev)
+    if f == 0 or a == 0:
+        return votes
+    chunk, nc = index.chunk, index.n_chunks
+    nwc = -(-chunk // 32)
+    q = q.to(torch.float32)
+    lo0, hi0 = band_bounds_plain(index, q[..., 0], tol)
+    hits = band_bitsets(prefix_bitsets(index.pos, index.n_live, chunk),
+                        index.pos, lo0, hi0, chunk)
+    if coefs > 1:
+        d1s, pos1, n1 = coef1_order(index)
+        lo1, hi1 = _band_bounds(d1s, n1, q[..., 1], tol)
+        b1 = band_bitsets(prefix_bitsets(pos1, n1, chunk), pos1, lo1, hi1,
+                          chunk)
+        hits = torch.where(use2[:, :, None, None, None], hits & b1, hits)
+    hits = torch.where(active[:, :, None, None, None], hits, 0)
+    if coefs > 2:  # the rest, packed into words of each chunk's times
+        tt = nc * chunk
+        ok = torch.ones((b, f, a, tt), dtype=torch.bool, device=dev)
+        for ci in range(2, coefs):
+            dc = torch.full((a, tt), float("nan"), device=dev)
+            dc[:, :t_len] = db[..., ci]
+            ok &= (q[..., ci][:, :, None, None] - dc[None, None]).abs() <= tol
+        ok = ok.reshape(b, f, a, nc, -1)
+        ok = torch.nn.functional.pad(ok, (0, nwc * 32 - chunk))
+        ok = ok.reshape(b, f, a, nc, nwc, 32)
+        rest = torch.zeros_like(hits)
+        for bit in range(32):
+            rest |= ok[..., bit].to(torch.int64) << bit
+        hits &= rest
+    n_off = t_len + f - 1
+    words = -(-(chunk + f - 1) // 32)  # a chunk's offsets [t0, t0+chunk+F-1)
+    acc = torch.zeros((b, a, nc * chunk + 32 * words), dtype=torch.int32,
+                      device=dev)
+    k = torch.arange(words, device=dev)
+    zero = torch.zeros((b, a, 1), dtype=torch.int64, device=dev)
+    for ch in range(nc):
+        planes = [torch.zeros((b, a, words), dtype=torch.int64, device=dev)
+                  for _ in range(PLANES)]
+        counts = torch.zeros((b, a, 32 * words), dtype=torch.int32,
+                             device=dev)
+        for fi in range(f):
+            h = torch.cat([zero, hits[:, fi, :, ch], zero], dim=-1)
+            base = -(f - 1 - fi)  # offset o (from t0) reads time o + base
+            qw = (base >> 5) + k  # word qw of the hits, then qw + 1
+            lo_w = h[..., qw.clamp(-1, nwc) + 1]
+            hi_w = h[..., (qw + 1).clamp(-1, nwc) + 1]
+            sh = base & 31
+            x = (lo_w >> sh) | ((hi_w << (32 - sh)) & _WORD) if sh else lo_w
+            _ripple(planes, x)
+            if (fi + 1) % FOLD_AT == 0:
+                _fold(planes, counts)
+        _fold(planes, counts)
+        t0 = ch * chunk
+        acc[:, :, t0 : t0 + 32 * words] += counts
+    return acc[:, :, :n_off].amax(dim=-1).to(torch.int32)

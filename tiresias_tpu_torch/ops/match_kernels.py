@@ -7,14 +7,24 @@ wrappers follow one rule: a CPU tensor takes the twin, a CUDA tensor
 launches the kernel or raises — no tolerance or shape is routed elsewhere.
 
 Both kernels search the view's sorted index (:mod:`.match_index`): each
-query frame's coefficient-0 band is found by binary search and only the
-frames inside it are tested. A work item whose bands hold more than
+query frame's coefficient-0 band is found by binary search. K4 tests only
+the frames inside it; a work item whose bands hold more than
 ``DENSE_SHARE`` of its live pairs takes the kernel's dense route instead,
-chosen on the device per item; :func:`route_counts` counts the items of
-each route. K4's dense route runs inside its kernel; K5's dense items go on
-a work list on the device that a second kernel, which tests every frame
-pair, serves in the same call (every (query, row) pair for a query whose
-offset histogram does not fit in shared memory, over ~50,000 frames).
+chosen on the device per item. K5's index kernel hands such an item to
+the bit-sliced kernel (``match_votes_aligned_bits_kernel``; its plain
+statement is :func:`match_index.aligned_votes_bits_plain`) in the same
+call: the rows with such items go on a list, each with the mask of its
+queries, so one block stages a row once for all of them; a frame's hits in
+a chunk are a bitset over the stored times, from the rank bands of
+coefficients 0 and 1 and block-prefix bitsets of the chunk (or, for a
+narrow band or a row few queries share, from its entries one by one), and
+the offset histogram is bit-sliced. A query whose offset histogram does not
+fit in the index kernel's shared memory (over ~50,000 frames) takes the
+bit-sliced kernel on every item. Below ``SMALL_BATCH`` queries K5's full
+scan runs as the grouped candidate form with every row one work item of
+all the queries (no list is built). The every-pair kernel stays as the
+forced route ``"dense"``, to measure against. :func:`route_counts` counts
+the items of each route.
 
 The certified strict/aligned prefilter (:func:`aligned_prefiltered_votes`,
 PARITY.md D17/D20) bounds every row's votes with K3' on the view's uint8
@@ -26,8 +36,8 @@ batch share rows, so the form groups them by row on the device first
 :func:`group_candidates_plain` is its twin): one block per work item of
 one row and up to ``CAND_GROUP`` of the queries that chose it, the row's
 index chunks (K5's dense window) staged once for all of them. The first design, one block per (query, candidate) item, stays as
-the forced route ``"per_item"``, which batch 1 takes (no row is shared
-there).
+the forced route ``"per_item"``, which K4 takes at batch 1 (no row is
+shared there); K5's per-item form runs its index kernel on every slot.
 
 Operand convention (the store's layout): ``db [A, T, C]`` holds PAD_VALUE
 in every frame that does not exist — past an audio's end, in padding rows
@@ -56,34 +66,41 @@ INACTIVE_Q = 1.0e6  # the Pallas operand's inactive-frame value (row 0)
 _MAX_BLOCKS = 2**31 - 1  # grid.x limit of the launches
 _MAX_GRID_Y = 65535
 _K4_ITEMS = 512  # (query, 32-frame group) items per K4 block (kMaxItems)
-# A work item takes the dense route when its bands hold more than this share
-# of its (live stored frame, active query frame) pairs: K4 counts what is
-# left of the bands after each frame's first kProbe entries, K5 the bands of
-# its first 32 frames. K5's share is where the two routes crossed at batch
-# 64 on an H100 (the index route's time grows ~0.8 ms per % of a row in the
-# bands, the dense route takes ~25 ms; PERF.md). Below SMALL_BATCH
-# queries a block has fewer items than warps (K4) or one warp per stored
-# row (K5), and one lane walking a long band is slower than the warp
-# sweeping the chunk (K4) or the dense kernel's 128 threads per item (K5),
-# so the dense route takes over sooner there. The per-item candidate form
-# has one query per block (one warp per item in K5), so it takes the
-# small-batch shares at any batch: on chip_smoke's catalog candidates
-# (bands 21% of a row) at batch 64 with the batch-64 share, K5 sent all but
-# one item to the index route and took 3.484 ms, its dense route 2.471
-# (H100 80GB HBM3, 700 W). The grouped form takes the batch-64 share for a
-# work item of >= CAND_SHARED queries, the small-batch share for a row only
-# one query chose: on catalog rows (bands ~22% of a row) K5's index route,
-# a query's warps splitting its frames, beat its dense route from 2
-# queries per item on and lost at 1 (chip_smoke's sharing sweep, PERF.md);
-# K4's items fill its 8 warps from 2 queries of 4 x 32-frame groups.
-DENSE_SHARE = {"bag": 0.5, "aligned": 0.35, "bag_small_batch": 0.125,
-               "aligned_small_batch": 0.125}
+# A work item takes the wide-band route when its bands hold more than this
+# share of its (live stored frame, active query frame) pairs: K4 counts what
+# is left of the bands after each frame's first kProbe entries (its dense
+# sweep), K5 the bands of its first 32 frames (the bit-sliced kernel). Below
+# SMALL_BATCH queries a block has fewer items than warps (K4) or one warp
+# per stored row (K5), and one lane walking a long band is slower than the
+# warp sweeping the chunk (K4) or the bit-sliced kernel's lanes splitting
+# the bands (K5), so the wide route takes over sooner there. The per-item
+# candidate form has one query per block, so it takes the small-batch
+# shares at any batch. The grouped form takes the batch share for a work
+# item of >= CAND_SHARED queries, the small-batch share for a row only one
+# query chose (K4's items fill its 8 warps from 2 queries of 4 x 32-frame
+# groups). K5's wide route is its bit-sliced kernel in the full scan at
+# batch >= SMALL_BATCH, where the index kernel hands it a wide row whole
+# (chip_smoke on an H100, PERF.md: the catalog's bands, 24% of a row, 18.08
+# ms against the index route's 21.86 and the bit-sliced kernel's 17.86
+# alone; narrow bands stay on the index route, 1.81 against 8.57). Where a
+# row has few queries the kernel's staging does not pay (the catalog at
+# batch 1: 1.04 against the index route's 0.75 and the grouped form's
+# 0.44): below SMALL_BATCH the full scan runs as the grouped candidate form,
+# each row one work item of every query, whose wide route is the grouped
+# dense kernel (share "aligned_cand" for an item of >= CAND_SHARED queries,
+# the small-batch share below). K5's per-item candidate form (a forced
+# route) has no wide route.
+DENSE_SHARE = {"bag": 0.5, "aligned": 0.2, "bag_small_batch": 0.125,
+               "aligned_small_batch": 0.125, "aligned_cand": 0.35}
 SMALL_BATCH = 8
 CAND_SHARED = 2
 # route: "auto" (per item, by DENSE_SHARE); "dense" and "index" force one
-# route for every item, to measure and test each. The candidate form also
-# takes "grouped" (the grouped form whatever the batch) and "per_item" (the
-# per-item form, auto routes).
+# route for every item, to measure and test each (K5's "dense" is the
+# every-pair kernel in the full scan, the grouped dense kernel in the
+# grouped form; its "index" needs the offset histogram in shared memory);
+# K5's full scan also takes "bits" (the bit-sliced kernel on every row). The
+# candidate form also takes "grouped" (the grouped form whatever the batch)
+# and "per_item" (the per-item form, auto routes).
 _FORCED = {"dense": -1.0, "index": float("inf")}
 _CAND_FORMS = ("grouped", "per_item")
 # Queries per grouped work item, at most (kGroup4 / kGroup5 in match.cu):
@@ -92,6 +109,7 @@ _CAND_FORMS = ("grouped", "per_item")
 # K5's dense kernel stages each item's queries in 2 KB each.
 CAND_GROUP = {"bag": 16, "aligned": 8}
 _ROUTES: dict[torch.device, torch.Tensor] = {}
+_N_ROUTES = 7
 # Candidates the strict/aligned prefilter rescores (the engine takes it above
 # 2 x this many rows per view).
 PREFILTER_K = 1024
@@ -110,15 +128,19 @@ def query_rows(q, active, use2, coefs: int) -> torch.Tensor:
 
 
 def route_counts(device) -> torch.Tensor:
-    """The device's route counters, int64 ``[4]``: work items that took K4's
-    index route, K4's dense route, K5's index route and K5's dense route,
-    summed over launches (each launch adds on the device; read them outside
-    a timed region). An item is a (query, 32-frame group, row) for K4 and a
-    (query, row) for K5."""
+    """The device's route counters, int64 ``[7]``: work items that took K4's
+    index route, K4's dense route, K5's index route, K5's wide route (items
+    the index kernel hands on, and the forced "dense" route's) and K5's
+    bit-sliced kernel, then the bit-sliced kernel's frame tests
+    (a query frame in a stored chunk with a non-empty band) on the bitsets
+    and entry by entry; summed over launches (each launch adds on the
+    device; read them outside a timed region). An item is a (query,
+    32-frame group, row) for K4 and a (query, row) for K5."""
     device = torch.device(device)
     with _ROUTES_LOCK:
         if device not in _ROUTES:
-            _ROUTES[device] = torch.zeros(4, dtype=torch.int64, device=device)
+            _ROUTES[device] = torch.zeros(_N_ROUTES, dtype=torch.int64,
+                                          device=device)
         return _ROUTES[device]
 
 
@@ -223,34 +245,53 @@ def cand_group_size(aligned: bool, f: int) -> int:
 
 def _cand_grouped(lib, db, rows_q, index, cand, b, f, coefs, tol, aligned,
                   route, votes, stream):
-    """K4/K5's grouped candidate form into ``votes [B, k]`` (zeroed)."""
+    """K4/K5's grouped candidate form into ``votes [B, k]`` (zeroed). K5
+    builds no work list with ``cand`` None (its full scan below SMALL_BATCH
+    queries: each row one work item of every query, ``votes [B, A]``) or at
+    batch 1 (each slot one item)."""
     a, t, c = db.shape
-    n_cand = cand.shape[1]
-    mode = "aligned" if aligned else "bag"
-    share = _FORCED.get(route, DENSE_SHARE[mode])
-    share_small = _FORCED.get(route, DENSE_SHARE[mode + "_small_batch"])
-    g = cand_group_size(aligned, f)
-    slots, items, n_items = group_candidates(cand, a, g)
+    share = _FORCED.get(route, DENSE_SHARE[
+        "aligned_cand" if aligned else "bag"])
+    share_small = _FORCED.get(route, DENSE_SHARE[
+        "aligned_small_batch" if aligned else "bag_small_batch"])
+    every = b if cand is None else 0
+    if cand is None:
+        n_cand, g = a, b
+        work_list = (None, None, None, a, votes.data_ptr())
+    elif aligned and b == 1:
+        n_cand, g = cand.shape[1], 1
+        work_list = (cand.data_ptr(), None, None, n_cand, votes.data_ptr())
+    else:
+        n_cand, g = cand.shape[1], cand_group_size(aligned, f)
+        slots, items, n_items = group_candidates(cand, a, g)
+        work_list = (slots.data_ptr(), items.data_ptr(), n_items.data_ptr(),
+                     items.shape[0], votes.data_ptr())
     routes = route_counts(db.device)
     common = (db.data_ptr(), rows_q.data_ptr(), index.entries.data_ptr(),
               index.pos.data_ptr(), index.n_live.data_ptr(), t, c, coefs, f,
               index.chunk, index.n_chunks, tol, share, share_small,
               CAND_SHARED)
-    work_list = (slots.data_ptr(), items.data_ptr(), n_items.data_ptr(),
-                 items.shape[0], votes.data_ptr())
     if not aligned:
         rc = lib.tiresias_match_votes_group(
             *common, n_cand, g, *work_list, routes.data_ptr(), stream)
         build.check("match_votes_cand", rc)
         return
-    warps = lib.tiresias_match_aligned_warps(index.chunk, f, min(b, g))
-    work = torch.empty(items.shape[0], dtype=torch.int32, device=db.device)
+    # a query whose offset histogram the index kernel cannot hold: the
+    # dense kernel on every item
+    warps = 0 if route == "dense" else lib.tiresias_match_aligned_warps(
+        index.chunk, f, min(b, g))
+    if warps == 0 and route == "index":
+        raise ValueError(
+            f"match_votes_aligned_cand: the index route cannot hold the "
+            f"offset histogram of a {f}-frame query")
+    n_max = work_list[3]
+    work = torch.empty(n_max, dtype=torch.int32, device=db.device)
     n_work = torch.empty(2, dtype=torch.int64, device=db.device)
     rc = lib.tiresias_match_votes_aligned_group(
-        *common, warps, n_cand, g, *work_list, work.data_ptr(),
-        n_work.data_ptr(), routes.data_ptr() + 2 * routes.element_size(),
-        stream)
-    if warps:
+        *common, warps, n_cand, g, every, a, *work_list,
+        work.data_ptr(), n_work.data_ptr(),
+        routes.data_ptr() + 2 * routes.element_size(), stream)
+    if warps:  # the index kernel, then the grouped dense kernel over its list
         build.check("match_votes_aligned_cand", rc)
     build.check("match_votes_aligned_cand_dense", rc)
 
@@ -261,11 +302,10 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
     a, t, c = db.shape
     if coefs < 1 or coefs > c:
         raise ValueError(f"coefs must be in [1, {c}]")
-    if route != "auto" and route not in _FORCED and (
-            cand is None or route not in _CAND_FORMS):
-        raise ValueError(
-            "route must be 'auto', 'dense' or 'index'"
-            + ("" if cand is None else ", 'grouped' or 'per_item'"))
+    routes_ok = ("auto", *_FORCED) + (
+        _CAND_FORMS if cand is not None else ("bits",) if aligned else ())
+    if route not in routes_ok:
+        raise ValueError(f"route must be one of {', '.join(routes_ok)}")
     tol = float(np.float32(tolerance))
     if db.device.type == "cpu":
         if cand is not None:
@@ -306,10 +346,11 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
             f"{tuple(cand.shape)} {cand.dtype})"
         )
     n_cand = 0 if cand is None else cand.shape[1]
-    # the per-item candidate form: forced, or at batch 1, where no row is
-    # shared and the grouping would only add its own launches
+    # the per-item candidate form: forced, or K4's at batch 1, where no row
+    # is shared and the grouping would only add its own launches (K5 groups
+    # there too: the grouped dense kernel takes its wide items)
     per_item = cand is not None and (
-        route == "per_item" or (route == "auto" and b == 1))
+        route == "per_item" or (route == "auto" and b == 1 and not aligned))
     suffix = "_per_item" if per_item else ""
     items = b * -(-f // 32)  # K4's work items: 32-frame query groups
     blocks = (a if cand is None else b * n_cand if per_item
@@ -330,14 +371,39 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
     rows = query_rows(q.to(torch.float32), active, use2, coefs)
     lib = build.kernel_library()
     stream = torch.cuda.current_stream(db.device).cuda_stream
-    if cand is not None and not per_item:
+    if (cand is not None and not per_item) or (
+            aligned and cand is None and route == "auto" and b < SMALL_BATCH
+            and lib.tiresias_match_aligned_warps(index.chunk, f, b)):
+        # the grouped form (K5's full scan of few queries too: each row one
+        # work item of every query, see DENSE_SHARE)
         _cand_grouped(lib, db, rows, index, cand, b, f, coefs, tol, aligned,
                       route, votes, stream)
         return votes
     routes = route_counts(db.device)
+    warps = 0
+    if aligned and route != "dense":
+        warps = lib.tiresias_match_aligned_warps(index.chunk, f,
+                                                 b if cand is None else 1)
+        if warps == 0 and (route == "index" or cand is not None):
+            raise ValueError(
+                f"{name}: the {route} route cannot hold the offset histogram "
+                f"of a {f}-frame query")
+    if aligned and cand is None and (route == "bits" or (
+            warps == 0 and route != "dense")):
+        # the bit-sliced kernel on every row (forced, or a query whose
+        # offset histogram the index kernel cannot hold)
+        rc = lib.tiresias_match_votes_aligned_bits(
+            db.data_ptr(), rows.data_ptr(), index.entries.data_ptr(),
+            index.pos.data_ptr(), index.n_live.data_ptr(), b, a, t, c, coefs,
+            f, index.chunk, index.n_chunks, tol, votes.data_ptr(),
+            routes.data_ptr() + 4 * routes.element_size(), stream)
+        build.check(name + "_bits", rc)
+        return votes
     key = ("aligned" if aligned else "bag") + (
         "" if b >= SMALL_BATCH and cand is None else "_small_batch")
     share = _FORCED.get(route, DENSE_SHARE[key])
+    if aligned and cand is not None:  # K5's per-item form: no wide route
+        share = float("inf")
     common = (index.entries.data_ptr(), index.pos.data_ptr(),
               index.n_live.data_ptr(), b, a, t, c, coefs, f, index.chunk,
               index.n_chunks, tol, share)
@@ -348,22 +414,27 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
             votes.data_ptr(), routes.data_ptr(), stream)
         build.check(name + suffix, rc)
         return votes
-    # K5: the index kernel, then the dense kernel over the items it put on
-    # the work list (every item when the offset histogram does not fit in
-    # shared memory: a query of more than ~50,000 frames); the candidate
-    # form runs one warp per (query, candidate) item
-    warps = lib.tiresias_match_aligned_warps(index.chunk, f,
-                                             b if cand is None else 1)
-    work = torch.empty(votes.numel() if warps else 0, dtype=torch.int32,
-                       device=db.device)
-    n_work = torch.empty(2, dtype=torch.int64, device=db.device)
+    # K5: the index kernel, then the bit-sliced kernel over the rows it
+    # listed with the masks of their queries, or (route "dense", warps 0)
+    # the every-pair kernel on every item
+    dev = db.device
+    full = warps and cand is None
+    mw = -(-b // 32)
+    work = torch.empty(a if full else 0, dtype=torch.int32, device=dev)
+    n_work = torch.empty(2, dtype=torch.int64, device=dev)
+    qmask = torch.empty(a * mw if full else 0, dtype=torch.int32, device=dev)
+    row_flag = torch.empty(a if full else 0, dtype=torch.int32, device=dev)
     rc = lib.tiresias_match_votes_aligned(
         db.data_ptr(), rows.data_ptr(), *common, warps, *cand_args,
         votes.data_ptr(), work.data_ptr(), n_work.data_ptr(),
+        qmask.data_ptr(), row_flag.data_ptr(),
         routes.data_ptr() + 2 * routes.element_size(), stream)
-    if warps:
-        build.check(name + suffix, rc)
-    build.check(name + "_dense" + suffix, rc)
+    if warps:  # the index kernel, then the bit-sliced kernel if any item
+        build.check(name + suffix, rc)  # can take it
+        if share < float("inf"):
+            build.check(name + "_bits", rc)
+    else:
+        build.check(name + "_dense", rc)
     return votes
 
 
@@ -388,7 +459,8 @@ def match_votes_fused_aligned(db, q, active, use2, tolerance,
                               route: str = "auto"):
     """K5: aligned votes ``[B, A]`` int32, the best single time offset's
     hit count (``match_pallas.match_votes_pallas_aligned``); arguments as
-    :func:`match_votes_fused`."""
+    :func:`match_votes_fused`, and ``route`` ``"bits"`` forces the
+    bit-sliced kernel on every row."""
     return _votes(db, q, active, use2, tolerance, coefs, True, index, route)
 
 
@@ -399,10 +471,10 @@ def match_votes_cand(db, q, active, use2, tolerance, cand, coefs: int = 1,
     query b's votes against row ``cand[b, j]`` (``cand [B, k]`` int32 row
     ids into ``db``; duplicates allowed), equal to the full kernel's votes
     at those rows. ``route``: ``"auto"`` takes the grouped form (one block
-    per row and up to ``CAND_GROUP`` of its queries) at batch > 1 and the
-    per-item form at batch 1; ``"grouped"`` and ``"per_item"`` force a
-    form, ``"dense"`` and ``"index"`` a route of the grouped form (tests and
-    measurements). Arguments otherwise as :func:`match_votes_fused`."""
+    per row and up to ``CAND_GROUP`` of its queries), K4's per-item form at
+    batch 1; ``"grouped"`` and ``"per_item"`` force a form, ``"dense"`` and
+    ``"index"`` a route of the grouped form (tests and measurements).
+    Arguments otherwise as :func:`match_votes_fused`."""
     return _votes(db, q, active, use2, tolerance, coefs, aligned, index,
                   route, cand=cand)
 

@@ -37,9 +37,10 @@ NVCC_FLAGS = (
 # kernel and nowhere else, so a run can show that its main path went through
 # the kernels (chip_smoke.py zeroes the counts before driving the path).
 # mfcc_rows / mfcc_framed count the FFT route, the *_dft names the DFT route;
-# K5 is two kernels: match_votes_aligned (the index kernel) and
-# match_votes_aligned_dense (the dense kernel over its work list); the work
-# items of each route are counted on the device
+# K5's full scan is match_votes_aligned (the index kernel) and
+# match_votes_aligned_bits (the bit-sliced kernel: the rows the index kernel
+# lists, or every row), match_votes_aligned_dense its forced every-pair
+# route; the work items of each route are counted on the device
 # (ops/match_kernels.py::route_counts). bound_scan_planes and bound_scan
 # are the prefilters' bound stage (its
 # planes prologue and its votes); the *_cand names are K4/K5's grouped
@@ -58,7 +59,7 @@ LAUNCHES: dict[str, int] = {
     "match_votes_cand": 0, "match_votes_aligned_cand": 0,
     "match_votes_aligned_cand_dense": 0, "match_votes_cand_per_item": 0,
     "match_votes_aligned_cand_per_item": 0,
-    "match_votes_aligned_cand_dense_per_item": 0,
+    "match_votes_aligned_bits": 0,
     "select_candidates": 0, "rescore_rows": 0,
 }
 
@@ -76,7 +77,7 @@ KERNEL_NAMES: dict[str, tuple[str, ...]] = {
     "bound_scan": ("bound_scan_kernel",),
     "match_votes": ("match_votes_kernel<false>",),
     "match_votes_aligned": ("match_votes_aligned_kernel<false>",),
-    "match_votes_aligned_dense": ("match_votes_aligned_dense_kernel<false>",),
+    "match_votes_aligned_dense": ("match_votes_aligned_dense_kernel",),
     "group_candidates": ("group_count_kernel", "group_scan_kernel",
                          "group_scatter_kernel"),
     "match_votes_cand": ("match_votes_group_kernel",),
@@ -85,8 +86,8 @@ KERNEL_NAMES: dict[str, tuple[str, ...]] = {
         "match_votes_aligned_group_dense_kernel",),
     "match_votes_cand_per_item": ("match_votes_kernel<true>",),
     "match_votes_aligned_cand_per_item": ("match_votes_aligned_kernel<true>",),
-    "match_votes_aligned_cand_dense_per_item": (
-        "match_votes_aligned_dense_kernel<true>",),
+    "match_votes_aligned_bits": ("match_votes_aligned_bits_kernel<false,",
+                                 "match_votes_aligned_bits_kernel<true,"),
     "select_candidates": ("kb_select_kernel", "kb_select_grid_kernel"),
     "rescore_rows": ("rescore_rows_kernel",),
 }
@@ -131,14 +132,19 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I,
         _P, _P, _P,
     ],
-    # the same with the warps per block before cand, and the work list
-    # and its length after votes
+    # the same with the warps per block before cand, and the work list,
+    # its length, the rows' query masks and row flags after votes
     "tiresias_match_votes_aligned": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
-        _I, _P, _P, _P, _P, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P,
     ],
     # chunk, f_len, batch
     "tiresias_match_aligned_warps": [_I, _I, _I],
+    # db, query_rows, entries, pos, n_live, batch, rows, t_len, n_coefs,
+    # coefs, f_len, chunk, n_chunks, tol, votes, routes, stream
+    "tiresias_match_votes_aligned_bits": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+    ],
     # cand, batch, n_cand, rows, queries per item, counts, slots, items,
     # n_items, stream
     "tiresias_group_candidates": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -150,11 +156,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
         _P, _P, _P, _I, _P, _P, _P,
     ],
-    # the same with the warps per block before n_cand, and the work list
-    # and its length after votes
+    # the same with the warps per block before n_cand, the full scan's
+    # batch (0 otherwise) and the rows after g, and the work list and its
+    # length after votes
     "tiresias_match_votes_aligned_group": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
-        _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
     ],
     # bound, batch, rows, k, the plan (ctas, cooperative, slice, chunk,
     # slots, resident, data_elems), scratch (or null), idx, unselected_max,
