@@ -1166,12 +1166,14 @@ def routes_delta(device, fn) -> tuple:
 def timed_match(label: str, fns: dict, plain=None, plain_reps: int = 2,
                 reps: int = 10, events: bool = False):
     """Device times of the auto route and the forced dense route (and the
-    forced index route, and the candidate form's "per_item" and "grouped"
-    forms, when ``fns`` has them) in turns, two rounds, and of the twin
-    around them when given. With ``events``, each turn also takes the
-    CUDA-event time of back-to-back calls (``stream_ms``), printed with
-    both rounds of both clocks: a check on the profiler's sums."""
-    extra = [k for k in ("index", "bits", "per_item", "grouped") if k in fns]
+    forced index route, K5's forced bit-sliced route, and the candidate
+    form's "per_item" and "grouped" forms, when ``fns`` has them) in
+    turns, two rounds, and of the twin around them when given. With
+    ``events``, each turn also takes the CUDA-event time of back-to-back
+    calls (``stream_ms``), printed with both rounds of both clocks: a
+    check on the profiler's sums."""
+    extra = [k for k in ("index", "bits", "per_item", "grouped")
+             if k in fns]
     order = ["dense", "auto"] + extra
     times = {k: [] for k in order}
     ev = {k: [] for k in order}
@@ -1191,7 +1193,8 @@ def timed_match(label: str, fns: dict, plain=None, plain_reps: int = 2,
                 f"{k} {times[k]} / {ev[k]}" for k in order))
     say(f"[kernels] {label}: device {out['auto']} ms, dense route "
         f"{out['dense']} ms ({out['dense'] / out['auto']:.2f}x)"
-        + "".join(f", {k.replace('_', '-')} {'route' if k == 'index' else 'form'}"
+        + "".join(f", {k.replace('_', '-')} "
+                  f"{'form' if k in ('per_item', 'grouped') else 'route'}"
                   f" {out[k]} ms" for k in extra)
         + (f", plain twin {out['plain']} ms" if plain is not None else ""))
     return out
@@ -1208,6 +1211,32 @@ def say_bands(label: str, st: dict, routes: tuple, aligned: bool) -> None:
         f"live frames), p99 {st['p99']}, max {st['max']}; items on the "
         f"index route {idx}, on the {'wide' if aligned else 'dense'} route "
         f"{dense} ({100 * dense / max(1, idx + dense):.1f}%){bits}")
+
+
+def kept_order_stats(label: str, db) -> dict:
+    """The kept coefficient-1 order of ``db``'s index: its bytes, and the
+    index's device build time with it and without it (the same rows' first
+    coefficient alone, which builds none)."""
+    from tiresias_tpu_torch.ops import match_index as mi
+
+    index = mi.build_match_index(db)
+    kept = sum(x.numel() * x.element_size()
+               for x in (index.d1, index.pos1, index.n1))
+    rest = sum(x.numel() * x.element_size()
+               for x in (index.entries, index.pos, index.n_live))
+    del index
+    one = db[..., :1].contiguous()
+    ms = [device_ms(lambda: mi.build_match_index(x), 3)
+          for x in (db, one, one, db)]
+    out = {"rows": db.shape[0], "frames": db.shape[1], "kept_bytes": kept,
+           "index_bytes": rest, "build_ms": float(np.median(ms[::3])),
+           "build_ms_without": float(np.median(ms[1:3]))}
+    say(f"[kernels] {label}: the kept coefficient-1 order {kept} B "
+        f"({kept / (db.shape[0] * db.shape[1]):.2f} B a frame) beside the "
+        f"index's {rest} B; build_match_index device {out['build_ms']} ms, "
+        f"{out['build_ms_without']} ms without it (the first coefficient "
+        f"alone), in turns")
+    return out
 
 
 def phase_match_kernels(device) -> list[dict]:
@@ -1285,10 +1314,11 @@ def phase_match_kernels(device) -> list[dict]:
         check(dbn, qn, act, use2, tol, 2, ("NaN d1",), plain=True)
     say(f"[kernels] K4 match_votes / K5 match_votes_aligned == twins (int32 "
         f"exact) in {checked} cases: routes auto, dense, index (and K5's "
-        f"bits) x coefs 1, 2, 4, 8 x band off/on x tol 0.05, 1, 2e5; tiers "
-        f"256, 1536 and 5000 (3 index chunks), queries of 24, 300 and 40 "
-        f"frames; edge values at tol 0, 0.1, 1, inf; NaN and +-inf d1 on "
-        f"live d0, NaN query values at tol 0.1, 1, inf; "
+        f"bits, over the kept coefficient-1 order) x coefs 1, 2, 4, 8 x "
+        f"band off/on x tol 0.05, 1, 2e5; tiers 256, 1536 and 5000 (3 "
+        f"index chunks), queries of 24, 300 and 40 frames; edge values at "
+        f"tol 0, 0.1, 1, inf; NaN and +-inf d1 on live d0, NaN query "
+        f"values at tol 0.1, 1, inf; "
         f"aligned_votes_bits_plain == twin in {plain_checked} of them")
     # [strict] shapes: 10,112 rows (10,000 tracks of 938 frames, 128-row
     # padding) x 1,024 frames x 2 coefs; 94 active frames in a 128 bucket
@@ -1299,6 +1329,14 @@ def phase_match_kernels(device) -> list[dict]:
     build_ms = device_ms(lambda: mi.build_match_index(db), 5)
     say(f"[kernels] build_match_index [10112, 1024, 2]: device {build_ms} ms "
         f"({index.entries.numel() * 4 + index.pos.numel() * 2} B of index)")
+    kept = {"10112": kept_order_stats("[10112, 1024, 2]", db)}
+    g = torch.Generator(device=device).manual_seed(306)
+    big = torch.rand((100096, 1024, 2), generator=g, device=device) * 50 - 30
+    big[:, 938:] = PAD_VALUE
+    kept["100096"] = kept_order_stats("[100096, 1024, 2] (938 live frames "
+                                      "a row)", big)
+    del big
+    torch.cuda.empty_cache()
     mask = db[..., 0] != PAD_VALUE
     # (d), (e): the same live frames with coefficient 0 drawn narrow, as in
     # a catalog of speech-like tracks: N(-10, 0.6) dB (bands ~9% of a row)
@@ -1339,7 +1377,7 @@ def phase_match_kernels(device) -> list[dict]:
                 if case == "a":
                     plain = (lambda al=aligned: tm.match_votes(
                         db, mask, qq, act, use2, tol, coefs=2, aligned=al))
-                t = timed_match(name, call, plain, reps=10 if b > 1 else 50)
+                t = timed_match(name, call, plain, reps=5 if b > 1 else 50)
                 routes = routes_delta(device, call["auto"])
                 say_bands(name, st, routes, aligned)
                 res[case, aligned, b] = dict(t, routes=routes, stats=st,
@@ -1408,8 +1446,10 @@ def phase_match_kernels(device) -> list[dict]:
                 "index_route_ms_b1": a1["index"], "bits_route_ms_b1":
                     a1["bits"], "bits_route_ms_tol_2e5": c64["bits"],
                 "cases": {f"{cs}_B{bb}": {r: res[cs, True, bb][r] for r in
-                                          ("auto", "dense", "index", "bits")}
-                          for cs in "acde" for bb in (64, 1)}}
+                                          ("auto", "dense", "index", "bits")
+                                          if r in res[cs, True, bb]}
+                          for cs in "acde" for bb in (64, 1)},
+                "kept_order": kept}
                if aligned else {}),
             "bands": {k: v for k, v in a64["stats"].items()},
             "index_build_ms": build_ms,
@@ -1531,7 +1571,8 @@ def phase_match_real(device, eng, queries) -> list[dict]:
                  "item; on the auto route it takes the items with wide "
                  "bands)",
         "auto_ms": r64["auto"], "index_route_ms": r64["index"],
-        "dense_route_ms": r64["dense"], "ms_b1": r1["bits"],
+        "dense_route_ms": r64["dense"],
+        "ms_b1": r1["bits"],
         "auto_ms_b1": r1["auto"], "index_route_ms_b1": r1["index"],
         "dense_route_ms_b1": r1["dense"], "bound_ms_b1": bits_bound(
             r1["stats"], r1["bound"]["bytes"])["bound_ms"],
@@ -1573,7 +1614,8 @@ def phase_cand_sharing(device, view, q, act, use2) -> None:
             call = {r: (lambda r=r, al=al: tk.match_votes_cand(
                         db, q, act, use2, STRICT_TOL, cand, 2, index=index,
                         route=r, aligned=al))
-                    for r in ("auto", "dense", "index", "per_item")}
+                    for r in ("auto", "dense", "index", "per_item")
+                    + (("bits",) if al else ())}
             for r, c in call.items():
                 if not torch.equal(c(), want):
                     fail(f"[kernels] sharing s={s} K{5 if al else 4}: the {r}"
@@ -1582,8 +1624,10 @@ def phase_cand_sharing(device, view, q, act, use2) -> None:
                     f"row, B=64 x k=1,024 of {db.shape[0]} rows")
             timed_match(name, call, reps=5, events=True)
             say(f"[kernels] {name}: auto routes (K4 index, K4 dense, K5 "
-                f"index, K5 dense) {routes_delta(device, call['auto'])}; "
-                f"votes exact on every route and form")
+                f"index, K5 wide, the bit-sliced kernel's items, its frames "
+                f"on the bitsets, entry by entry) "
+                f"{routes_delta(device, call['auto'])}; votes exact on every "
+                f"route and form")
     del db, index
     torch.cuda.empty_cache()
 
@@ -1640,6 +1684,42 @@ def check_grouping(label: str, cand, rows: int, f: int) -> dict:
     return out
 
 
+def grouped_crossover(device, view, index, q, active, use2) -> dict:
+    """K5's grouped form over every row of the catalog (each row one item
+    of all B queries) at B = 1, 2, 3, 4 and 8: the grouped every-pair
+    kernel (the forced route "dense") against the bit-sliced kernel (the
+    forced route "bits"), exact against the full scan and timed in turns;
+    where the second wins sets BITS_MIN_QUERIES (ops/match_kernels.py)."""
+    import torch
+
+    from tiresias_tpu_torch.ops import match_kernels as tk
+
+    rows = view.db.shape[0]
+    out = {}
+    for b in (1, 2, 3, 4, 8):
+        qq, act, u2 = q[:b], active[:b], use2[:b]
+        cand = torch.arange(rows, device=device, dtype=torch.int32)[
+            None].repeat(b, 1).contiguous()
+        want = tk.match_votes_fused_aligned(view.db, qq, act, u2, STRICT_TOL,
+                                            2, index=index)
+        call = {r: (lambda r=r: tk.match_votes_cand(
+                    view.db, qq, act, u2, STRICT_TOL, cand, 2, index=index,
+                    route=r, aligned=True)) for r in ("dense", "bits")}
+        for r, c in call.items():
+            if not torch.equal(c(), want):
+                fail(f"[kernels] K5 grouped form over every row B={b}: the "
+                     f"{r} route != the full scan")
+        t = {r: [] for r in call}
+        for r in list(call) + list(call)[::-1]:
+            t[r].append(device_ms(call[r], 5))
+        out[b] = {r: float(np.median(v)) for r, v in t.items()}
+        say(f"[kernels] K5 grouped form over every row of the catalog B={b} "
+            f"(items of {b} queries): the grouped every-pair kernel "
+            f"{out[b]['dense']} ms, the bit-sliced kernel {out[b]['bits']} "
+            f"ms, in turns ({out[b]['dense'] / out[b]['bits']:.2f}x); exact")
+    return out
+
+
 def phase_match_cand(device, eng, view, index, q, active, use2, f):
     """K4/K5's candidate form on the traffic the strict prefilter sends:
     the catalog's own view and index, each query's 1,024 candidates by its
@@ -1655,6 +1735,7 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
     Returns the candidate forms' kernel entries."""
     import torch
 
+    from tiresias_tpu_torch.ops import match_index as mi
     from tiresias_tpu_torch.ops import match_kernels as tk
     from tiresias_tpu_torch.ops import match_lattice as ml
 
@@ -1697,11 +1778,21 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
             call = {r: (lambda r=r, al=aligned: tk.match_votes_cand(
                         view.db, qq, act, u2, STRICT_TOL, cand, 2,
                         index=index, route=r, aligned=al))
-                    for r in CAND_ROUTES}
+                    for r in CAND_ROUTES + (("bits",) if aligned else ())}
             for r, c in call.items():
                 if not torch.equal(c(), want):
                     fail(f"{name}: the {r} route != the full kernel's votes "
                          f"at those rows")
+            if aligned and label == "catalog":
+                # the bit-sliced kernel's plain statement in its grouped
+                # form, on the first 4 queries' candidates (B=64)
+                nb = min(b, 4)
+                if not torch.equal(mi.aligned_votes_bits_plain(
+                        index, view.db, qq[:nb], act[:nb], u2[:nb],
+                        STRICT_TOL, 2, cand=cand[:nb].contiguous()),
+                        want[:nb]):
+                    fail(f"{name}: aligned_votes_bits_plain (grouped form) "
+                         f"!= the full kernel's votes at those rows")
             if b > 1:  # "grouped" is the auto route there
                 del call["grouped"]
             plain = None
@@ -1769,6 +1860,7 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
                 f"bound, top-1024, candidate form); full scan {dev[1]} ms "
                 f"device, {st_ms[1]} ms on the stream; certified "
                 f"{int(cert.sum())}/{b}")
+    crossover = grouped_crossover(device, view, index, q, active, use2)
     none = "no single PyTorch call computes tolerance votes"
     shape = ("B=64 x 1,024 candidates of the 10,112-row catalog x 1,024 "
              "frames x 2 coefs, tol 0.1")
@@ -1815,10 +1907,44 @@ def phase_match_cand(device, eng, view, index, q, active, use2, f):
         "name": "match_votes_aligned_cand_dense", **d64,
         "ms": res["catalog", True, 64]["dense"],
         "shape": "every (query, candidate) item: B=64 x 1,024 candidates x "
-                 "1,024 frames x 2 coefs (the grouped form's forced dense "
-                 "route: its index kernel lists every item, the dense "
-                 "kernel serves them)",
+                 "1,024 frames x 2 coefs (the grouped form's forced route "
+                 "'dense': the grouped every-pair kernel on every item)",
         "ms_b1": res["catalog", True, 1]["dense"],
+    })
+    # the bit-sliced kernel in the grouped form: its own design's bound
+    # over the candidates' bands
+    k64, k1 = res["catalog", True, 64], res["catalog", True, 1]
+    bb64 = bits_bound(k64["stats"], k64["bound"]["bytes"])
+    out.append({
+        "name": "match_votes_aligned_cand_bits", "route": "cuda",
+        "source": "tiresias_tpu_torch/csrc/match.cu",
+        "replaces": "tiresias_tpu/ops/match_pallas.py:566",
+        "max_abs_err": 0.0, "ms": k64["bits"], "plain_ms": k64["plain"],
+        "plain_timing": "one call of the twin, CUDA events",
+        "bound_ms": bb64["bound_ms"], "bound_by": bb64["bound_by"],
+        "bound": "the bit-sliced design over the candidates' own bands: "
+                 "each chosen row's index read once, the queries, cand and "
+                 "the votes; coefficient 0's bisection compares and per "
+                 "band the cheaper of 4 operations an entry and 6 a 32-time "
+                 "word of the chunk, at 67 TFLOP/s",
+        "index_ops_bound_ms": k64["bound"]["bound_ms"],
+        "index_ops_bound": "K5's index route's bound: bisection compares "
+                           "and 4 operations every in-band pair",
+        "library_ms": None, "library": none,
+        "shape": "every (query, candidate) item: B=64 x 1,024 candidates of "
+                 "the catalog x 1,024 frames x 2 coefs (the grouped form's "
+                 "forced route 'bits'; on the auto route it takes the items "
+                 "the index kernel finds wide)",
+        "auto_ms": k64["auto"], "dense_route_ms": k64["dense"],
+        "index_route_ms": k64["index"], "ms_b1": k1["bits"],
+        "auto_ms_b1": k1["grouped"], "dense_route_ms_b1": k1["dense"],
+        "bound_ms_b1": bits_bound(k1["stats"],
+                                  k1["bound"]["bytes"])["bound_ms"],
+        **{f"ms_{lab.replace(' ', '_')}": res[lab, True, 64]["bits"]
+           for lab in ("same rows", "even")},
+        **{f"dense_route_ms_{lab.replace(' ', '_')}":
+           res[lab, True, 64]["dense"] for lab in ("same rows", "even")},
+        "every_row": crossover,
     })
     s64 = sharing["catalog", 64]
     out.append({
@@ -4429,10 +4555,14 @@ def run(device) -> dict:
         torch.cuda.synchronize(device)
         strict_launches = dict(build.LAUNCHES)  # --- and ends here ---
         routes = (tk.route_counts(device) - routes0).tolist()
-        # the candidate forms: grouped at batch > 1, per item at batch 1
+        # the candidate forms: grouped at batch > 1, per item at batch 1;
+        # K5's grouped wide kernels: the bit-sliced one for items of
+        # BITS_MIN_QUERIES queries or more, the every-pair one for fewer
+        # (the batch-1 full scans and rescores)
         match_names = ("match_votes", "match_votes_aligned",
                        "match_votes_aligned_bits", "group_candidates",
                        "match_votes_cand", "match_votes_aligned_cand",
+                       "match_votes_aligned_cand_bits",
                        "match_votes_aligned_cand_dense",
                        "match_votes_cand_per_item")
         scan_names = ("bound_scan_planes", "bound_scan", "select_candidates")

@@ -231,3 +231,67 @@ def test_coef1_order_and_prefix_bitsets():
                     tt = int(idx.pos[a, c, r])
                     want[tt >> 5] |= 1 << (tt & 31)
                 np.testing.assert_array_equal(bits[0, j, a, c], want)
+
+
+def _grouped_case(seed, t, f, b=9):
+    """``_case``'s rows and ``b`` queries (its four, then noisy copies of
+    them), with candidates that put 9 queries on row 6 (an item of 8 and
+    one of 1), repeat ids, leave rows 0-2 and 13-19 unchosen and hold ids
+    outside the view."""
+    db, q4, nf4 = _case(seed, t, f)
+    rng = np.random.default_rng(seed + 1)
+    more = np.arange(b - 4) % 4
+    q = np.concatenate([q4, q4[more] + rng.normal(
+        0.0, 0.01, q4[more].shape).astype(np.float32)])
+    n_frames = np.concatenate([nf4, nf4[more]])
+    cand = rng.integers(3, 13, (b, 7)).astype(np.int32)
+    cand[:, 0] = 6
+    cand[:, 1] = 7
+    cand[0, 2] = cand[0, 3]  # a repeat
+    cand[1, 4], cand[2, 5], cand[3, 6] = -1, db.shape[0], 2**30
+    return db, q, n_frames, torch.from_numpy(cand)
+
+
+@pytest.mark.parametrize("coefs", [1, 2, 4, 8])
+@pytest.mark.parametrize("t,t_chunk,f", [
+    (128, 2048, 24),   # one chunk
+    (256, 64, 24),     # four chunks
+    (200, 64, 129),    # four chunks, the last ragged; 129 frames
+    (320, 128, 300),   # three chunks; 300 frames (a fold)
+])
+def test_bits_plain_grouped_form_equals_jax_and_twins(t, t_chunk, f, coefs):
+    """The grouped candidate form of the statement (items of up to 8
+    queries of one row, and at batch 1 each slot an item) against JAX's
+    aligned votes gathered at the candidates, the twin's candidate form and
+    the candidate wrapper's CPU path, int32 for int32, at every tolerance;
+    an id outside the view scores 0. Items are served a few pairs at a
+    time, so a row's items span several rounds."""
+    db, q, n_frames, cand = _grouped_case(coefs * 7 + t + f, t, f)
+    dbt = torch.from_numpy(db)
+    idx = mi.build_match_index(dbt, t_chunk)
+    mask = _mask(db)
+    tq, ta, tu = tm.prepare_query(torch.from_numpy(q), n_frames, -1, -1,
+                                  trunc_coef1=False)
+    jq, ja, ju = match_jax.prepare_query(q, n_frames, -1, -1,
+                                         trunc_coef1=False)
+    ok = (cand >= 0) & (cand < db.shape[0])
+    idc = cand.clamp(0, db.shape[0] - 1).long().numpy()
+    for tol in (0.0, 0.1, 1.0, 2e5, np.inf):
+        full = np.asarray(match_jax.match_votes(db, mask, jq, ja, ju, tol,
+                                                coefs=coefs, aligned=True))
+        want = np.where(ok.numpy(), np.take_along_axis(full, idc, 1), 0)
+        for b in (9, 1):
+            got = mi.aligned_votes_bits_plain(
+                idx, dbt, tq[:b], ta[:b], tu[:b], tol, coefs, cand=cand[:b],
+                max_pairs=24)
+            assert got.dtype == torch.int32 and got.shape == (b, 7)
+            np.testing.assert_array_equal(got.numpy(), want[:b])
+            twin = tk.match_votes_cand_plain(dbt, tq[:b], ta[:b], tu[:b],
+                                             tol, cand[:b], coefs, True)
+            np.testing.assert_array_equal(got.numpy(), twin.numpy())
+            wrapped = tk.match_votes_cand(dbt, tq[:b], ta[:b], tu[:b], tol,
+                                          cand[:b], coefs, index=idx,
+                                          aligned=True)
+            np.testing.assert_array_equal(got.numpy(), wrapped.numpy())
+        if tol == 0.1 and coefs <= 2:
+            assert got[0, 0] > 0  # query 0 is an excerpt of row 6

@@ -16,6 +16,7 @@ any other; both are held to the same twin. Votes are exact: K3', K4 and K5
 must equal their twins int32 for int32.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -220,15 +221,22 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
     q = torch.zeros((1, 8, 2), device=dev)
     flags = torch.ones((1, 8), dtype=torch.bool, device=dev)
     tk.match_votes_fused(db, q, flags, flags, 0.1, 2)
-    # batch 1: the grouped form, each row one work item (its index and
-    # dense kernels, no work list); batch 8: the index kernel, then the
-    # bit-sliced kernel; the forced routes: the every-pair and the
-    # bit-sliced kernel alone
+    # batch 1: the grouped form, each row one work item (its index kernel
+    # and, an item of fewer than BITS_MIN_QUERIES queries, the grouped
+    # every-pair kernel; no work list); batch 8: the index kernel, then the
+    # bit-sliced kernel over the rows it lists; the forced routes: the
+    # every-pair and the bit-sliced kernel alone (the latter counted with
+    # its work-item launches); the grouped candidate form's forced routes:
+    # the bit-sliced kernel and the grouped every-pair kernel alone
     tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2)
     q8, flags8 = q.repeat(8, 1, 1), flags.repeat(8, 1)
     tk.match_votes_fused_aligned(db, q8, flags8, flags8, 0.1, 2)
     tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2, route="dense")
     tk.match_votes_fused_aligned(db, q, flags, flags, 0.1, 2, route="bits")
+    cand = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    for route in ("bits", "dense"):
+        tk.match_votes_cand(db, q, flags, flags, 0.1, cand, 2, route=route,
+                            aligned=True)
     assert build.LAUNCHES == {"mfcc_rows": 1, "mfcc_framed": 0,
                               "mfcc_rows_dft": 0, "mfcc_framed_dft": 0,
                               "lattice_votes": 1,
@@ -238,10 +246,11 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
                               "group_candidates": 0,
                               "match_votes_cand": 0,
                               "match_votes_aligned_cand": 1,
-                              "match_votes_aligned_cand_dense": 1,
+                              "match_votes_aligned_cand_dense": 2,
                               "match_votes_cand_per_item": 0,
                               "match_votes_aligned_cand_per_item": 0,
-                              "match_votes_aligned_bits": 2,
+                              "match_votes_aligned_bits": 1,
+                              "match_votes_aligned_cand_bits": 2,
                               "select_candidates": 0, "rescore_rows": 0}
     with pytest.raises(ValueError):
         mk.mfcc_rows(torch.zeros((4, 512), device=dev, dtype=torch.float64),
@@ -265,11 +274,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs(dev):
         tk.match_votes_fused(db.double(), q, flags, flags, 0.1, 2)
     with pytest.raises(ValueError):  # K4 has no bit-sliced route
         tk.match_votes_fused(db, q, flags, flags, 0.1, 2, route="bits")
-    with pytest.raises(ValueError):  # nor K5's candidate forms
-        tk.match_votes_cand(db, q, flags, flags, 0.1,
-                            torch.zeros((1, 4), dtype=torch.int32,
-                                        device=dev), 2, route="bits",
-                            aligned=True)
+    with pytest.raises(ValueError):  # nor K4's candidate forms
+        tk.match_votes_cand(db, q, flags, flags, 0.1, cand, 2, route="bits")
 
 
 # thresholds of the uint8 maps' tests: below, at and past the saturation
@@ -374,12 +380,14 @@ def _match_case(dev, seed, rows, t, c, b, f):
 @pytest.mark.parametrize("aligned", [False, True])
 @pytest.mark.parametrize("coefs", [1, 2, 4, 8])
 def test_match_kernels_equal_twin_exactly(dev, coefs, aligned):
-    """K4/K5 vs the twin, int32 exact, on each route (K5's bit-sliced route
-    too, and at tol 1 K5 against the bit-sliced kernel's plain statement): a
-    one-chunk tier, a tier of 1,536 frames, one of 5,000 (three index chunks
-    of 2,048, the last ragged), a 300-frame query (past one counter fold),
-    band filters that drop q0 frames and bypass q1 conditions, and tol 2e5
-    (every frame in every band)."""
+    """K4/K5 vs the twin, int32 exact, on each route (K5's bit-sliced
+    route too, over the index's kept coefficient-1 order, and at tol 1 K5
+    against the bit-sliced kernel's plain statement; an index without the
+    kept order is refused from two coefficients on): a one-chunk tier, a
+    tier of 1,536 frames, one of 5,000 (three index chunks of 2,048, the
+    last ragged), a 300-frame query (past one counter fold), band filters
+    that drop q0 frames and bypass q1 conditions, and tol 2e5 (every frame
+    in every band)."""
     fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
     for rows, t, f in ((200, 256, 24), (300, 1536, 300), (40, 5000, 40)):
         db, q, n_frames = _match_case(dev, coefs + t, rows, t, 8, 5, f)
@@ -396,6 +404,10 @@ def test_match_kernels_equal_twin_exactly(dev, coefs, aligned):
                     got = fn(db, qq, act, use2, tol, coefs, index=index,
                              route=route)
                     assert torch.equal(got, want), (t, f, band, tol, route)
+                if aligned and coefs > 1:
+                    with pytest.raises(ValueError):
+                        fn(db, qq, act, use2, tol, coefs, route="bits",
+                           index=dataclasses.replace(index, d1=None))
                 if aligned and tol == 1.0:
                     assert torch.equal(mi.aligned_votes_bits_plain(
                         index, db, qq, act, use2, tol, coefs), want)
@@ -409,9 +421,9 @@ def test_match_kernel_routes_are_counted_and_exact(dev, b):
     """Batches of 1, 64 and 130 queries; at tol 0.05 every item takes the
     index route, at tol 2e5 every K5 item of a row with frames takes the
     wide route (an empty row's items count as index items): the bit-sliced
-    kernel serves it from batch SMALL_BATCH on, the grouped dense kernel
-    below (the grouped form over every row); the device counters see
-    both."""
+    kernel serves it from BITS_MIN_QUERIES queries on (below SMALL_BATCH in
+    the grouped form over every row), the grouped every-pair kernel below; the
+    device counters see both."""
     db, q, n_frames = _match_case(dev, 900 + b, 200, 256, 2, max(b, 3), 24)
     q, n_frames = q[:b], n_frames[:b]
     qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1, trunc_coef1=False)
@@ -435,9 +447,8 @@ def test_match_kernel_routes_are_counted_and_exact(dev, b):
             elif aligned:
                 assert dense_items == b * (200 - empty), moved
                 assert index_items == b * empty, moved
-                # the bit-sliced kernel's items
-                assert moved[4] == (dense_items if b >= tk.SMALL_BATCH
-                                    else 0), moved
+                assert moved[4] == (dense_items if b >= tk.BITS_MIN_QUERIES
+                                    else 0), moved  # the bit-sliced
 
 
 @pytest.mark.cuda
@@ -486,20 +497,37 @@ def test_match_kernels_exact_at_edge_values(dev):
 _CAND_ROUTES = ("auto", "dense", "index", "grouped", "per_item")
 
 
+def _cand_routes(aligned):
+    """The candidate form's routes: K5's also "bits" (the bit-sliced
+    kernel on every item of the grouped form)."""
+    return _CAND_ROUTES + (("bits",) if aligned else ())
+
+
 def _cand_launched(name, route, b):
     """Holds the launch counts of one candidate-form call: the grouped form
-    (its work list, but for K5 at batch 1, and kernels; K5's forced dense
-    route runs its dense kernel alone) or the per-item form (forced, and
-    K4's auto at batch 1; K5's runs its index kernel alone)."""
+    (its work list, but for K5 at batch 1, and kernels: K5's index kernel,
+    then its wide kernels, each launched where an item may take it: the
+    bit-sliced one for items of BITS_MIN_QUERIES queries or more, the
+    grouped every-pair kernel for items of fewer, none on the forced route
+    "index"; the forced routes "bits" and "dense" run the bit-sliced kernel
+    or the grouped every-pair kernel alone) or the per-item form (forced,
+    and K4's auto at batch 1; K5's runs its index kernel alone)."""
     aligned = "aligned" in name
     grouped = route != "per_item" and not (
         b == 1 and route == "auto" and not aligned)
-    alone = aligned and route == "dense"
+    alone = aligned and route in ("dense", "bits")
     form = "" if grouped else "_per_item"
     assert build.LAUNCHES[name + form] == int(not alone)
     assert build.LAUNCHES[name + ("_per_item" if grouped else "")] == 0
-    if aligned:  # the grouped form's dense kernel: its wide items, or alone
-        assert build.LAUNCHES[name + "_dense"] == int(grouped)
+    if aligned:  # the grouped form's wide kernels: by the items' queries
+        most = min(b, tk.CAND_GROUP["aligned"])  # an item's queries
+        fewest = 1 if b > 1 else most
+        bits = route == "bits" or (route not in ("dense", "index")
+                                   and most >= tk.BITS_MIN_QUERIES)
+        dense = route == "dense" or (route not in ("bits", "index")
+                                     and fewest < tk.BITS_MIN_QUERIES)
+        assert build.LAUNCHES[name + "_dense"] == int(grouped and dense)
+        assert build.LAUNCHES[name + "_bits"] == int(grouped and bits)
     assert build.LAUNCHES["group_candidates"] == int(
         grouped and not (aligned and b == 1))
 
@@ -510,12 +538,15 @@ def _cand_launched(name, route, b):
 def test_match_cand_forms_equal_full_kernels(dev, b, aligned):
     """K4/K5's candidate forms == the full kernel's votes at the same rows
     and == the twin, int32 exact: the grouped form on the auto, forced
-    dense, forced index and "grouped" routes, and the per-item form;
-    duplicate and shared candidates, the empty row, padding rows of
-    PAD_VALUE, a tombstoned row, a row with NaN frames, ids past the rows
-    and negative ids (0 votes); a one-chunk tier, a 1,024-frame tier with
-    200-frame queries at coefs 3 (two query stages in K5's dense kernel,
-    rest_close), and a tier of three index chunks."""
+    dense, forced index and "grouped" routes (K5's forced "bits" too), and
+    the per-item form; K5 also == the bit-sliced kernel's
+    plain statement in its grouped form (items of up to 8 queries, or at
+    batch 1 each slot an item); duplicate and shared candidates, the empty
+    row, padding rows of PAD_VALUE, a tombstoned row, a row with NaN frames,
+    ids past the rows and negative ids (0 votes); a one-chunk tier, a
+    1,024-frame tier with 200-frame queries at coefs 3 (two query stages in
+    the grouped every-pair kernel, rest_close), and a tier of three index
+    chunks."""
     full_fn = tk.match_votes_fused_aligned if aligned else tk.match_votes_fused
     name = "match_votes_aligned_cand" if aligned else "match_votes_cand"
     for rows, t, f, coefs in ((200, 256, 24, 2), (300, 1024, 200, 3),
@@ -540,13 +571,16 @@ def test_match_cand_forms_equal_full_kernels(dev, b, aligned):
             full = full_fn(db, qq, act, use2, tol, coefs, index=index)
             want = torch.where(
                 valid, full.gather(1, cand.clamp(0, rows - 1).long()), 0)
-            for route in _CAND_ROUTES:
+            for route in _cand_routes(aligned):
                 build.reset_launch_counts()
                 got = tk.match_votes_cand(db, qq, act, use2, tol, cand, coefs,
                                           index=index, route=route,
                                           aligned=aligned)
                 assert torch.equal(got, want), (t, tol, route)
                 _cand_launched(name, route, b)
+            if aligned:
+                assert torch.equal(mi.aligned_votes_bits_plain(
+                    index, db, qq, act, use2, tol, coefs, cand=cand), want)
             assert (want[:, 2:4] == 0).all() and (want > 0).any()
             twin = tk.match_votes_cand_plain(db, qq, act, use2, tol, cand,
                                              coefs, aligned)
@@ -581,13 +615,47 @@ def test_match_cand_grouped_shared_rows(dev, sharing, aligned):
     want = full_fn(db, qq, act, use2, tol, 2, index=index).gather(
         1, cand.long())
     assert (want > 0).any()
-    for route in _CAND_ROUTES:
+    for route in _cand_routes(aligned):
         got = tk.match_votes_cand(db, qq, act, use2, tol, cand, 2,
                                   index=index, route=route, aligned=aligned)
         assert torch.equal(got, want), route
     if sharing == "same":
         assert torch.equal(tk.match_votes_cand_plain(
             db, qq, act, use2, tol, cand, 2, aligned), want)
+
+
+@pytest.mark.cuda
+def test_match_cand_wide_items_split_by_their_queries(dev):
+    """64 queries x 101 candidates at tol 2e5 (every item wide): each query
+    alone on a row of its own and all 64 on 100 shared rows (items of 8).
+    The index kernel hands the shared rows' items to the bit-sliced kernel
+    and the lone queries' items to the grouped every-pair kernel, both in
+    one call, counted on the device; votes == the full kernel's."""
+    rows, b = 200, 64
+    db, q, n_frames = _match_case(dev, 93, rows, 256, 2, b, 24)
+    qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1, trunc_coef1=False)
+    index = mi.build_match_index(db)
+    live = (index.n_live.sum(dim=1) > 0).cpu()
+    solo = torch.arange(2, 2 + b, device=dev)[:, None]
+    shared = torch.arange(100, 200, device=dev).repeat(b, 1)
+    cand = torch.cat([solo, shared], 1).to(torch.int32).contiguous()
+    tol = 2e5
+    want = tk.match_votes_fused_aligned(db, qq, act, use2, tol, 2,
+                                        index=index).gather(1, cand.long())
+    counts = tk.route_counts(dev)
+    before = counts.clone()
+    build.reset_launch_counts()
+    got = tk.match_votes_cand(db, qq, act, use2, tol, cand, 2, index=index,
+                              aligned=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    moved = (counts - before).tolist()
+    n_solo = int(live[2 : 2 + b].sum())
+    n_shared = b * int(live[100:200].sum())
+    assert moved[3] == n_solo + n_shared, moved  # K5's wide items
+    assert moved[4] == n_shared, moved  # of them, the bit-sliced kernel's
+    assert build.LAUNCHES["match_votes_aligned_cand_bits"] == 1
+    assert build.LAUNCHES["match_votes_aligned_cand_dense"] == 1
 
 
 @pytest.mark.cuda
@@ -946,16 +1014,18 @@ def test_prefilters_launch_select_and_rescore(dev):
 def test_aligned_long_query_takes_the_dense_kernel(dev):
     """A 30,000-frame query's offset histogram does not fit in the index
     kernel's shared memory: K5 runs only its bit-sliced kernel (offset tiles
-    of 3,072, counts folded every 255 frames), held to a numpy brute force,
+    of 3,200, counts folded every 255 frames), held to a numpy brute force,
     as is the forced every-pair route; the forced index route and K5's
-    per-item candidate form raise, and the grouped candidate form runs its
-    dense kernel alone, equal."""
+    per-item candidate form raise, and the grouped candidate form runs the
+    bit-sliced kernel alone (the grouped every-pair kernel only on its
+    forced route "dense"), equal."""
     db, _, _ = _match_case(dev, 77, 8, 256, 2, 3, 24)
     q = db[3:4, torch.arange(30000, device=dev) % 20].clone() + 0.01
     qq, act, use2 = tm.prepare_query(q, None, -1, -1, trunc_coef1=False)
     build.reset_launch_counts()
     got = tk.match_votes_fused_aligned(db, qq, act, use2, 1.0, 2)
-    assert build.LAUNCHES["match_votes_aligned_bits"] == 1
+    assert build.LAUNCHES["match_votes_aligned_cand_bits"] == 1
+    assert build.LAUNCHES["match_votes_aligned_bits"] == 0
     assert build.LAUNCHES["match_votes_aligned"] == 0
     assert build.LAUNCHES["match_votes_aligned_dense"] == 0
     assert torch.equal(got, tk.match_votes_fused_aligned(
@@ -967,8 +1037,11 @@ def test_aligned_long_query_takes_the_dense_kernel(dev):
     build.reset_launch_counts()
     assert torch.equal(tk.match_votes_cand(
         db, qq, act, use2, 1.0, cand, 2, route="grouped", aligned=True), got)
-    assert build.LAUNCHES["match_votes_aligned_cand_dense"] == 1
+    assert build.LAUNCHES["match_votes_aligned_cand_bits"] == 1
+    assert build.LAUNCHES["match_votes_aligned_cand_dense"] == 0
     assert build.LAUNCHES["match_votes_aligned_cand"] == 0
+    assert torch.equal(tk.match_votes_cand(
+        db, qq, act, use2, 1.0, cand, 2, route="dense", aligned=True), got)
     with pytest.raises(ValueError):
         tk.match_votes_cand(db, qq, act, use2, 1.0, cand, 2,
                             route="per_item", aligned=True)

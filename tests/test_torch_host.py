@@ -402,6 +402,22 @@ def test_launches_per_call_from_the_counters():
         "void (anonymous namespace)::match_votes_kernel<true>(float)": 1}
 
 
+def test_launches_per_call_adds_every_counter_of_a_kernel(monkeypatch):
+    """A kernel that two counters launch (a template both run) has the sum
+    of their launches a call, and none where that sum is no whole number
+    a call."""
+    from tiresias_tpu_torch.utils import build, timing
+
+    monkeypatch.setattr(build, "KERNEL_NAMES", {
+        "one": ("shared_kernel<false,",), "two": ("shared_kernel<false,",),
+        "three": ("other_kernel",)})
+    before = {"one": 0, "two": 0, "three": 0}
+    names = {"void shared_kernel<false, 1>(int)", "void other_kernel(int)"}
+    got = timing.launches_per_call(names, before,
+                                   {"one": 20, "two": 40, "three": 30}, 20)
+    assert got == {"void shared_kernel<false, 1>(int)": 3}
+
+
 def test_kernel_names_cover_every_counter_and_kernel():
     """Every launch counter names its kernels, and every __global__ kernel
     of csrc/ is named by one counter."""

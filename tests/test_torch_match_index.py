@@ -234,3 +234,91 @@ def test_match_index_cached_per_view_and_rebuilt_on_mutation():
     idx3 = st.match_index_for(view3)
     assert idx3 is not idx2
     assert idx3.n_live[:4, 0].tolist() == [100, 0, 120, 90]
+
+
+def _np_keys(x: np.ndarray) -> np.ndarray:
+    """``sort_keys`` in numpy: int32 keys ordered as float32 ``<``."""
+    bits = x.astype(np.float32).view(np.int32)
+    return np.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+@pytest.mark.parametrize("t,t_chunk", [(256, 2048), (256, 64), (200, 64)])
+def test_kept_coef1_order_is_a_stable_argsort_of_live_d1(t, t_chunk):
+    """Each chunk's kept coefficient-1 order is numpy's stable argsort of
+    the live frames' d1 (time order; d0 neither PAD nor NaN, d1 not NaN),
+    by sort_keys: ±inf d1, ±0.0 and repeated values (ties) included; NaN
+    past the run; and the same values as the d0 order's entries sorted by
+    d1 (the order the bit-sliced kernel sorted in shared memory before the
+    index kept one), time for time up to the order of ties."""
+    db = _db(3, t=t)
+    db[9, 0::3, 1] = np.nan
+    db[10, 0::4, 1] = np.inf
+    db[10, 1::4, 1] = -np.inf
+    db[11, :, 1] = np.round(db[11, :, 1])  # many ties
+    db[12, 0::2, 1] = 0.0
+    db[12, 1::2, 1] = -0.0
+    idx = mi.build_match_index(torch.from_numpy(db), t_chunk)
+    chunk, nc = idx.chunk, idx.n_chunks
+    assert idx.d1.shape == idx.pos1.shape == (db.shape[0], nc, chunk)
+    assert idx.d1.dtype == torch.float32 and idx.pos1.dtype == torch.int16
+    assert idx.n1.shape == (db.shape[0], nc) and idx.n1.dtype == torch.int32
+    d1s, pos1, n1 = mi.coef1_order(idx)
+    for a in range(db.shape[0]):
+        for c in range(nc):
+            seg = db[a, c * chunk : (c + 1) * chunk]
+            ok = ((seg[:, 0] != PAD_VALUE) & ~np.isnan(seg[:, 0])
+                  & ~np.isnan(seg[:, 1]))
+            times = np.nonzero(ok)[0]
+            order = times[np.argsort(_np_keys(seg[times, 1]), kind="stable")]
+            m = len(order)
+            assert int(n1[a, c]) == m
+            np.testing.assert_array_equal(pos1[a, c, :m].numpy(), order)
+            np.testing.assert_array_equal(
+                idx.d1[a, c, :m].view(torch.int32).numpy(),
+                seg[order, 1].view(np.int32))
+            assert np.isnan(d1s[a, c, m:].numpy()).all()
+            # the d0 order's live entries sorted by d1, stable in d0 rank
+            n = int(idx.n_live[a, c])
+            e1 = idx.entries[a, c, :n, 1].numpy()
+            p0 = idx.pos[a, c, :n].numpy()
+            keep = ~np.isnan(e1)
+            r = np.argsort(_np_keys(e1[keep]), kind="stable")
+            np.testing.assert_array_equal(e1[keep][r].view(np.int32),
+                                          seg[order, 1].view(np.int32))
+            key = lambda k, tt: np.lexsort((tt, k))  # noqa: E731
+            kk = _np_keys(e1[keep][r])
+            tt = p0[keep][r]
+            np.testing.assert_array_equal(tt[key(kk, tt)], order)
+
+
+def test_one_coefficient_store_keeps_no_coef1_order():
+    """A one-coefficient store's index keeps no coefficient-1 order (the
+    kernels never read one): no fields, no row tensors, and coef1_order
+    raises."""
+    db = _db(4, c=1)
+    idx = mi.build_match_index(torch.from_numpy(db), 64)
+    assert idx.d1 is None and idx.pos1 is None and idx.n1 is None
+    assert set(idx.row_tensors()) == {"entries", "pos", "n_live"}
+    with pytest.raises(ValueError, match="one-coefficient"):
+        mi.coef1_order(idx)
+    two = mi.build_match_index(torch.from_numpy(_db(4, c=2)), 64)
+    assert set(two.row_tensors()) == {"entries", "pos", "n_live", "d1",
+                                      "pos1", "n1"}
+
+
+def test_two_coefficient_search_needs_the_kept_order():
+    """The bit-sliced kernel's operands: no order for a one-coefficient
+    search; from two coefficients on the kept order's tensors, and an index
+    without them (not one that build_match_index makes) is refused before
+    any launch."""
+    import dataclasses
+
+    from tiresias_tpu_torch.ops import match_kernels as tk
+
+    two = mi.build_match_index(torch.from_numpy(_db(4, c=2)), 64)
+    assert tk._kept(two, 1) == tk._kept(two, 2) == (
+        two.d1.data_ptr(), two.pos1.data_ptr(), two.n1.data_ptr())
+    bare = dataclasses.replace(two, d1=None, pos1=None, n1=None)
+    assert tk._kept(bare, 1) == (None, None, None)
+    with pytest.raises(ValueError, match="kept coefficient-1 order"):
+        tk._kept(bare, 2)

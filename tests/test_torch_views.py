@@ -191,6 +191,9 @@ def _check_views(pair: Pair) -> list:
         _warm_port(pair.t, tv)
         got, want = tv.tensors(), fv.tensors()
         assert got.keys() == want.keys()
+        # the index's kept coefficient-1 order is updated with the rows
+        # (held to the full build below, with every other tensor)
+        assert {"index.d1", "index.pos1", "index.n1"} <= got.keys()
         live = torch.from_numpy(_live(tv))
         for name in want:
             if name == "ctx_dev":  # a dead row keeps its id, as in JAX

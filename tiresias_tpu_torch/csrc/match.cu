@@ -59,13 +59,13 @@
 //    each work item is one row and up to kGroup4 (K4) / kGroup5 (K5) of the
 //    queries that chose it. The candidates of a batch share rows (65,536
 //    slots at batch 64 x 1,024 fall on at most 10,112 rows of the catalog),
-//    so one block stages a row's index chunks, or K5's dense window of its
-//    frames, once for every query of its item, as the full kernels do for
-//    the whole batch. Each slot is written by its item's block alone.
-//    What bounds it is what bounds the full kernels: K4's band walks
-//    (dependent shared-memory probes) and K5's pair tests (the dense
-//    route is issue-bound); grouping removes the per-item staging, window
-//    rebuilds, syncs and reductions, not those.
+//    so one block stages a row's index chunks once for every query of its
+//    item, as the full kernels do for the whole batch. Each slot is
+//    written by its item's block alone. What bounds it is what bounds the
+//    full kernels: K4's band walks (dependent shared-memory probes), K5's
+//    band walks and, on wide bands, the bit-sliced kernel's work per
+//    (query, frame); grouping removes the per-item staging, syncs and
+//    reductions, not those.
 //  - per item (the first design, kept as a forced route to measure
 //    against, and what batch 1 takes): the <true> instantiation of the
 //    full kernels, one block per (query, candidate) item staging that row
@@ -955,20 +955,25 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // K5's index kernel over the work list: one block per work item, a warp
 // (or, for an item of fewer queries than warps, several) per query of it,
-// each chunk of the row staged once for all of them. The route is the item's: the bands of each query's first
-// 32 frames with an active one, in the row's first chunk with stored
-// frames, summed over the item's queries; a dense item goes on the work
-// list (its id) for the dense kernel, whole.
+// each chunk of the row staged once for all of them. The route is the
+// item's: the bands of each query's first 32 frames with an active one, in
+// the row's first chunk with stored frames, summed over the item's queries,
+// against the share of its number of queries (share_bits from bits_min on,
+// share from shared_min, else share_small). A wide item goes, whole, on a
+// list for a wide kernel: of at least bits_min queries on work[0,
+// n_work[0]) for the bit-sliced kernel, of fewer on work[max_items +
+// (0, n_work[2])) for the grouped every-pair kernel.
 __global__ void __launch_bounds__(kWarps * 32)
     match_votes_aligned_group_kernel(
         const float* __restrict__ db, const float* __restrict__ q,
         const float2* __restrict__ ent, const short* __restrict__ pos,
         const int* __restrict__ n_live, int t_len, int n_coefs, int coefs,
         int f_len, int chunk, int n_chunks, float tol, float share,
-        float share_small, int shared_min, int n_cand, int every, int rows,
-        const int* __restrict__ slots, const int4* __restrict__ items,
-        const int* __restrict__ n_items, int* __restrict__ votes,
-        int* __restrict__ work, unsigned long long* __restrict__ n_work,
+        float share_small, int shared_min, float share_bits, int bits_min,
+        int n_cand, int every, int rows, const int* __restrict__ slots,
+        const int4* __restrict__ items, const int* __restrict__ n_items,
+        int max_items, int* __restrict__ votes, int* __restrict__ work,
+        unsigned long long* __restrict__ n_work,
         unsigned long long* __restrict__ routes) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_slot[kGroup5];
@@ -1002,7 +1007,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   stage_chunk_async(s_ent, s_pos, ent, pos,
                     ((size_t)a * n_chunks + c0) * chunk, (nl[c0] + 1) & ~1);
   __syncthreads();
-  const float sh = nq >= shared_min ? share : share_small;
+  const bool to_bits = nq >= bits_min;
+  const float sh = to_bits ? share_bits
+                   : nq >= shared_min ? share : share_small;
   bool dense = sh < 0.f;  // forced dense: straight to the list
   if (!dense) {
     const int n = nl[c0];
@@ -1034,7 +1041,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   if (threadIdx.x == 0) {
     atomicAdd(routes + (dense ? 1 : 0), (unsigned long long)nq);
-    if (dense) work[atomicAdd(n_work, 1ull)] = (int)blockIdx.x;
+    if (dense && to_bits) work[atomicAdd(n_work, 1ull)] = (int)blockIdx.x;
+    if (dense && !to_bits) {
+      work[max_items + atomicAdd(n_work + 2, 1ull)] = (int)blockIdx.x;
+    }
   }
   if (dense) return;  // uniform
   // Rounds of up to `warps` queries; each query of a round gets
@@ -1197,13 +1207,15 @@ __device__ __forceinline__ void flush_best(const int (&cnt)[kK], int* s_best) {
   if ((threadIdx.x & 31) == 0 && m > 0) atomicMax(s_best, m);
 }
 
-// K5's dense kernel over the work list: blocks take work items from the
-// counter n_work[1] (zero on entry): those on the list (work[0, n_work[0]))
-// or, with work null, every item. A window of the row's frames is staged
-// once per offset chunk (and query stage) for all of the item's queries;
-// with one query stage (f_len <= kStage5) every query of the item is
-// staged once and the queries go through the ring two at a time. The next
-// item is taken when this one starts, and its row is prefetched into L2.
+// K5's grouped every-pair kernel over the work list (the grouped form's
+// wide kernel where a row is shared by few queries, and its forced route
+// "dense"): blocks take work items from the counter n_work[1] (zero on
+// entry): those on the list (work[0, n_work[0])) or, with work null, every
+// item. A window of the row's frames is staged once per offset chunk (and
+// query stage) for all of the item's queries; with one query stage (f_len
+// <= kStage5) every query of the item is staged once and the queries go
+// through the ring two at a time. The next item is taken when this one
+// starts, and its row is prefetched into L2.
 template <bool kRest>
 __global__ void __launch_bounds__(kThreads5)
     match_votes_aligned_group_dense_kernel(
@@ -1333,80 +1345,95 @@ __global__ void __launch_bounds__(kThreads5)
 }
 
 // ------------------------------------------------- K5, bit-sliced --- //
-// Replaces the every-pair test (match_votes_aligned_dense_kernel) as the
-// full scan's route for rows with wide bands: the index kernel lists each
-// such row once, with the mask of its queries, and this kernel serves the
-// list in the same call (kListed); or it serves every row for every query
-// (the forced route "bits", and queries whose offset histogram the index
-// kernel cannot hold). The votes of
+// Replaces the every-pair tests (match_votes_aligned_dense_kernel,
+// match_votes_aligned_group_dense_kernel) as K5's route for wide bands. In
+// the full scan at batch >= SMALL_BATCH the index kernel lists each wide
+// row once, with the mask of its queries, and this kernel serves the list
+// in the same call (kListed); otherwise it serves work items (group_item):
+// the grouped candidate form's items the grouped index kernel lists, each
+// row of the full scan below SMALL_BATCH with all its queries, batch 1's
+// candidate slots, or every item (the forced route "bits", and queries
+// whose offset histogram the index kernel cannot hold). The votes of
 // tiresias_tpu/ops/match_pallas.py::_make_aligned_kernel, exact.
 //
 // What bounds it. Testing every frame pair is issue-bound (~5 instructions
-// a pair, 2.8e11 at B=64 on a 10,000-track catalog), and the index route's
-// serial band walks and shared atomics grow with the bands. Here a query
-// frame's hits in a chunk are a bitset over its stored times, built from
-// rank bands, and the offset histogram is bit-sliced: a thread adds 32
-// offsets at once.
-//  - Row-stationary: one CTA per stored row stages each index chunk once
-//    for every query it serves (rounds of kBitsWarps queries, a warp each;
-//    below kBitsWarps queries a query's 16-frame batches are split over
-//    several warps, their counters merged by bit-sliced adds at the end of
-//    a tile).
+// a pair, 2.8e11 at B=64 on a 10,000-track catalog; 3.2e10 in the grouped
+// form at 64 x 1,024 candidates, ~1 ms at the card's issue rate), and the
+// index route's serial band walks and shared atomics grow with the bands.
+// Here a query frame's hits in a chunk are a bitset over its stored times,
+// built from rank bands, and the offset histogram is bit-sliced: a thread
+// adds 32 offsets at once (~500 instructions a (query, frame, row) against
+// 1,024 pair tests).
+//  - Row-stationary: one CTA per row (or work item) stages each index chunk
+//    once for every query it serves (rounds of kBitsWarps queries, a warp
+//    each; below kBitsWarps queries a query's 16-frame batches are split
+//    over several warps, their counters merged by bit-sliced adds at the
+//    end of a tile, so batch 1 keeps the warps busy).
 //  - Rank bands: four bisections at once (bands4) on fl(d - q): coefficient
-//    0's band [lo, hi) of the d0-sorted chunk and coefficient 1's over a d1
-//    order of the chunk's live entries, sorted in shared memory at staging
-//    (NaN d1 last, left out).
+//    0's band [lo, hi) of the d0-sorted chunk and coefficient 1's over the
+//    d1 order the index keeps (MatchIndex.d1/pos1/n1, built once per view;
+//    NaN d1 left out), staged with cp.async beside the d0 order. A
+//    two-coefficient search needs the kept order (a launch without it is
+//    refused).
 //  - Block-prefix bitsets: P[k] holds the times ranked below k*g (g = 8, or
-//    32 for chunks over 1,024 frames), built by ballots over a time-to-rank
-//    map. A band's bitset is P[hb] & ~P[lb] on the whole blocks inside it
-//    plus its <= 2(g-1) edge entries (OR'ed in by the frame's two lanes with
-//    shared atomics): a few instructions a word whatever the band's width.
-//    Hits = B0 & (B1 or no use2); coefficients 2..coefs-1 are tested exactly
-//    on the surviving bits only.
-//  - A band of at most kDirect entries, or any band when fewer than
-//    kShareMin queries share the staged chunk (the sort would not pay), is
-//    tested entry by entry instead (the frame's two lanes, or the whole
-//    warp for a band over kPairWalk); the d1 order and the prefix bitsets
-//    are built only when a sample of the first queries' bands holds a wider
-//    one. Either way the votes are exact.
-//  - Offsets without atomics: offsets run in tiles of 1,024 x kNW; a lane
-//    owns kNW words of 32 consecutive offsets, funnel-shifts each frame's
-//    hit words into place and adds eight frames at a time into kPlanes
-//    bit-sliced counters (Harley-Seal: seven carry-save adders, two LOP3s
-//    each). Queries of more than 255 frames fold the planes into int32
-//    counts in shared memory. The max is taken at the end of each tile.
-// Measured (PERF.md): it wins at batch >= SMALL_BATCH on wide bands and
-// loses to the index route on narrow ones and wherever one query has a row
-// to itself, so the wrappers hand it only the former.
+//    32 for chunks over 1,024 frames), built by a prefix-OR (each entry's
+//    time into its block's row, a shuffle scan down the rows: ~2k
+//    operations a coefficient at 1,024 frames). A band's bitset is B = F |
+//    E: F = P[hb] & ~P[lb] on the whole blocks inside it, E its <= 2(g-1)
+//    edge entries. Hits = B0 & B1 = F0 & F1 | E0 & B1 | B0 & E1: a word's
+//    F0 & F1 in a few instructions whatever the bands' widths, then each
+//    edge entry tested on the other coefficient's value (d1 beside d0 in
+//    the d0 order, d0 by time for the d1 order) and OR'ed in by the frame's
+//    two lanes with shared atomics (B0 alone without use2). Coefficients
+//    2..coefs-1 are tested exactly on the surviving bits only.
+//  - A band of at most kDirect entries is tested entry by entry instead
+//    (the frame's two lanes, or the whole warp for a band over kPairWalk).
+//    The prefix bitsets are built for every item the index kernel found
+//    wide, and otherwise where a sample of the first queries' bands holds
+//    a wider band; else every band is tested entry by entry.
+//    Either way the votes are exact.
+//  - Offsets without atomics: offsets run in tiles of 1,024 x kNW + kOvf,
+//    so a query of any length is served; a lane owns kNW words of 32
+//    consecutive offsets, funnel-shifts each frame's hit words into place
+//    and adds eight frames at a time into kPlanes bit-sliced counters
+//    (Harley-Seal: seven carry-save adders, two LOP3s each). The tile's
+//    last kOvf offsets, which only hits near a chunk's end reach, take the
+//    bits of the frames that reach them one by one into int counts (shared
+//    atomics), so a 1,024-frame row with a query of up to 129 frames needs
+//    one counter word a lane, not two. Queries of more than 255 frames fold
+//    the planes into int32 counts in shared memory. The max is taken at
+//    the end of each tile.
+// Measured (PERF.md): in the full scan it wins at batch >= SMALL_BATCH on
+// wide bands and loses to the index route on narrow ones, so the index
+// kernel hands it the former; the routes of the grouped form and of the
+// full scan below SMALL_BATCH are ops/match_kernels.py's DENSE_SHARE.
 constexpr int kBitsWarps = 8;
 constexpr int kBatch = 16;                   // frames a warp takes at once
 constexpr int kPlanes = 8;                   // counts < 256 between folds
 constexpr int kFoldAt = (1 << kPlanes) - 1;  // inputs between folds
 constexpr int kDirect = 32;                  // widest band tested entry-wise
-constexpr int kShareMin = 8;  // queries sharing a staged chunk for bitsets
 constexpr int kPairWalk = 16;  // longest band a frame's two lanes walk
 constexpr int kIntMax = 0x7fffffff;
+constexpr int kOvf = 128;  // a tile's offsets past its counters' words
 
 // Dynamic shared memory of the bit-sliced kernel, in bytes (host and
-// device agree on it): the staged chunk (entries and times), its d1 order
-// (keys, then values, and times), both prefix bitsets, and per warp 2 x
-// kBatch rows of a chunk's words (a batch's hits, and its coefficient-1
-// bitsets; padded to nwc + 1 words against bank conflicts), which are also
-// the merge area at a tile's end and, in warp 0, the time-to-rank maps while
-// a chunk is staged; for queries of more than kFoldAt frames, per warp a
-// tile's fold counts.
+// device agree on it): the staged chunk (entries and times), its kept d1
+// order (values and times), each time's d0,
+// both prefix bitsets, and per warp kBatch rows of a chunk's words (a
+// batch's hits, padded to nwc + 1 words against bank conflicts), which are
+// also the merge area at a tile's end; per query of a round the int counts
+// of its tile's last kOvf offsets; for queries of more than kFoldAt frames,
+// per warp a tile's fold counts.
 struct BitsSmem {
-  int npow, nwc, lg, nb, rstride, wstride;
-  long long ent, pos0, d1, pos1, p0, p1, wbuf, fold, total;
+  int nwc, lg, nb, rstride, wstride;
+  long long ent, pos0, d1, pos1, d0t, p0, p1, wbuf, ovf, fold, total;
   __host__ __device__ BitsSmem(int chunk, int nw, int warps, int folds) {
-    npow = 1;
-    while (npow < chunk) npow <<= 1;
     nwc = (chunk + 31) / 32;
     lg = chunk <= 1024 ? 3 : 5;
     nb = (chunk + (1 << lg) - 1) >> lg;
     rstride = nwc + 1;
-    wstride = 2 * kBatch * rstride > kPlanes * 32 * nw ? 2 * kBatch * rstride
-                                                        : kPlanes * 32 * nw;
+    wstride = kBatch * rstride > kPlanes * 32 * nw ? kBatch * rstride
+                                                    : kPlanes * 32 * nw;
     long long o = 0;
     ent = o;
     o += 8LL * chunk;
@@ -1414,9 +1441,12 @@ struct BitsSmem {
     o += 2LL * chunk;
     o = (o + 15) & ~15LL;
     d1 = o;
-    o += 4LL * npow;
+    o += 4LL * chunk;
     pos1 = o;
-    o += 2LL * npow;
+    o += 2LL * chunk;
+    o = (o + 15) & ~15LL;
+    d0t = o;
+    o += 4LL * chunk;
     o = (o + 15) & ~15LL;
     p0 = o;
     o += 4LL * (nb + 1) * rstride;
@@ -1424,23 +1454,13 @@ struct BitsSmem {
     o += 4LL * (nb + 1) * rstride;
     wbuf = o;
     o += 4LL * warps * wstride;
+    ovf = o;
+    o += 4LL * warps * kOvf;
     fold = o;
     o += folds ? 4096LL * warps * nw : 0;
     total = o;
   }
 };
-
-// Order-preserving int32 key of a float (ops/match_index.py::sort_keys);
-// NaN sorts last as kIntMax.
-__device__ __forceinline__ int float_key(float d) {
-  if (d != d) return kIntMax;
-  const int b = __float_as_int(d);
-  return b < 0 ? b ^ 0x7fffffff : b;
-}
-
-__device__ __forceinline__ float key_float(int k) {
-  return __int_as_float(k < 0 ? k ^ 0x7fffffff : k);
-}
 
 // Entry d lies after query value q's band: fl(d - q) > tol, or NaN other
 // than from d = q = -inf (those entries sort first, before the band).
@@ -1584,31 +1604,122 @@ struct Counters {
   }
 };
 
+// The kept coefficient-1 order of chunk `off` (ops/match_index.py): n
+// (even) values as float2 pairs and their times as u32 pairs, cp.async
+// issued here and waited for by the next stage_chunk_async.
+__device__ __forceinline__ void stage_kept_async(float* s_d1,
+                                                 unsigned short* s_pos1,
+                                                 const float* d1k,
+                                                 const short* pos1k,
+                                                 size_t off, int n) {
+  const float2* gd = reinterpret_cast<const float2*>(d1k + off);
+  const unsigned* gp = reinterpret_cast<const unsigned*>(pos1k + off);
+  for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
+    const unsigned sd = (unsigned)__cvta_generic_to_shared(
+        reinterpret_cast<float2*>(s_d1) + i);
+    const unsigned sp = (unsigned)__cvta_generic_to_shared(
+        reinterpret_cast<unsigned*>(s_pos1) + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sd),
+                 "l"(gd + i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sp),
+                 "l"(gp + i));
+  }
+}
+
+// Inclusive OR-scan down each of `cols` columns of p (words [k * rs + w],
+// rows 1..nb <= 128; columns nwc.. lie (nb + 1) * rs words on, in the
+// second order's bitsets): a warp takes two columns at a time, each lane
+// ORs down its run of <= 4 rows, a shuffle scan ORs in the runs before it.
+// Block-wide, synced.
+__device__ __forceinline__ void prefix_or(unsigned* p, int cols, int nwc,
+                                          int nb, int rs) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int per = (nb + 31) >> 5;  // rows a lane
+  const int k0 = 1 + lane * per;
+  for (int c0 = 2 * (threadIdx.x >> 5); c0 < cols; c0 += 2 * warps) {
+    unsigned v[2][4], acc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = min(c0 + h, cols - 1);
+      const unsigned* pc =
+          p + (col >= nwc ? (nb + 1) * rs + col - nwc : col);
+      acc[h] = 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + i;
+        acc[h] |= i < per && k <= nb ? pc[k * rs] : 0u;
+        v[h][i] = acc[h];
+      }
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned y = __shfl_up_sync(kFull, acc[h], d);
+        if (lane >= d) acc[h] |= y;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned carry = __shfl_up_sync(kFull, acc[h], 1);
+      const int col = c0 + h;
+      if (col < cols) {
+        unsigned* pc = p + (col >= nwc ? (nb + 1) * rs + col - nwc : col);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = k0 + i;
+          if (i < per && k <= nb) pc[k * rs] = v[h][i] | (lane ? carry : 0u);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// kListed: the rows of `work` (n_work[0] of them) with the queries of their
+// masks (the full scan at batch >= SMALL_BATCH). Otherwise one block per
+// work item of group_item's: a listed item of the grouped candidate form, a
+// batch-1 candidate slot, or a row of the full scan with all `every` of its
+// queries; with `work`, the items the grouped index kernel listed
+// (n_work[0] of them). d1k/pos1k/n1k: the index's kept coefficient-1 order
+// (read where coefs > 1). sample 0 builds the bitsets for every chunk,
+// else a sample of the first queries' bands decides.
 template <bool kListed, int kNW>
-__global__ void __launch_bounds__(kBitsWarps * 32)
+__global__ void __launch_bounds__(kBitsWarps * 32, kNW == 1 ? 3 : 2)
     match_votes_aligned_bits_kernel(
         const float* __restrict__ db, const float* __restrict__ q,
         const float2* __restrict__ ent, const short* __restrict__ pos,
-        const int* __restrict__ n_live, int batch, int rows, int t_len,
-        int n_coefs, int coefs, int f_len, int chunk, int n_chunks,
-        float tol, int fold, const int* __restrict__ work,
+        const int* __restrict__ n_live, const float* __restrict__ d1k,
+        const short* __restrict__ pos1k, const int* __restrict__ n1k,
+        int rows, int t_len, int n_coefs, int coefs, int f_len, int chunk,
+        int n_chunks, float tol, int fold, const int* __restrict__ work,
         const unsigned long long* __restrict__ n_work,
-        const unsigned* __restrict__ qmask, int mw, int share_min,
+        const unsigned* __restrict__ qmask, int mw, int every, int n_cand,
+        const int* __restrict__ slots, const int4* __restrict__ items,
+        const int* __restrict__ n_items, int sample,
         int* __restrict__ votes, unsigned long long* __restrict__ routes) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_slot[kBitsWarps];
-  __shared__ int s_flag, s_n1, s_nq, s_scan_w;
+  __shared__ int s_flag, s_nq, s_scan_w, s_ofirst;
   __shared__ unsigned s_scan_bits;
   __shared__ unsigned long long s_count[3];
-  constexpr int kOT = 1024 * kNW;  // offsets per tile
+  // offsets per tile: kNW words of bit-sliced counters a lane, then kOvf
+  // offsets few frames reach (hits near a chunk's end), counted in ints
+  constexpr int kOT = 1024 * kNW + kOvf;
   const int warps = kBitsWarps;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // the work item: a stored row and every query, or (kListed) a listed row
-  // and the queries of its mask
-  if (kListed && (unsigned long long)blockIdx.x >= *n_work) return;  // uniform
-  const int a = kListed ? work[blockIdx.x] : (int)blockIdx.x;
-  int nq = batch;
+  if (work && (unsigned long long)blockIdx.x >= *n_work) return;  // uniform
+  int4 wi = make_int4(0, 0, 0, 0);
+  if (!kListed) {
+    int i = work ? work[blockIdx.x] : (int)blockIdx.x;
+    if (!work && items && i >= *n_items) return;  // uniform
+    wi = group_item(items, slots, i, every, rows);
+    if (wi.z == 0) return;  // a row id outside [0, rows): the vote stays 0
+  }
+  const int a = kListed ? work[blockIdx.x] : wi.x;
+  int nq = wi.z;
   if (kListed) {
     if (warp == 0) {
       int c = 0;
@@ -1634,17 +1745,17 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
   const BitsSmem L(chunk, kNW, warps, fold);
   float2* s_ent = reinterpret_cast<float2*>(smem + L.ent);
   unsigned short* s_pos0 = reinterpret_cast<unsigned short*>(smem + L.pos0);
-  int* s_key1 = reinterpret_cast<int*>(smem + L.d1);
   float* s_d1 = reinterpret_cast<float*>(smem + L.d1);
   unsigned short* s_pos1 = reinterpret_cast<unsigned short*>(smem + L.pos1);
+  float* s_d0t = reinterpret_cast<float*>(smem + L.d0t);  // d0 by time
   unsigned* s_p0 = reinterpret_cast<unsigned*>(smem + L.p0);
   unsigned* s_p1 = reinterpret_cast<unsigned*>(smem + L.p1);
   const int nwc = L.nwc, lg = L.lg, nb = L.nb;
   unsigned* wbase = reinterpret_cast<unsigned*>(smem + L.wbuf);
   const int rs = L.rstride;
   unsigned* rows_a = wbase + (size_t)warp * L.wstride;  // [kBatch][rs] hits
-  unsigned* rows_b = rows_a + kBatch * rs;  // [kBatch][rs] coefficient 1
-  unsigned short* s_rank = reinterpret_cast<unsigned short*>(wbase);
+  int* s_ovf = reinterpret_cast<int*>(smem + L.ovf);
+  for (int i = threadIdx.x; i < warps * kOvf; i += blockDim.x) s_ovf[i] = 0;
   if (fold) {
     int* fb = reinterpret_cast<int*>(smem + L.fold);
     for (int i = threadIdx.x; i < warps * kNW * 1024; i += blockDim.x) {
@@ -1664,28 +1775,49 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
     const int wpq = warps / nr;  // warps per query of this round
     const int qr = warp / wpq, sub = warp % wpq;
     const bool mine = qr < nr;
-    if (kListed) {  // this round's queries: the mask's next set bits
-      __syncthreads();  // the last round's are read
-      if (threadIdx.x == 0) {
-        int w = s_scan_w;
-        unsigned m = s_scan_bits;
-        for (int k = 0; k < nr; ++k) {
-          while (!m) m = qmask[(size_t)a * mw + ++w];
-          s_slot[k] = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-        }
-        s_scan_w = w;
-        s_scan_bits = m;
+    // this round's queries: the mask's next set bits, or the item's slots
+    __syncthreads();  // the last round's are read
+    if (kListed && threadIdx.x == 0) {
+      int w = s_scan_w;
+      unsigned m = s_scan_bits;
+      for (int k = 0; k < nr; ++k) {
+        while (!m) m = qmask[(size_t)a * mw + ++w];
+        s_slot[k] = w * 32 + __ffs(m) - 1;
+        m &= m - 1;
       }
-      __syncthreads();
+      s_scan_w = w;
+      s_scan_bits = m;
     }
-    const int b = !mine ? 0 : kListed ? s_slot[qr] : r0 + qr;
-    const int out = b * rows + a;
+    if (!kListed && threadIdx.x < nr) {
+      s_slot[threadIdx.x] =
+          item_slot(items, slots, wi, r0 + threadIdx.x, n_cand);
+    }
+    if (threadIdx.x == 0) s_ofirst = kIntMax;
+    __syncthreads();
+    const int sl = mine ? s_slot[qr] : 0;
+    const int b = kListed ? sl : sl / n_cand;
+    const long long out = kListed ? (long long)b * rows + a : sl;
     const float* qb = q + (size_t)b * q_len;
+    // the tiles start at the first offset the round's queries reach: their
+    // last active frame's (a query padded to its bucket reaches none of the
+    // offsets before)
+    if (mine && sub == 0) {
+      const float* act = qb + (size_t)(coefs + 1) * f_len;
+      int last = -1;
+      for (int f0 = (f_len - 1) & ~31; f0 >= 0 && last < 0; f0 -= 32) {
+        const int f = f0 + lane;
+        const unsigned m = __ballot_sync(kFull, f < f_len && act[f] > 0.f);
+        if (m) last = f0 + 31 - __clz(m);
+      }
+      if (lane == 0 && last >= 0) atomicMin(&s_ofirst, f_len - 1 - last);
+    }
+    __syncthreads();
+    const int o_first = s_ofirst == kIntMax ? n_off : s_ofirst & ~31;
     int* fq = reinterpret_cast<int*>(smem + L.fold) +
               (size_t)qr * wpq * kNW * 1024;
+    int* ovq = s_ovf + (mine ? qr : 0) * kOvf;
     int best = 0;
-    for (int o0 = 0; o0 < n_off; o0 += kOT) {
+    for (int o0 = o_first; o0 < n_off; o0 += kOT) {
       Counters<kNW> cnt;
       cnt.clear();
       const int c_lo = max(0, o0 - (f_len - 1)) / chunk;
@@ -1696,18 +1828,17 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
         if (c != staged) {  // uniform
           __syncthreads();  // the previous chunk is consumed
           n0 = nl[c];
-          stage_chunk_async(s_ent, s_pos0, ent, pos,
-                            ((size_t)a * n_chunks + c) * chunk,
-                            (n0 + 1) & ~1);
-          if (threadIdx.x == 0) {
-            s_flag = 0;
-            s_n1 = 0;
+          const size_t off = ((size_t)a * n_chunks + c) * chunk;
+          if (two) {  // the kept order, waited for with the d0 order
+            n1 = n1k[(size_t)a * n_chunks + c];
+            stage_kept_async(s_d1, s_pos1, d1k, pos1k, off, (n1 + 1) & ~1);
           }
+          stage_chunk_async(s_ent, s_pos0, ent, pos, off, (n0 + 1) & ~1);
+          if (threadIdx.x == 0) s_flag = !sample;
           __syncthreads();
-          // a sample decides the bitsets, when enough queries share them:
-          // the first 32 frames of this round's queries, any band wider
-          // than kDirect
-          if (nq >= share_min && mine && sub == 0) {
+          // or a sample decides the bitsets: the first 32 frames of this
+          // round's queries, any band wider than kDirect
+          if (sample && mine && sub == 0) {
             bool wide = false;
             if (lane < f_len && qb[(size_t)(coefs + 1) * f_len + lane] > 0.f) {
               const float q0 = qb[lane];
@@ -1719,64 +1850,32 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
           __syncthreads();
           bits = s_flag != 0;
           if (bits) {
-            if (two) {  // coefficient 1's order of the live entries
-              int live1 = 0;
-              for (int i = threadIdx.x; i < L.npow; i += blockDim.x) {
-                const int k = i < n0 ? float_key(s_ent[i].y) : kIntMax;
-                s_key1[i] = k;
-                s_pos1[i] = i < n0 ? s_pos0[i] : (unsigned short)0xffff;
-                live1 += k != kIntMax;
-              }
-              if (live1) atomicAdd(&s_n1, live1);
-              __syncthreads();
-              for (int k = 2; k <= L.npow; k <<= 1) {  // bitonic sort
-                for (int j = k >> 1; j > 0; j >>= 1) {
-                  for (int i = threadIdx.x; i < L.npow / 2; i += blockDim.x) {
-                    const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-                    const int hi = lo + j;
-                    const int kl = s_key1[lo], kh = s_key1[hi];
-                    if ((kl > kh) == ((lo & k) == 0)) {
-                      s_key1[lo] = kh;
-                      s_key1[hi] = kl;
-                      const unsigned short pl = s_pos1[lo];
-                      s_pos1[lo] = s_pos1[hi];
-                      s_pos1[hi] = pl;
-                    }
-                  }
-                  __syncthreads();
-                }
-              }
-              n1 = s_n1;
-              for (int i = threadIdx.x; i < n1; i += blockDim.x) {
-                s_d1[i] = key_float(s_key1[i]);
-              }
+            // the prefix bitsets, by a prefix-OR over both orders: each
+            // entry's time into its block's row, then an OR down the rows,
+            // so bit b of P[k][w] is rank(32 w + b) < k g; and each live
+            // time's d0 (coefficient 1's band edges test it)
+            const int ncf = two ? 2 : 1;
+            const int m1 = two ? n1 : 0;
+            uint4* pz = reinterpret_cast<uint4*>(s_p0);  // s_p1 follows
+            for (int i = threadIdx.x; i < ncf * (nb + 1) * rs / 4;
+                 i += blockDim.x) {
+              pz[i] = make_uint4(0u, 0u, 0u, 0u);
             }
-            // each time's rank in both orders (warp 0's edge rows), then
-            // the prefix bitsets: bit b of P[k][w] is rank(32 w + b) < k g
-            for (int i = threadIdx.x; i < 2 * chunk; i += blockDim.x) {
-              s_rank[i] = 0xffff;
+            for (int i = (ncf * (nb + 1) * rs & ~3) + threadIdx.x;
+                 i < ncf * (nb + 1) * rs; i += blockDim.x) {
+              s_p0[i] = 0u;
             }
             __syncthreads();
-            for (int r = threadIdx.x; r < n0; r += blockDim.x) {
-              s_rank[s_pos0[r]] = (unsigned short)r;
-            }
-            if (two) {
-              for (int r = threadIdx.x; r < n1; r += blockDim.x) {
-                s_rank[chunk + s_pos1[r]] = (unsigned short)r;
-              }
-            }
-            __syncthreads();
-            for (int task = warp; task < (two ? 2 : 1) * nwc; task += warps) {
-              const int cf = task / nwc, w = task - cf * nwc;
-              const int t = 32 * w + lane;
-              const int rk = t < chunk ? s_rank[cf * chunk + t] : 0xffff;
-              unsigned* p = (cf ? s_p1 : s_p0) + w;
-              for (int k = 0; k <= nb; ++k) {
-                const unsigned m = __ballot_sync(kFull, rk < (k << lg));
-                if (lane == (k & 31)) p[k * rs] = m;
-              }
+            for (int r = threadIdx.x; r < n0 + m1; r += blockDim.x) {
+              const bool one = r >= n0;
+              const int rr = one ? r - n0 : r;
+              const int t = one ? s_pos1[rr] : s_pos0[rr];
+              atomicOr((one ? s_p1 : s_p0) + ((rr >> lg) + 1) * rs + (t >> 5),
+                       1u << (t & 31));
+              if (two && !one) s_d0t[t] = s_ent[rr].x;
             }
             __syncthreads();
+            prefix_or(s_p0, ncf * nwc, nwc, nb, rs);
           }
           staged = c;
         }
@@ -1797,14 +1896,15 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
           const bool act = f < f_b && (per == 1 || (lane >> 4) == (u & 1)) &&
                            qb[(size_t)(coefs + 1) * f_len + f] > 0.f;
           int lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
-          float q1 = 0.f;
+          float q0 = 0.f, q1 = 0.f;
           bool use2 = false, wide = false;
           if (act) {
             use2 = two && qb[(size_t)coefs * f_len + f] > 0.f;
+            q0 = qb[f];
             q1 = two ? qb[(size_t)f_len + f] : 0.f;
             // coefficient 1's band too where bitsets are built (any frame
             // may turn out wide), found beside coefficient 0's
-            bands4(s_ent, n0, qb[f], s_d1, bits && use2 ? n1 : 0, q1, tol,
+            bands4(s_ent, n0, q0, s_d1, bits && use2 ? n1 : 0, q1, tol,
                    lo0, hi0, lo1, hi1);
             wide = bits && hi0 - lo0 > kDirect;
           }
@@ -1843,46 +1943,55 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
             const unsigned blk = __shfl_sync(kFull, pkb, src);
             const int fl = __shfl_sync(kFull, flags, src);
             const float q1j = __shfl_sync(kFull, q1, src);
+            const float q0j = __shfl_sync(kFull, q0, src);
             const bool in = (bm >> src) & 1u;
             const bool wd = fl & 2, u2 = fl & 1;
             const int fj = g0 + src;
             unsigned* ra = rows_a + fi * rs;
-            unsigned* rb = rows_b + fi * rs;
-            // whole blocks from the prefix bitsets (a narrow band: none)
+            // hits = B0 & (B1 or no use2), B = F | E: the whole blocks'
+            // F0 & F1 from the prefix bitsets (a narrow band: none) ...
             if (in) {
               const int blb0 = blk & 0xff, bhb0 = (blk >> 8) & 0xff;
               const int blb1 = (blk >> 16) & 0xff, bhb1 = blk >> 24;
-              const bool full0 = wd && bhb0 > blb0;
-              const bool full1 = wd && bhb1 > blb1;
+              const bool full = wd && bhb0 > blb0 && (!u2 || bhb1 > blb1);
 #pragma unroll 4
               for (int w = w_lo; w < w_hi; ++w) {
-                ra[w] = full0 ? s_p0[bhb0 * rs + w] & ~s_p0[blb0 * rs + w]
-                              : 0u;
-                if (wd && u2) {
-                  rb[w] = full1 ? s_p1[bhb1 * rs + w] & ~s_p1[blb1 * rs + w]
-                                : 0u;
+                unsigned x = 0u;
+                if (full) {
+                  x = s_p0[bhb0 * rs + w] & ~s_p0[blb0 * rs + w];
+                  if (u2) x &= s_p1[bhb1 * rs + w] & ~s_p1[blb1 * rs + w];
                 }
+                ra[w] = x;
               }
             }
             __syncwarp();
-            // the edges (every other one each of the frame's two lanes), or
-            // a narrow band's entries that pass coefficient 1 and the rest
+            // ... then each band's edge entries E0, E1 (every other one each
+            // of the frame's two lanes) tested on the other coefficient's
+            // value: E0 & B1 | B0 & E1. Or a narrow band's entries that pass
+            // coefficient 1 and the rest
             if (in) {
               const int l0 = a0 & 0xffffu, ee0 = a0 >> 16;
               const int ss0 = a1 & 0xffffu, h0 = a1 >> 16;
               if (wd) {
                 const int n_a0 = ee0 - l0, n_a = n_a0 + (h0 - ss0);
+#pragma unroll 4
                 for (int i = hf; i < n_a; i += 2) {
-                  const int t = s_pos0[i < n_a0 ? l0 + i : ss0 + i - n_a0];
-                  atomicOr(ra + (t >> 5), 1u << (t & 31));
+                  const int r = i < n_a0 ? l0 + i : ss0 + i - n_a0;
+                  const int t = s_pos0[r];
+                  if (!u2 || fabsf(s_ent[r].y - q1j) <= tol) {
+                    atomicOr(ra + (t >> 5), 1u << (t & 31));
+                  }
                 }
                 if (u2) {
                   const int l1 = a2 & 0xffffu, ee1 = a2 >> 16;
                   const int ss1 = a3 & 0xffffu, h1 = a3 >> 16;
                   const int n_b0 = ee1 - l1, n_b = n_b0 + (h1 - ss1);
+#pragma unroll 4
                   for (int i = hf; i < n_b; i += 2) {
                     const int t = s_pos1[i < n_b0 ? l1 + i : ss1 + i - n_b0];
-                    atomicOr(rb + (t >> 5), 1u << (t & 31));
+                    if (fabsf(s_d0t[t] - q0j) <= tol) {
+                      atomicOr(ra + (t >> 5), 1u << (t & 31));
+                    }
                   }
                 }
               } else if (h0 - l0 <= kPairWalk) {
@@ -1924,16 +2033,16 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
               }
             }
             __syncwarp();
-            // hits = B0 & B1, then coefficients 2.. on what survives; the
-            // first and last word with a hit
+            // coefficients 2.. on the hits; the first and last word with a
+            // hit
             int w_first = nwc, w_last = -1;
             if (in) {
 #pragma unroll 4
               for (int w = w_lo; w < w_hi; ++w) {
                 unsigned x = ra[w];
-                if (wd && u2) x &= rb[w];
-                if (wd && coefs > 2) {
-                  for (unsigned m = x; m; m &= m - 1) {
+                if (wd && coefs > 2 && x) {
+                  const unsigned x0 = x;
+                  for (unsigned m = x0; m; m &= m - 1) {
                     const int bit = __ffs(m) - 1;
                     if (!rest_close(row + (size_t)(t0 + w * 32 + bit) *
                                               n_coefs,
@@ -1941,8 +2050,8 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
                       x &= ~(1u << bit);
                     }
                   }
+                  if (x != x0) ra[w] = x;
                 }
-                if (wd) ra[w] = x;
                 if (x) {
                   w_first = min(w_first, w);
                   w_last = w;
@@ -2004,6 +2113,25 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
                   cnt.fold_into(fq);
                 }
               }
+              // the tile's last kOvf offsets (words 32 kNW + lane, lane <
+              // 4): a frame reaching them adds its bits one by one
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                const int qw = (base[i] >> 5) + 32 * kNW;
+                const int wf = sp[i] & 0xffu, wl = (int)(sp[i] >> 16);
+                if (qw + kOvf / 32 < wf || qw > wl) continue;  // uniform
+                if (lane < kOvf / 32) {
+                  const unsigned* hr = rows_a + ((sp[i] >> 8) & 0xffu) * rs;
+                  const int w = qw + lane;
+                  unsigned x = __funnelshift_r(
+                      (unsigned)w < (unsigned)nwc ? hr[w] : 0u,
+                      (unsigned)(w + 1) < (unsigned)nwc ? hr[w + 1] : 0u,
+                      base[i] & 31);
+                  for (; x; x &= x - 1) {
+                    atomicAdd(ovq + lane * 32 + __ffs(x) - 1, 1);
+                  }
+                }
+              }
             }
             __syncwarp();  // the rows are read
           }
@@ -2020,25 +2148,30 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
             m = max(m, fq[i]);
             fq[i] = 0;
           }
+          for (int i = lane; i < kOvf; i += 32) {
+            m = max(m, ovq[i]);
+            ovq[i] = 0;
+          }
           best = max(best, __reduce_max_sync(kFull, m));
         }
         __syncthreads();
       } else {
-        if (wpq > 1) {  // uniform
+        if (wpq > 1) {  // uniform: a tree of bit-sliced adds
           __syncwarp();
-          if (mine && sub > 0) {  // the planes into this warp's hit rows
+          for (int step = 1; step < wpq; step <<= 1) {
+            if (mine && (sub & (2 * step - 1)) == step) {
+              // the planes into this warp's hit rows
 #pragma unroll
-            for (int j = 0; j < kNW; ++j) {
+              for (int j = 0; j < kNW; ++j) {
 #pragma unroll
-              for (int k = 0; k < kPlanes; ++k) {
-                rows_a[(j * kPlanes + k) * 32 + lane] = cnt.planes[j][k];
+                for (int k = 0; k < kPlanes; ++k) {
+                  rows_a[(j * kPlanes + k) * 32 + lane] = cnt.planes[j][k];
+                }
               }
             }
-          }
-          __syncthreads();
-          if (mine && sub == 0) {  // bit-sliced adds of the other warps'
-            for (int s = 1; s < wpq; ++s) {
-              const unsigned* o = wbase + (size_t)(warp + s) * L.wstride;
+            __syncthreads();
+            if (mine && (sub & (2 * step - 1)) == 0) {  // added to the left
+              const unsigned* o = wbase + (size_t)(warp + step) * L.wstride;
 #pragma unroll
               for (int j = 0; j < kNW; ++j) {
                 unsigned carry = 0u;
@@ -2052,11 +2185,16 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
               }
             }
           }
-          __syncthreads();
         }
         if (mine && sub == 0) {
-          best = max(best, __reduce_max_sync(kFull, cnt.max_count()));
+          int m = cnt.max_count();
+          for (int i = lane; i < kOvf; i += 32) {
+            m = max(m, ovq[i]);
+            ovq[i] = 0;
+          }
+          best = max(best, __reduce_max_sync(kFull, m));
         }
+        if (wpq > 1) __syncthreads();  // rows and counts free: next tile
       }
     }
     if (mine && sub == 0 && lane == 0) {
@@ -2078,8 +2216,8 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
 
 // Warps per block of the aligned index kernel for this chunk, query length
 // and batch (at most 8 and at most one per query); 0 when not even one
-// warp's histogram fits in shared memory (then the full scan takes the
-// bit-sliced kernel, the grouped candidate form its dense kernel).
+// warp's histogram fits in shared memory (then the full scan and the
+// grouped candidate form take the bit-sliced kernel on every item).
 extern "C" int tiresias_match_aligned_warps(int chunk, int f_len, int batch) {
   int w = min(kWarps, batch);
   while (w > 0 && aligned_smem(chunk, f_len, w) > kMaxSmem) --w;
@@ -2113,25 +2251,43 @@ extern "C" int tiresias_match_votes(const void* db, const void* q,
   return (int)cudaGetLastError();
 }
 
-// Launches the bit-sliced kernel on grid rows: every row (listed false),
-// or the rows of work with the queries of their masks (qmask [rows, mw]
-// u32), n_work[0] of them. routes: three u64 (items, frames on the bitsets,
-// frames tested entry by entry).
-static int launch_bits(bool listed, const void* db, const void* q,
-                       const void* ent, const void* pos, const void* n_live,
-                       int batch, int rows, int t_len, int n_coefs,
-                       int coefs, int f_len, int chunk, int n_chunks,
-                       float tol, long long grid, const int* work,
-                       const unsigned long long* n_work,
-                       const unsigned* qmask, int mw, int* votes,
+// The index's kept coefficient-1 order (ops/match_index.py; null for a
+// one-coefficient store) and the work items of the bit-sliced kernel.
+struct Kept {
+  const float* d1;
+  const short* pos1;
+  const int* n1;
+};
+struct BitsItems {
+  bool listed;              // rows of work with the queries of qmask
+  const int* work;          // listed rows (listed) or items, else null
+  const unsigned long long* n_work;
+  const unsigned* qmask;    // [rows, mw] u32 (listed)
+  int mw;
+  int every, n_cand;        // group_item's (not listed)
+  const int* slots;
+  const int4* items;
+  const int* n_items;
+};
+
+// Launches the bit-sliced kernel on `grid` blocks (an upper bound of the
+// work items; blocks past them leave). routes: three u64 (items, frames on
+// the bitsets, frames entry by entry).
+static int launch_bits(const void* db, const void* q, const void* ent,
+                       const void* pos, const void* n_live, Kept kept,
+                       int rows, int t_len, int n_coefs, int coefs,
+                       int f_len, int chunk, int n_chunks, float tol,
+                       long long grid, const BitsItems& it, int* votes,
                        unsigned long long* routes, cudaStream_t st) {
   if (chunk > kMaxChunk || chunk < 2 || chunk % 2 || f_len < 1 ||
-      t_len < 1 || grid > 0x7fffffffLL) {
+      t_len < 1 || grid > 0x7fffffffLL ||
+      (coefs > 1 && (!kept.d1 || !kept.pos1 || !kept.n1)) ||
+      (!it.listed && (it.n_cand < 1 || it.every < 0))) {
     return (int)cudaErrorInvalidValue;
   }
   if (grid < 1) return (int)cudaSuccess;
   const long long n_off = (long long)t_len + f_len - 1;
-  int nw = n_off <= 1024 ? 1 : n_off <= 2048 ? 2 : 3;
+  int nw = n_off <= 1024 + kOvf ? 1 : n_off <= 2048 + kOvf ? 2 : 3;
   const int fold = f_len > kFoldAt;
   while (nw > 1 && BitsSmem(chunk, nw, kBitsWarps, fold).total > kMaxSmem) {
     --nw;  // smaller offset tiles
@@ -2139,9 +2295,11 @@ static int launch_bits(bool listed, const void* db, const void* q,
   const BitsSmem L(chunk, nw, kBitsWarps, fold);
   if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   using Kernel = void (*)(const float*, const float*, const float2*,
+                          const short*, const int*, const float*,
                           const short*, const int*, int, int, int, int, int,
-                          int, int, int, float, int, const int*,
+                          int, int, float, int, const int*,
                           const unsigned long long*, const unsigned*, int,
+                          int, int, const int*, const int4*, const int*,
                           int, int*, unsigned long long*);
   static const Kernel kernels[2][3] = {
       {match_votes_aligned_bits_kernel<false, 1>,
@@ -2150,30 +2308,40 @@ static int launch_bits(bool listed, const void* db, const void* q,
       {match_votes_aligned_bits_kernel<true, 1>,
        match_votes_aligned_bits_kernel<true, 2>,
        match_votes_aligned_bits_kernel<true, 3>}};
-  const Kernel kernel = kernels[listed ? 1 : 0][nw - 1];
+  const Kernel kernel = kernels[it.listed ? 1 : 0][nw - 1];
+  // bitsets: always for the items the index kernel found wide, else where
+  // a sample of the first queries' bands holds a wide one
+  const int sample = it.work ? 0 : 1;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, kBitsWarps * 32, (size_t)L.total, st>>>(
       (const float*)db, (const float*)q, (const float2*)ent,
-      (const short*)pos, (const int*)n_live, batch, rows, t_len, n_coefs,
-      coefs, f_len, chunk, n_chunks, tol, fold, work, n_work, qmask, mw,
-      kShareMin, votes, routes);
+      (const short*)pos, (const int*)n_live, kept.d1, kept.pos1, kept.n1,
+      rows, t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol, fold,
+      it.work, it.n_work, it.qmask, it.mw, it.every, it.n_cand, it.slots,
+      it.items, it.n_items, sample, votes, routes);
   return (int)cudaGetLastError();
 }
 
 // K5's full scan by the bit-sliced kernel alone, every row for every query
 // (the forced route "bits", and queries whose offset histogram the index
 // kernel cannot hold): votes [batch, rows] zeroed; routes: three u64
-// (items, frames on the bitsets, frames entry by entry).
+// (items, frames on the bitsets, frames entry by entry); d1k/pos1k/n1k the
+// index's kept coefficient-1 order (null with coefs 1).
 extern "C" int tiresias_match_votes_aligned_bits(
     const void* db, const void* q, const void* ent, const void* pos,
-    const void* n_live, int batch, int rows, int t_len, int n_coefs,
-    int coefs, int f_len, int chunk, int n_chunks, float tol, void* votes,
-    void* routes, void* stream) {
-  return launch_bits(false, db, q, ent, pos, n_live, batch, rows, t_len,
-                     n_coefs, coefs, f_len, chunk, n_chunks, tol, rows,
-                     nullptr, nullptr, nullptr, 0, (int*)votes,
+    const void* n_live, const void* d1k, const void* pos1k, const void* n1k,
+    int batch, int rows, int t_len, int n_coefs, int coefs, int f_len,
+    int chunk, int n_chunks, float tol, void* votes, void* routes,
+    void* stream) {
+  const BitsItems it{false, nullptr, nullptr, nullptr, 0, batch, rows,
+                     nullptr, nullptr, nullptr};
+  return launch_bits(db, q, ent, pos, n_live,
+                     {(const float*)d1k, (const short*)pos1k,
+                      (const int*)n1k},
+                     rows, t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol,
+                     batch > 0 ? rows : 0, it, (int*)votes,
                      (unsigned long long*)routes, (cudaStream_t)stream);
 }
 
@@ -2194,10 +2362,10 @@ static int dense_grid() {
 template <bool kCand>
 static int match_votes_aligned(
     const void* db, const void* q, const void* ent, const void* pos,
-    const void* n_live, int batch, int rows, int t_len, int n_coefs,
-    int coefs, int f_len, int chunk, int n_chunks, float tol, float share,
-    int warps, const int* cand, int n_cand, void* votes, void* work,
-    void* n_work, void* qmask, void* row_flag, void* routes,
+    const void* n_live, Kept kept, int batch, int rows, int t_len,
+    int n_coefs, int coefs, int f_len, int chunk, int n_chunks, float tol,
+    float share, int warps, const int* cand, int n_cand, void* votes,
+    void* work, void* n_work, void* qmask, void* row_flag, void* routes,
     cudaStream_t st) {
   unsigned long long* nw = (unsigned long long*)n_work;
   unsigned long long* rt = (unsigned long long*)routes;
@@ -2238,9 +2406,10 @@ static int match_votes_aligned(
   err = cudaGetLastError();
   if (err != cudaSuccess || kCand || !(share < INFINITY)) return (int)err;
   // the wide items: the listed rows with their queries
-  return launch_bits(true, db, q, ent, pos, n_live, batch, rows, t_len,
-                     n_coefs, coefs, f_len, chunk, n_chunks, tol, rows,
-                     (const int*)work, nw, (const unsigned*)qmask, mw,
+  const BitsItems it{true, (const int*)work, nw, (const unsigned*)qmask,
+                     mw, 0, 1, nullptr, nullptr, nullptr};
+  return launch_bits(db, q, ent, pos, n_live, kept, rows, t_len, n_coefs,
+                     coefs, f_len, chunk, n_chunks, tol, rows, it,
                      (int*)votes, rt + 2, st);
 }
 
@@ -2252,27 +2421,30 @@ static int match_votes_aligned(
 // infinite). warps 0 runs the every-pair kernel on every item (a forced
 // route of the full scan only). cand as for tiresias_match_votes: the
 // per-item candidate form, one warp per item (warps must be 1), has no
-// wide route (share must be infinite).
+// wide route (share must be infinite). d1k/pos1k/n1k: the index's kept
+// coefficient-1 order for the bit-sliced kernel (null with coefs 1).
 extern "C" int tiresias_match_votes_aligned(
     const void* db, const void* q, const void* ent, const void* pos,
-    const void* n_live, int batch, int rows, int t_len, int n_coefs,
-    int coefs, int f_len, int chunk, int n_chunks, float tol, float share,
-    int warps, const void* cand, int n_cand, void* votes, void* work,
-    void* n_work, void* qmask, void* row_flag, void* routes, void* stream) {
+    const void* n_live, const void* d1k, const void* pos1k, const void* n1k,
+    int batch, int rows, int t_len, int n_coefs, int coefs, int f_len,
+    int chunk, int n_chunks, float tol, float share, int warps,
+    const void* cand, int n_cand, void* votes, void* work, void* n_work,
+    void* qmask, void* row_flag, void* routes, void* stream) {
   const int* cd = (const int*)cand;
   const cudaStream_t st = (cudaStream_t)stream;
+  const Kept kept{(const float*)d1k, (const short*)pos1k, (const int*)n1k};
   if (cd) {
-    return match_votes_aligned<true>(db, q, ent, pos, n_live, batch, rows,
-                                     t_len, n_coefs, coefs, f_len, chunk,
-                                     n_chunks, tol, share, warps, cd, n_cand,
-                                     votes, work, n_work, nullptr, nullptr,
-                                     routes, st);
+    return match_votes_aligned<true>(db, q, ent, pos, n_live, kept, batch,
+                                     rows, t_len, n_coefs, coefs, f_len,
+                                     chunk, n_chunks, tol, share, warps, cd,
+                                     n_cand, votes, work, n_work, nullptr,
+                                     nullptr, routes, st);
   }
-  return match_votes_aligned<false>(db, q, ent, pos, n_live, batch, rows,
-                                    t_len, n_coefs, coefs, f_len, chunk,
-                                    n_chunks, tol, share, warps, nullptr, 0,
-                                    votes, work, n_work, qmask, row_flag,
-                                    routes, st);
+  return match_votes_aligned<false>(db, q, ent, pos, n_live, kept, batch,
+                                    rows, t_len, n_coefs, coefs, f_len,
+                                    chunk, n_chunks, tol, share, warps,
+                                    nullptr, 0, votes, work, n_work, qmask,
+                                    row_flag, routes, st);
 }
 
 // The candidate form's work list (see group_scan_kernel): counts [rows] int
@@ -2348,35 +2520,40 @@ static int group_dense_grid() {
 }
 
 // K5's grouped candidate form: the index kernel (warps per block, 1 to
-// kWarps), then the dense kernel over the items it listed; warps 0 runs the
-// dense kernel on every item. work: max_items ints, n_work two u64 of
-// scratch, routes as for tiresias_match_votes_aligned; items of up to g
-// (<= kGroup5) queries. With items and n_items null there is no list (see
-// group_item): every > 0 serves the full scan of that many queries
-// (slots null, max_items = n_cand = rows: votes [every, rows]); every 0
-// batch 1's candidates (slots = cand [1, n_cand], max_items = n_cand).
+// kWarps), then the wide kernels of the mask `wide` over the items it
+// listed: 1 the bit-sliced kernel (the items of at least bits_min
+// queries), 2 the grouped every-pair kernel (the others). warps 0 runs the
+// one wide kernel `wide` names (1 or 2) on every item. work: 2 * max_items
+// ints, n_work four u64 of scratch, routes as for
+// tiresias_match_votes_aligned; items of up to g (<= kGroup5) queries;
+// d1k/pos1k/n1k the index's kept coefficient-1 order (null with coefs 1).
+// With items and n_items null there is no list (see
+// group_item): every > 0 serves the full scan of that many queries (slots
+// null, max_items = n_cand = rows: votes [every, rows]); every 0 batch 1's
+// candidates (slots = cand [1, n_cand], max_items = n_cand).
 extern "C" int tiresias_match_votes_aligned_group(
     const void* db, const void* q, const void* ent, const void* pos,
-    const void* n_live, int t_len, int n_coefs, int coefs, int f_len,
-    int chunk, int n_chunks, float tol, float share, float share_small,
-    int shared_min, int warps, int n_cand, int g, int every, int rows,
-    const void* slots, const void* items, const void* n_items, int max_items,
-    void* votes, void* work, void* n_work, void* routes, void* stream) {
+    const void* n_live, const void* d1k, const void* pos1k, const void* n1k,
+    int t_len, int n_coefs, int coefs, int f_len, int chunk, int n_chunks,
+    float tol, float share, float share_small, int shared_min,
+    float share_bits, int bits_min, int warps, int wide, int n_cand, int g,
+    int every, int rows, const void* slots, const void* items,
+    const void* n_items, int max_items, void* votes, void* work,
+    void* n_work, void* routes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long smem = aligned_smem(chunk, f_len, warps);
   if (g < 1 || g > kGroup5 || max_items < 1 || warps < 0 ||
       warps > kWarps || (warps && (smem > kMaxSmem || chunk % 2)) ||
-      rows < 1 || every < 0 || every > kGroup5 ||
+      rows < 1 || every < 0 || every > kGroup5 || (wide & ~3) ||
+      (!warps && wide != 1 && wide != 2) ||
       (items ? every != 0 || !slots || !n_items
              : max_items != n_cand || (every ? n_cand != rows : !slots))) {
     return (int)cudaErrorInvalidValue;
   }
   unsigned long long* nw = (unsigned long long*)n_work;
-  cudaError_t err = cudaMemsetAsync(nw, 0, 2 * sizeof(unsigned long long), st);
+  unsigned long long* rt = (unsigned long long*)routes;
+  cudaError_t err = cudaMemsetAsync(nw, 0, 4 * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return (int)err;
-  const int resident =
-      coefs > 2 ? group_dense_grid<true>() : group_dense_grid<false>();
-  const int grid = max_items < resident ? max_items : resident;
   if (warps > 0) {
     err = cudaFuncSetAttribute(match_votes_aligned_group_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2386,18 +2563,35 @@ extern "C" int tiresias_match_votes_aligned_group(
                                        (size_t)smem, st>>>(
         (const float*)db, (const float*)q, (const float2*)ent,
         (const short*)pos, (const int*)n_live, t_len, n_coefs, coefs, f_len,
-        chunk, n_chunks, tol, share, share_small, shared_min, n_cand, every,
-        rows, (const int*)slots, (const int4*)items, (const int*)n_items,
-        (int*)votes, (int*)work, nw, (unsigned long long*)routes);
+        chunk, n_chunks, tol, share, share_small, shared_min, share_bits,
+        bits_min, n_cand, every, rows, (const int*)slots,
+        (const int4*)items, (const int*)n_items, max_items, (int*)votes,
+        (int*)work, nw, rt);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  auto dense = coefs > 2 ? match_votes_aligned_group_dense_kernel<true>
-                         : match_votes_aligned_group_dense_kernel<false>;
-  dense<<<grid, kThreads5, 0, st>>>(
+  if (wide & 1) {
+    const int* listed = warps > 0 ? (const int*)work : nullptr;
+    const BitsItems it{false, listed, listed ? nw : nullptr, nullptr, 0,
+                       every, n_cand, (const int*)slots, (const int4*)items,
+                       (const int*)n_items};
+    err = (cudaError_t)launch_bits(
+        db, q, ent, pos, n_live,
+        {(const float*)d1k, (const short*)pos1k, (const int*)n1k}, rows,
+        t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol, max_items, it,
+        (int*)votes, rt + 2, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(wide & 2)) return (int)cudaSuccess;
+  const int resident =
+      coefs > 2 ? group_dense_grid<true>() : group_dense_grid<false>();
+  const int grid = max_items < resident ? max_items : resident;
+  auto kernel = coefs > 2 ? match_votes_aligned_group_dense_kernel<true>
+                          : match_votes_aligned_group_dense_kernel<false>;
+  kernel<<<grid, kThreads5, 0, st>>>(
       (const float*)db, (const float*)q, t_len, n_coefs, coefs, f_len, tol,
       n_cand, every, rows, (const int*)slots, (const int4*)items,
-      (const int*)n_items, warps > 0 ? (const int*)work : nullptr, nw,
-      (int*)votes);
+      (const int*)n_items, warps > 0 ? (const int*)work + max_items : nullptr,
+      nw + 2, (int*)votes);
   return (int)cudaGetLastError();
 }

@@ -44,17 +44,34 @@ class MatchIndex:
     run), ``pos [A, n_chunks, chunk]`` int16 each entry's time within its
     chunk, and ``n_live [A, n_chunks]`` int32 the length of the live run:
     the frames whose d0 is neither PAD_VALUE nor NaN, in ascending d0
-    (a genuine ±inf included), stable in time among equal keys."""
+    (a genuine ±inf included), stable in time among equal keys.
+
+    The kept coefficient-1 order (None for a one-coefficient store): ``d1
+    [A, n_chunks, chunk]`` float32 the live frames' d1 ascending by
+    :func:`sort_keys`, stable in time, those with a NaN d1 left out (NaN
+    past the run), ``pos1`` int16 their times in the chunk, ``n1 [A,
+    n_chunks]`` int32 the run's length; 6 more bytes a frame. The
+    bit-sliced K5 builds its coefficient-1 bitsets from it."""
 
     entries: torch.Tensor
     pos: torch.Tensor
     n_live: torch.Tensor
     chunk: int
     t_len: int
+    d1: torch.Tensor | None = None
+    pos1: torch.Tensor | None = None
+    n1: torch.Tensor | None = None
 
     @property
     def n_chunks(self) -> int:
         return int(self.n_live.shape[1])
+
+    def row_tensors(self) -> dict:
+        """The per-row tensors by field name (the kept order's where it is
+        built): what a view update replaces row by row."""
+        return {name: getattr(self, name)
+                for name in ("entries", "pos", "n_live", "d1", "pos1", "n1")
+                if getattr(self, name) is not None}
 
 
 def sort_keys(d0: torch.Tensor) -> torch.Tensor:
@@ -67,7 +84,8 @@ def sort_keys(d0: torch.Tensor) -> torch.Tensor:
 def build_match_index(db: torch.Tensor, t_chunk: int = T_CHUNK) -> MatchIndex:
     """The index of ``db [A, T, C]`` (store layout, PAD_VALUE where no
     frame exists: past an audio's end, padding and tombstoned rows), built
-    where ``db`` lies. About 10 bytes per stored frame."""
+    where ``db`` lies: 10 bytes per stored frame, 16 with the kept
+    coefficient-1 order (``C > 1``)."""
     a, t, c = db.shape
     if t_chunk % 2 or not 2 <= t_chunk <= 32768:
         raise ValueError("t_chunk must be even and in [2, 32768]")
@@ -91,12 +109,24 @@ def build_match_index(db: torch.Tensor, t_chunk: int = T_CHUNK) -> MatchIndex:
         torch.where(live, d0.gather(-1, order), nan),
         torch.where(live, d1.gather(-1, order), nan),
     ], dim=-1).contiguous()
+    kept = {}
+    if c > 1:  # coefficient 1's order of the live frames, NaN d1 left out
+        ok1 = ~dead & ~torch.isnan(d1)
+        keys1 = torch.where(ok1, sort_keys(d1), _DEAD_KEY)
+        order1 = torch.sort(keys1, dim=-1, stable=True).indices
+        n1 = ok1.sum(dim=-1, dtype=torch.int32)
+        run = torch.arange(chunk, device=db.device) < n1[..., None]
+        kept = {"d1": torch.where(run, d1.gather(-1, order1),
+                                  nan).contiguous(),
+                "pos1": order1.to(torch.int16).contiguous(),
+                "n1": n1.contiguous()}
     return MatchIndex(
         entries=entries,
         pos=order.to(torch.int16).contiguous(),
         n_live=(~dead).sum(dim=-1, dtype=torch.int32).contiguous(),
         chunk=chunk,
         t_len=t,
+        **kept,
     )
 
 
@@ -119,6 +149,12 @@ def _bisect(pred, lo: torch.Tensor, hi: torch.Tensor, steps: int):
     return lo
 
 
+def _bfa(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, F]`` or ``[B, F, A]`` as ``[B, F, A or 1, 1]``, to broadcast
+    against ``[B, F, A, n_chunks, ...]``."""
+    return (x[:, :, None] if x.ndim == 2 else x)[..., None]
+
+
 def band_bounds_plain(index: MatchIndex, q0: torch.Tensor, tol: float):
     """``(lo, hi)`` int64 ``[B, F, A, n_chunks]``: the entries
     ``[lo, hi)`` of each chunk's live run whose d0 passes
@@ -130,11 +166,12 @@ def band_bounds_plain(index: MatchIndex, q0: torch.Tensor, tol: float):
 def _band_bounds(keys: torch.Tensor, n_live: torch.Tensor, q0: torch.Tensor,
                  tol: float):
     """:func:`band_bounds_plain` over sorted ``keys [A, nc, chunk]`` with
-    ``n_live [A, nc]`` live entries each."""
+    ``n_live [A, nc]`` live entries each; ``q0 [B, F]``, or ``[B, F, A]``
+    for a query value of its own at each row."""
     tol = float(np.float32(tol))
     a, nc, chunk = keys.shape
-    b, f = q0.shape
-    q = q0.to(torch.float32)[:, :, None, None, None]
+    b, f = q0.shape[:2]
+    q = _bfa(q0.to(torch.float32))[..., None]
     n = n_live.to(torch.int64)[None, None].expand(b, f, a, nc)
     flat = keys[None, None].expand(b, f, a, nc, chunk)
     steps = int(chunk).bit_length() + 1
@@ -201,6 +238,7 @@ def votes_by_index_plain(index: MatchIndex, db, q, active, use2, tol,
 PLANES = 8
 FOLD_AT = 2**PLANES - 1
 _WORD = 0xFFFFFFFF
+_ITEM_QUERIES = 8  # queries per grouped work item, at most (kGroup5)
 
 
 def block_shift(chunk: int) -> int:
@@ -209,23 +247,14 @@ def block_shift(chunk: int) -> int:
 
 
 def coef1_order(index: MatchIndex):
-    """Coefficient 1's order of each chunk's live entries, as the bit-sliced
-    kernel sorts it in shared memory: ``(d1 [A, nc, chunk]`` float32
+    """Coefficient 1's order of each chunk's live entries, as the index
+    keeps it (:class:`MatchIndex`): ``(d1 [A, nc, chunk]`` float32
     ascending (NaN past the run), ``pos1 [A, nc, chunk]`` int64 times in the
     chunk, ``n1 [A, nc]`` int64 the entries whose d1 is not NaN)."""
-    d1 = index.entries[..., 1]
-    chunk = index.chunk
-    live = (torch.arange(chunk, device=d1.device)
-            < index.n_live[..., None].to(torch.int64))
-    ok = live & ~torch.isnan(d1)
-    keys = torch.where(ok, sort_keys(torch.where(ok, d1, 0.0)), _DEAD_KEY)
-    order = torch.sort(keys, dim=-1, stable=True).indices
-    d1s = d1.gather(-1, order)
-    n1 = ok.sum(dim=-1)
-    run = torch.arange(chunk, device=d1.device) < n1[..., None]
-    nan = torch.full((), float("nan"), device=d1.device)
-    pos1 = index.pos.to(torch.int64).gather(-1, order)
-    return torch.where(run, d1s, nan), pos1, n1
+    if index.d1 is None:
+        raise ValueError("a one-coefficient index keeps no coefficient-1 "
+                         "order")
+    return index.d1, index.pos1.to(torch.int64), index.n1.to(torch.int64)
 
 
 def prefix_bitsets(pos: torch.Tensor, n: torch.Tensor, chunk: int):
@@ -301,26 +330,80 @@ def _fold(planes: list, counts: torch.Tensor) -> None:
         planes[k] = torch.zeros_like(p)
 
 
+def _index_rows(index: MatchIndex, rows: torch.Tensor) -> MatchIndex:
+    """The index of the rows ``rows`` (ids into it, repeats allowed)."""
+    return dataclasses.replace(index, **{
+        name: x[rows] for name, x in index.row_tensors().items()})
+
+
 def aligned_votes_bits_plain(index: MatchIndex, db, q, active, use2, tol,
-                             coefs: int = 1):
+                             coefs: int = 1, cand=None,
+                             max_pairs: int = 4096):
     """The bit-sliced K5 in plain torch: aligned votes ``[B, A]`` int32
     (PARITY.md D9), equal to :func:`match.match_votes` with ``aligned``.
 
     Per chunk of the index: coefficient 0's rank bands over the d0 order
-    and coefficient 1's over :func:`coef1_order` (:func:`_band_bounds`,
-    the kernels' bisection on ``fl(d − q)``); each band's bitset over the
-    chunk's times from :func:`prefix_bitsets` and its edge entries
-    (:func:`band_bitsets`); hits ``B0 & (B1 | ~use2)``, then coefficients
-    2..coefs-1 on the hits; each frame's hits shifted to its offsets
-    ``t − f + F − 1`` (words funnel-shifted as the kernel shifts them) and
-    added into ``PLANES`` bit-sliced counters, folded into int32 counts
-    every ``FOLD_AT`` frames and at the chunk's end; the max offset count.
+    and coefficient 1's over the kept order (:func:`coef1_order`;
+    :func:`_band_bounds`, the kernels' bisection on ``fl(d − q)``); each
+    band's bitset over the chunk's times from :func:`prefix_bitsets` and
+    its edge entries (:func:`band_bitsets`); hits ``B0 & (B1 | ~use2)``,
+    then coefficients 2..coefs-1 on the hits; each frame's hits shifted to
+    its offsets ``t − f + F − 1`` (words funnel-shifted as the kernel
+    shifts them) and added into ``PLANES`` bit-sliced counters, folded into
+    int32 counts every ``FOLD_AT`` frames and at the chunk's end; the max
+    offset count. Every row is one work item of every query (the full scan,
+    and the grouped form's no-list mode below SMALL_BATCH).
+
+    With ``cand [B, k]`` int32 row ids: the grouped candidate form, votes
+    ``[B, k]`` of query b against row ``cand[b, j]`` (0 for an id outside
+    ``[0, A)``). Its work items, as the kernel takes them: the valid slots
+    grouped by row (rows ascending, slots ascending), each row's cut into
+    items of up to 8 queries, or at batch 1 each slot an item of its own;
+    each item's row is staged once for its queries. Items are served
+    ``max_pairs`` (query, row) pairs at a time.
     """
     tol = float(np.float32(tol))
     a, t_len, c = db.shape
     b, f = active.shape
     if coefs < 1 or coefs > c:
         raise ValueError(f"coefs must be in [1, {c}]")
+    if cand is None:
+        return _bits_votes(index, db, q, active, use2, tol, coefs)
+    votes = torch.zeros(cand.shape, dtype=torch.int32, device=db.device)
+    flat = cand.reshape(-1).to(torch.int64)
+    slot = ((flat >= 0) & (flat < a)).nonzero()[:, 0]
+    i = torch.arange(slot.numel(), device=db.device)
+    item = i  # batch 1: each slot an item
+    if b > 1:  # row-major: rows ascending, a row's slots ascending
+        slot = slot[torch.argsort(flat[slot], stable=True)]
+        row = flat[slot]
+        first = torch.ones_like(row, dtype=torch.bool)
+        first[1:] = row[1:] != row[:-1]
+        start = torch.cummax(torch.where(first, i, 0), 0)[0]
+        item = torch.cumsum((i - start) % _ITEM_QUERIES == 0, 0) - 1
+    # whole items, up to max_pairs pairs at a time
+    n_items = int(item[-1]) + 1 if item.numel() else 0
+    cut = torch.searchsorted(item, torch.arange(
+        0, n_items, max(1, max_pairs // _ITEM_QUERIES),
+        device=db.device)).tolist()
+    for lo, hi in zip(cut, cut[1:] + [slot.numel()]):
+        s = slot[lo:hi]
+        pa, pb = flat[s], s // cand.shape[1]
+        # each pair its own row: queries [1, F, P]
+        got = _bits_votes(
+            _index_rows(index, pa), db[pa], q[pb].transpose(0, 1)[None],
+            active[pb].T[None], use2[pb].T[None], tol, coefs)
+        votes.view(-1)[s] = got[0]
+    return votes
+
+
+def _bits_votes(index: MatchIndex, db, q, active, use2, tol: float,
+                coefs: int):
+    """:func:`aligned_votes_bits_plain`'s votes ``[B, A]``: ``q [B, F, C]``
+    and ``active`` / ``use2 [B, F]``, or (a query of its own at each row)
+    ``[B, F, A, C]`` / ``[B, F, A]``."""
+    a, t_len, c = db.shape
+    b, f = active.shape[:2]
     dev = db.device
     votes = torch.zeros((b, a), dtype=torch.int32, device=dev)
     if f == 0 or a == 0:
@@ -328,7 +411,8 @@ def aligned_votes_bits_plain(index: MatchIndex, db, q, active, use2, tol,
     chunk, nc = index.chunk, index.n_chunks
     nwc = -(-chunk // 32)
     q = q.to(torch.float32)
-    lo0, hi0 = band_bounds_plain(index, q[..., 0], tol)
+    lo0, hi0 = _band_bounds(index.entries[..., 0], index.n_live, q[..., 0],
+                            tol)
     hits = band_bitsets(prefix_bitsets(index.pos, index.n_live, chunk),
                         index.pos, lo0, hi0, chunk)
     if coefs > 1:
@@ -336,15 +420,15 @@ def aligned_votes_bits_plain(index: MatchIndex, db, q, active, use2, tol,
         lo1, hi1 = _band_bounds(d1s, n1, q[..., 1], tol)
         b1 = band_bitsets(prefix_bitsets(pos1, n1, chunk), pos1, lo1, hi1,
                           chunk)
-        hits = torch.where(use2[:, :, None, None, None], hits & b1, hits)
-    hits = torch.where(active[:, :, None, None, None], hits, 0)
+        hits = torch.where(_bfa(use2)[..., None], hits & b1, hits)
+    hits = torch.where(_bfa(active)[..., None], hits, 0)
     if coefs > 2:  # the rest, packed into words of each chunk's times
         tt = nc * chunk
         ok = torch.ones((b, f, a, tt), dtype=torch.bool, device=dev)
         for ci in range(2, coefs):
             dc = torch.full((a, tt), float("nan"), device=dev)
             dc[:, :t_len] = db[..., ci]
-            ok &= (q[..., ci][:, :, None, None] - dc[None, None]).abs() <= tol
+            ok &= (_bfa(q[..., ci]) - dc[None, None]).abs() <= tol
         ok = ok.reshape(b, f, a, nc, -1)
         ok = torch.nn.functional.pad(ok, (0, nwc * 32 - chunk))
         ok = ok.reshape(b, f, a, nc, nwc, 32)

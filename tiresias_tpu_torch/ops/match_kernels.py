@@ -16,15 +16,19 @@ statement is :func:`match_index.aligned_votes_bits_plain`) in the same
 call: the rows with such items go on a list, each with the mask of its
 queries, so one block stages a row once for all of them; a frame's hits in
 a chunk are a bitset over the stored times, from the rank bands of
-coefficients 0 and 1 and block-prefix bitsets of the chunk (or, for a
-narrow band or a row few queries share, from its entries one by one), and
-the offset histogram is bit-sliced. A query whose offset histogram does not
-fit in the index kernel's shared memory (over ~50,000 frames) takes the
-bit-sliced kernel on every item. Below ``SMALL_BATCH`` queries K5's full
-scan runs as the grouped candidate form with every row one work item of
-all the queries (no list is built). The every-pair kernel stays as the
-forced route ``"dense"``, to measure against. :func:`route_counts` counts
-the items of each route.
+coefficient 0 and of coefficient 1 (over the order the index keeps,
+``MatchIndex.d1/pos1/n1``) and block-prefix bitsets of the chunk (or, for
+a narrow band, from its entries one by one), and the offset histogram is
+bit-sliced. A query whose offset histogram does not fit in the index
+kernel's shared memory (over ~50,000 frames) takes the bit-sliced kernel
+on every item. Below ``SMALL_BATCH`` queries K5's full scan runs as the
+grouped candidate form with every row one work item of all the queries (no
+list is built). There the index kernel sorts each wide item on the device
+by its own number of queries: an item of ``BITS_MIN_QUERIES`` queries or
+more goes to the bit-sliced kernel, one of fewer to the grouped every-pair
+kernel (``DENSE_SHARE``). The every-pair kernels are also the forced route
+``"dense"``, to measure against. :func:`route_counts` counts the items of
+each route.
 
 The certified strict/aligned prefilter (:func:`aligned_prefiltered_votes`,
 PARITY.md D17/D20) bounds every row's votes with K3' on the view's uint8
@@ -35,9 +39,11 @@ batch share rows, so the form groups them by row on the device first
 (:func:`group_candidates`, a counting sort;
 :func:`group_candidates_plain` is its twin): one block per work item of
 one row and up to ``CAND_GROUP`` of the queries that chose it, the row's
-index chunks (K5's dense window) staged once for all of them. The first design, one block per (query, candidate) item, stays as
-the forced route ``"per_item"``, which K4 takes at batch 1 (no row is
-shared there); K5's per-item form runs its index kernel on every slot.
+index chunks staged once for all of them, K5's wide items served as in
+the full scan below ``SMALL_BATCH``. The first design, one block per
+(query, candidate) item, stays as the forced route ``"per_item"``, which
+K4 takes at batch 1 (no row is shared there); K5's per-item form runs its
+index kernel on every slot.
 
 Operand convention (the store's layout): ``db [A, T, C]`` holds PAD_VALUE
 in every frame that does not exist — past an audio's end, in padding rows
@@ -69,36 +75,38 @@ _K4_ITEMS = 512  # (query, 32-frame group) items per K4 block (kMaxItems)
 # A work item takes the wide-band route when its bands hold more than this
 # share of its (live stored frame, active query frame) pairs: K4 counts what
 # is left of the bands after each frame's first kProbe entries (its dense
-# sweep), K5 the bands of its first 32 frames (the bit-sliced kernel). Below
-# SMALL_BATCH queries a block has fewer items than warps (K4) or one warp
-# per stored row (K5), and one lane walking a long band is slower than the
-# warp sweeping the chunk (K4) or the bit-sliced kernel's lanes splitting
-# the bands (K5), so the wide route takes over sooner there. The per-item
-# candidate form has one query per block, so it takes the small-batch
-# shares at any batch. The grouped form takes the batch share for a work
-# item of >= CAND_SHARED queries, the small-batch share for a row only one
-# query chose (K4's items fill its 8 warps from 2 queries of 4 x 32-frame
-# groups). K5's wide route is its bit-sliced kernel in the full scan at
-# batch >= SMALL_BATCH, where the index kernel hands it a wide row whole
-# (chip_smoke on an H100, PERF.md: the catalog's bands, 24% of a row, 18.08
-# ms against the index route's 21.86 and the bit-sliced kernel's 17.86
-# alone; narrow bands stay on the index route, 1.81 against 8.57). Where a
-# row has few queries the kernel's staging does not pay (the catalog at
-# batch 1: 1.04 against the index route's 0.75 and the grouped form's
-# 0.44): below SMALL_BATCH the full scan runs as the grouped candidate form,
-# each row one work item of every query, whose wide route is the grouped
-# dense kernel (share "aligned_cand" for an item of >= CAND_SHARED queries,
-# the small-batch share below). K5's per-item candidate form (a forced
-# route) has no wide route.
+# sweep), K5 the bands of its first 32 frames. Below SMALL_BATCH queries a
+# block has fewer items than warps (K4), and one lane walking a long band
+# is slower than the warp sweeping the chunk, so K4's wide route takes over
+# sooner there; the per-item candidate form has one query per block and
+# takes the small-batch shares at any batch, K5's none (no wide route).
+# K5's wide route in the full scan from SMALL_BATCH on is the bit-sliced
+# kernel (match_votes_aligned_bits_kernel; share "aligned": the index
+# kernel hands it a wide row whole, with every query that has the row). In
+# the grouped form (the candidate form, and the full scan below SMALL_BATCH
+# with each row one work item of every query) the index kernel decides per
+# work item, on the device, by the queries the item holds: from
+# BITS_MIN_QUERIES on the item's share is "aligned_bits" and a wide item
+# goes to the bit-sliced kernel; below, a row's staging and prefix bitsets
+# are paid for too few queries, and the grouped every-pair kernel
+# (match_votes_aligned_group_dense_kernel) is faster on wide bands, so it
+# takes those items, with the shares "aligned_cand" (CAND_SHARED queries or
+# more) and "aligned_small_batch" (one query). chip_smoke on an H100
+# (PERF.md section 6) measures each: every row of the catalog as items of
+# b = 1, 2, 3, 4, 8 queries (the two kernels cross between 3 and 4), and
+# candidates with 1, 2, 4 and 8 queries a row; narrow bands (under ~10% of
+# a row) stay on the index route.
 DENSE_SHARE = {"bag": 0.5, "aligned": 0.2, "bag_small_batch": 0.125,
-               "aligned_small_batch": 0.125, "aligned_cand": 0.35}
+               "aligned_small_batch": 0.125, "aligned_cand": 0.35,
+               "aligned_bits": 0.15}
 SMALL_BATCH = 8
 CAND_SHARED = 2
+BITS_MIN_QUERIES = 4
 # route: "auto" (per item, by DENSE_SHARE); "dense" and "index" force one
 # route for every item, to measure and test each (K5's "dense" is the
-# every-pair kernel in the full scan, the grouped dense kernel in the
+# every-pair kernel in the full scan, the grouped every-pair kernel in the
 # grouped form; its "index" needs the offset histogram in shared memory);
-# K5's full scan also takes "bits" (the bit-sliced kernel on every row). The
+# K5 also takes "bits" (the bit-sliced kernel on every row or item). The
 # candidate form also takes "grouped" (the grouped form whatever the batch)
 # and "per_item" (the per-item form, auto routes).
 _FORCED = {"dense": -1.0, "index": float("inf")}
@@ -243,6 +251,17 @@ def cand_group_size(aligned: bool, f: int) -> int:
     return max(1, min(CAND_GROUP["bag"], _K4_ITEMS // max(1, -(-f // 32))))
 
 
+def _kept(index: MatchIndex, coefs: int) -> tuple:
+    """The kept coefficient-1 order's pointers for the bit-sliced kernel
+    (nulls for one coefficient); a search of more needs the order."""
+    if index.d1 is None:
+        if coefs > 1:
+            raise ValueError("a search of 2+ coefficients needs the index's "
+                             "kept coefficient-1 order (build_match_index)")
+        return None, None, None
+    return index.d1.data_ptr(), index.pos1.data_ptr(), index.n1.data_ptr()
+
+
 def _cand_grouped(lib, db, rows_q, index, cand, b, f, coefs, tol, aligned,
                   route, votes, stream):
     """K4/K5's grouped candidate form into ``votes [B, k]`` (zeroed). K5
@@ -250,8 +269,8 @@ def _cand_grouped(lib, db, rows_q, index, cand, b, f, coefs, tol, aligned,
     queries: each row one work item of every query, ``votes [B, A]``) or at
     batch 1 (each slot one item)."""
     a, t, c = db.shape
-    share = _FORCED.get(route, DENSE_SHARE[
-        "aligned_cand" if aligned else "bag"])
+    share = _FORCED.get(route, DENSE_SHARE["aligned_cand" if aligned
+                                           else "bag"])
     share_small = _FORCED.get(route, DENSE_SHARE[
         "aligned_small_batch" if aligned else "bag_small_batch"])
     every = b if cand is None else 0
@@ -261,8 +280,8 @@ def _cand_grouped(lib, db, rows_q, index, cand, b, f, coefs, tol, aligned,
     elif aligned and b == 1:
         n_cand, g = cand.shape[1], 1
         work_list = (cand.data_ptr(), None, None, n_cand, votes.data_ptr())
-    else:
-        n_cand, g = cand.shape[1], cand_group_size(aligned, f)
+    else:  # items of 1 to g queries
+        n_cand, g = cand.shape[1], min(b, cand_group_size(aligned, f))
         slots, items, n_items = group_candidates(cand, a, g)
         work_list = (slots.data_ptr(), items.data_ptr(), n_items.data_ptr(),
                      items.shape[0], votes.data_ptr())
@@ -276,24 +295,42 @@ def _cand_grouped(lib, db, rows_q, index, cand, b, f, coefs, tol, aligned,
             *common, n_cand, g, *work_list, routes.data_ptr(), stream)
         build.check("match_votes_cand", rc)
         return
-    # a query whose offset histogram the index kernel cannot hold: the
-    # dense kernel on every item
-    warps = 0 if route == "dense" else lib.tiresias_match_aligned_warps(
-        index.chunk, f, min(b, g))
+    # the index kernel, then the wide kernels over the items it lists, each
+    # by its number of queries (see DENSE_SHARE); a query whose offset
+    # histogram the index kernel cannot hold, and the forced wide routes:
+    # one wide kernel on every item (the bit-sliced one, where a query has
+    # no room in the index kernel)
+    warps = 0 if route in ("dense", "bits") else (
+        lib.tiresias_match_aligned_warps(index.chunk, f, g))
     if warps == 0 and route == "index":
         raise ValueError(
             f"match_votes_aligned_cand: the index route cannot hold the "
             f"offset histogram of a {f}-frame query")
+    # the wide kernels (1 the bit-sliced one, 2 the grouped every-pair one)
+    # that an item may take: items hold 1 to g queries (listed), or g
+    fewest = 1 if cand is not None and b > 1 else g
+    if route == "index":
+        wide = 0
+    elif not warps:
+        wide = 2 if route == "dense" else 1
+    else:
+        wide = ((1 if g >= BITS_MIN_QUERIES else 0)
+                | (2 if fewest < BITS_MIN_QUERIES else 0))
+    share_bits = _FORCED.get(route, DENSE_SHARE["aligned_bits"])
     n_max = work_list[3]
-    work = torch.empty(n_max, dtype=torch.int32, device=db.device)
-    n_work = torch.empty(2, dtype=torch.int64, device=db.device)
+    work = torch.empty(2 * n_max, dtype=torch.int32, device=db.device)
+    n_work = torch.empty(4, dtype=torch.int64, device=db.device)
     rc = lib.tiresias_match_votes_aligned_group(
-        *common, warps, n_cand, g, every, a, *work_list,
+        *common[:5], *_kept(index, coefs), *common[5:], share_bits,
+        BITS_MIN_QUERIES, warps, wide, n_cand, g, every, a, *work_list,
         work.data_ptr(), n_work.data_ptr(),
         routes.data_ptr() + 2 * routes.element_size(), stream)
-    if warps:  # the index kernel, then the grouped dense kernel over its list
+    if warps:
         build.check("match_votes_aligned_cand", rc)
-    build.check("match_votes_aligned_cand_dense", rc)
+    if wide & 1:
+        build.check("match_votes_aligned_cand_bits", rc)
+    if wide & 2:
+        build.check("match_votes_aligned_cand_dense", rc)
 
 
 def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
@@ -302,8 +339,8 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
     a, t, c = db.shape
     if coefs < 1 or coefs > c:
         raise ValueError(f"coefs must be in [1, {c}]")
-    routes_ok = ("auto", *_FORCED) + (
-        _CAND_FORMS if cand is not None else ("bits",) if aligned else ())
+    routes_ok = ("auto", *_FORCED) + (("bits",) if aligned else ()) + (
+        _CAND_FORMS if cand is not None else ())
     if route not in routes_ok:
         raise ValueError(f"route must be one of {', '.join(routes_ok)}")
     tol = float(np.float32(tolerance))
@@ -348,7 +385,7 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
     n_cand = 0 if cand is None else cand.shape[1]
     # the per-item candidate form: forced, or K4's at batch 1, where no row
     # is shared and the grouping would only add its own launches (K5 groups
-    # there too: the grouped dense kernel takes its wide items)
+    # there too: the bit-sliced kernel takes its wide items)
     per_item = cand is not None and (
         route == "per_item" or (route == "auto" and b == 1 and not aligned))
     suffix = "_per_item" if per_item else ""
@@ -394,10 +431,12 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
         # offset histogram the index kernel cannot hold)
         rc = lib.tiresias_match_votes_aligned_bits(
             db.data_ptr(), rows.data_ptr(), index.entries.data_ptr(),
-            index.pos.data_ptr(), index.n_live.data_ptr(), b, a, t, c, coefs,
-            f, index.chunk, index.n_chunks, tol, votes.data_ptr(),
-            routes.data_ptr() + 4 * routes.element_size(), stream)
-        build.check(name + "_bits", rc)
+            index.pos.data_ptr(), index.n_live.data_ptr(),
+            *_kept(index, coefs), b, a, t, c, coefs, f, index.chunk,
+            index.n_chunks, tol,
+            votes.data_ptr(), routes.data_ptr() + 4 * routes.element_size(),
+            stream)
+        build.check("match_votes_aligned_cand_bits", rc)  # its item path
         return votes
     key = ("aligned" if aligned else "bag") + (
         "" if b >= SMALL_BATCH and cand is None else "_small_batch")
@@ -425,7 +464,8 @@ def _votes(db, q, active, use2, tolerance, coefs: int, aligned: bool,
     qmask = torch.empty(a * mw if full else 0, dtype=torch.int32, device=dev)
     row_flag = torch.empty(a if full else 0, dtype=torch.int32, device=dev)
     rc = lib.tiresias_match_votes_aligned(
-        db.data_ptr(), rows.data_ptr(), *common, warps, *cand_args,
+        db.data_ptr(), rows.data_ptr(), *common[:3], *_kept(index, coefs),
+        *common[3:], warps, *cand_args,
         votes.data_ptr(), work.data_ptr(), n_work.data_ptr(),
         qmask.data_ptr(), row_flag.data_ptr(),
         routes.data_ptr() + 2 * routes.element_size(), stream)
@@ -473,8 +513,9 @@ def match_votes_cand(db, q, active, use2, tolerance, cand, coefs: int = 1,
     at those rows. ``route``: ``"auto"`` takes the grouped form (one block
     per row and up to ``CAND_GROUP`` of its queries), K4's per-item form at
     batch 1; ``"grouped"`` and ``"per_item"`` force a form, ``"dense"`` and
-    ``"index"`` a route of the grouped form (tests and measurements).
-    Arguments otherwise as :func:`match_votes_fused`."""
+    ``"index"`` a route of the grouped form, and K5's ``"bits"`` its
+    bit-sliced kernel on every item (tests and measurements). Arguments
+    otherwise as :func:`match_votes_fused`."""
     return _votes(db, q, active, use2, tolerance, coefs, aligned, index,
                   route, cand=cand)
 

@@ -374,8 +374,8 @@ class TierView:
             for i, m in enumerate(maps):
                 out[f"bound{key}[{i}]"] = m
         if self.match_index is not None:
-            for name in ("entries", "pos", "n_live"):
-                out[f"index.{name}"] = getattr(self.match_index, name)
+            for name, x in self.match_index.row_tensors().items():
+                out[f"index.{name}"] = x
         return out
 
 
@@ -846,13 +846,10 @@ class FingerprintStore:
         db = old.db.index_fill(0, idx, PAD_VALUE)
         index = old.match_index
         if index is not None:
-            part = build_match_index(db.index_select(0, idx))
-            index = dataclasses.replace(
-                index,
-                entries=index.entries.index_copy(0, idx, part.entries),
-                pos=index.pos.index_copy(0, idx, part.pos),
-                n_live=index.n_live.index_copy(0, idx, part.n_live),
-            )
+            part = build_match_index(db.index_select(0, idx)).row_tensors()
+            index = dataclasses.replace(index, **{
+                name: x.index_copy(0, idx, part[name])
+                for name, x in index.row_tensors().items()})
         return TierView(
             tier_frames=old.tier_frames, db=db,
             mask=old.mask.index_fill(0, idx, False),
@@ -934,12 +931,10 @@ class FingerprintStore:
                 raise RuntimeError(
                     f"match index chunk {part.chunk}/{part.t_len} != the "
                     f"view's {index.chunk}/{index.t_len}")
-            index = dataclasses.replace(
-                index,
-                entries=_with_rows(index.entries, lo, part.entries),
-                pos=_with_rows(index.pos, lo, part.pos),
-                n_live=_with_rows(index.n_live, lo, part.n_live),
-            )
+            rows = part.row_tensors()
+            index = dataclasses.replace(index, **{
+                name: _with_rows(x, lo, rows[name])
+                for name, x in index.row_tensors().items()})
         seq_dev, ctx_dev = self._extend_keys(tier, old, end, base)
         return TierView(
             tier_frames=tier.t, db=_with_rows(old.db, lo, db_rows),

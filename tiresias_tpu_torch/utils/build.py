@@ -45,11 +45,20 @@ NVCC_FLAGS = (
 # are the prefilters' bound stage (its
 # planes prologue and its votes); the *_cand names are K4/K5's grouped
 # candidate form (the strict/aligned prefilter's rescore) and
-# group_candidates its work list (three kernels, one launch count); the
-# *_per_item names the per-item candidate form (the forced "per_item" route,
-# and batch 1); select_candidates is every prefilter's candidate selection
-# (K-b: one kernel, kb_select_kernel) and rescore_rows the dialplan
-# prefilter's rescore.
+# group_candidates its work list (three kernels, one launch count), with
+# K5's index kernel match_votes_aligned_cand and its wide kernels (also the
+# full scan's below SMALL_BATCH): match_votes_aligned_cand_bits, the
+# bit-sliced kernel over work items (the items of BITS_MIN_QUERIES queries
+# or more that the index kernel lists, the forced route "bits" and queries
+# too long for the index kernel, in the full scan at any batch too), and
+# match_votes_aligned_cand_dense, the grouped every-pair kernel (the items
+# of fewer queries, and the forced route "dense");
+# match_votes_aligned_bits is the bit-sliced kernel over the rows that the
+# full scan's index kernel lists from SMALL_BATCH on; the *_per_item
+# names the per-item candidate form (the forced "per_item" route, and
+# batch 1); select_candidates is every prefilter's candidate
+# selection (K-b: one kernel, kb_select_kernel) and rescore_rows the
+# dialplan prefilter's rescore.
 LAUNCHES: dict[str, int] = {
     "mfcc_rows": 0, "mfcc_framed": 0, "mfcc_rows_dft": 0,
     "mfcc_framed_dft": 0, "lattice_votes": 0,
@@ -59,7 +68,7 @@ LAUNCHES: dict[str, int] = {
     "match_votes_cand": 0, "match_votes_aligned_cand": 0,
     "match_votes_aligned_cand_dense": 0, "match_votes_cand_per_item": 0,
     "match_votes_aligned_cand_per_item": 0,
-    "match_votes_aligned_bits": 0,
+    "match_votes_aligned_bits": 0, "match_votes_aligned_cand_bits": 0,
     "select_candidates": 0, "rescore_rows": 0,
 }
 
@@ -86,8 +95,9 @@ KERNEL_NAMES: dict[str, tuple[str, ...]] = {
         "match_votes_aligned_group_dense_kernel",),
     "match_votes_cand_per_item": ("match_votes_kernel<true>",),
     "match_votes_aligned_cand_per_item": ("match_votes_aligned_kernel<true>",),
-    "match_votes_aligned_bits": ("match_votes_aligned_bits_kernel<false,",
-                                 "match_votes_aligned_bits_kernel<true,"),
+    "match_votes_aligned_bits": ("match_votes_aligned_bits_kernel<true,",),
+    "match_votes_aligned_cand_bits": (
+        "match_votes_aligned_bits_kernel<false,",),
     "select_candidates": ("kb_select_kernel", "kb_select_grid_kernel"),
     "rescore_rows": ("rescore_rows_kernel",),
 }
@@ -132,18 +142,21 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I,
         _P, _P, _P,
     ],
-    # the same with the warps per block before cand, and the work list,
-    # its length, the rows' query masks and row flags after votes
+    # the same with the kept coefficient-1 order (d1, pos1, n1) after
+    # n_live, the warps per block before cand, and the work list, its
+    # length, the rows' query masks and row flags after votes
     "tiresias_match_votes_aligned": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
-        _I, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+        _F, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
     ],
     # chunk, f_len, batch
     "tiresias_match_aligned_warps": [_I, _I, _I],
-    # db, query_rows, entries, pos, n_live, batch, rows, t_len, n_coefs,
-    # coefs, f_len, chunk, n_chunks, tol, votes, routes, stream
+    # db, query_rows, entries, pos, n_live, d1, pos1, n1, batch, rows,
+    # t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol, votes, routes,
+    # stream
     "tiresias_match_votes_aligned_bits": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+        _P, _P, _P,
     ],
     # cand, batch, n_cand, rows, queries per item, counts, slots, items,
     # n_items, stream
@@ -156,12 +169,15 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
         _P, _P, _P, _I, _P, _P, _P,
     ],
-    # the same with the warps per block before n_cand, the full scan's
-    # batch (0 otherwise) and the rows after g, and the work list and its
-    # length after votes
+    # the same with the kept coefficient-1 order (d1, pos1, n1) after
+    # n_live, the bit-sliced kernel's share and its fewest queries an item,
+    # the warps per block and the wide kernels' mask before n_cand, the
+    # full scan's batch (0 otherwise) and the rows after g, and the work
+    # lists and their lengths after votes
     "tiresias_match_votes_aligned_group": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
-        _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _I, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+        _P,
     ],
     # bound, batch, rows, k, the plan (ctas, cooperative, slice, chunk,
     # slots, resident, data_elems), scratch (or null), idx, unselected_max,

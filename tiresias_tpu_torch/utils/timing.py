@@ -116,17 +116,18 @@ def lead_in() -> None:
 
 def launches_per_call(kernels, before: dict, after: dict, reps: int) -> dict:
     """Launches a call of each kernel name in ``kernels`` that a counted
-    wrapper runs (``build.KERNEL_NAMES``): its counter's launches between
-    the snapshots ``before`` and ``after`` of ``build.LAUNCHES`` over
-    ``reps`` calls, where that is a whole number."""
+    wrapper runs (``build.KERNEL_NAMES``): the launches of every counter
+    that names it, between the snapshots ``before`` and ``after`` of
+    ``build.LAUNCHES``, over ``reps`` calls, where that is a whole
+    number."""
     out = {}
-    for counter, parts in build.KERNEL_NAMES.items():
-        n, rest = divmod(after[counter] - before[counter], reps)
-        if rest or n <= 0:
-            continue
-        for name in kernels:
-            if any(p in name for p in parts):
-                out[name] = n
+    for name in kernels:
+        moved = sum(after[c] - before[c]
+                    for c, parts in build.KERNEL_NAMES.items()
+                    if any(p in name for p in parts))
+        n, rest = divmod(moved, reps)
+        if n > 0 and not rest:
+            out[name] = n
     return out
 
 
