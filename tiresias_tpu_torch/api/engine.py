@@ -103,7 +103,7 @@ from tiresias_tpu_torch.store.fingerprint_store import (
     FingerprintStore,
 )
 from tiresias_tpu_torch.utils.device import resolve_device
-from tiresias_tpu_torch.utils.tracing import metrics, phase
+from tiresias_tpu_torch.utils.tracing import metrics, phase, span
 
 log = get_logger(__name__)
 
@@ -344,7 +344,7 @@ class Tiresias:
         """Reconcile store with config + filesystem (app_tiresias.c:230-358),
         checkpointing after each changed context."""
         self._require_owner()
-        with self._sync_mutex, phase("engine.sync"), self._on_device():
+        with self._sync_mutex, span("engine.sync"), self._on_device():
             return sync_all(
                 self.store, self.config, self.checkpoint_dir, self.device,
                 mesh=self._ingest_mesh(),
@@ -356,7 +356,7 @@ class Tiresias:
         ctx = self.store.get_context(context)
         if ctx is None or not ctx["directory"]:
             raise ValueError(f"unknown context {context!r}")
-        with self._sync_mutex, phase("engine.sync"), self._on_device():
+        with self._sync_mutex, span("engine.sync"), self._on_device():
             report = sync_context_audio(
                 self.store, context, ctx["directory"], self.config.dsp,
                 self.device, mesh=self._ingest_mesh(),
@@ -467,7 +467,7 @@ class Tiresias:
         for b in batch_sizes:
             if self._warm_stop.is_set():
                 return False
-            with phase("engine.warmup"):
+            with span("engine.warmup"):
                 self.search_pcm_batch(
                     None, [silence] * b, samplerate, wire_law=law
                 )
@@ -476,7 +476,7 @@ class Tiresias:
     def _warm_kernels(self) -> None:
         """Build (first use in a checkout) and load the kernel library."""
         if self.device.type == "cuda":
-            with phase("engine.warmup.kernels"):
+            with span("engine.warmup.kernels"):
                 build.kernel_library()
 
     def warmup(
@@ -728,33 +728,40 @@ class Tiresias:
         the runner-up audio's votes (the noise operating point)."""
         if not pcms:
             return []
-        coefs, tolerance, lo, hi, trunc_coef1, aligned, mm = (
-            self._resolve_search(
-                coefs, tolerance, freq_ignore_low, freq_ignore_high,
-                trunc_coef1, aligned, min_margin,
-            )
-        )
-        store = self.store  # one snapshot: a follow swap must not split it
-        ctx_id = self._ctx_filter_id(store, context, filter_context)
-        with phase("search.match"), self._on_device():
-            qfp, n_frames = self._query_fingerprints(
-                pcms, samplerate, wire_law
-            )
-            results = self._match(
-                qfp, n_frames, tolerance, lo, hi, ctx_id, coefs=coefs,
-                trunc_coef1=trunc_coef1, aligned=aligned, min_margin=mm,
-                store=store,
-            )
-        metrics.add("search.queries", len(pcms))
+        with phase("search.match"):
+            with span("search.prepare"):
+                coefs, tolerance, lo, hi, trunc_coef1, aligned, mm = (
+                    self._resolve_search(
+                        coefs, tolerance, freq_ignore_low, freq_ignore_high,
+                        trunc_coef1, aligned, min_margin,
+                    )
+                )
+                # one snapshot: a follow swap must not split it
+                store = self.store
+                ctx_id = self._ctx_filter_id(store, context, filter_context)
+                padded, n_valid, rate, law, n_frames = self._pad_queries(
+                    pcms, samplerate, wire_law
+                )
+            with self._on_device():
+                qfp = fingerprint_padded_batch(
+                    padded, rate, self.config.dsp, law=law, n_valid=n_valid,
+                    device=self.device,
+                )
+                results = self._match(
+                    qfp, n_frames, tolerance, lo, hi, ctx_id, coefs=coefs,
+                    trunc_coef1=trunc_coef1, aligned=aligned, min_margin=mm,
+                    store=store,
+                )
+            metrics.add("search.queries", len(pcms))
         return results
 
-    def _query_fingerprints(
+    def _pad_queries(
         self, pcms: list[np.ndarray], samplerate: int, wire_law: str | None
-    ) -> tuple[torch.Tensor, np.ndarray]:
-        """Query batch -> (``qfp [B, F, C]`` on the engine's device, frame
-        counts): int16, float32 and G.711 codes ship as they are and
-        expand on the device (K1/K2 by the routing rule of
-        ``fingerprint_padded_batch``)."""
+    ) -> tuple[np.ndarray, np.ndarray | None, int, str | None, np.ndarray]:
+        """A query batch's host side: ``(padded [B, S], n_valid [B] or
+        None, samplerate, wire_law, n_frames [B])`` after resampling to
+        the configured rate. int16, float32 and G.711 codes stay as they
+        are and expand on the device."""
         pcms, samplerate, wire_law = self._resample_queries(
             [np.asarray(p) for p in pcms], samplerate, wire_law
         )
@@ -765,9 +772,20 @@ class Tiresias:
             np.array([len(p) for p in pcms], np.int32)
             if wire_law is not None else None
         )
+        return padded, n_valid, samplerate, wire_law, n_frames
+
+    def _query_fingerprints(
+        self, pcms: list[np.ndarray], samplerate: int, wire_law: str | None
+    ) -> tuple[torch.Tensor, np.ndarray]:
+        """Query batch -> (``qfp [B, F, C]`` on the engine's device, frame
+        counts); K1/K2 by the routing rule of ``fingerprint_padded_batch``."""
+        with span("search.prepare"):
+            padded, n_valid, rate, law, n_frames = self._pad_queries(
+                pcms, samplerate, wire_law
+            )
         qfp = fingerprint_padded_batch(
-            padded, samplerate, self.config.dsp, law=wire_law,
-            n_valid=n_valid, device=self.device,
+            padded, rate, self.config.dsp, law=law, n_valid=n_valid,
+            device=self.device,
         )
         return qfp, n_frames
 
@@ -796,62 +814,69 @@ class Tiresias:
         batch and the blocks are gathered to ``[B, A_pad]`` in global row
         order; the segment merge and the context filter run on the gathered
         votes (an auto-split audio's rows may lie in several shards)."""
-        mesh = store.mesh
-        f = int(qfp.shape[1])
-        dialplan = coefs == 1 and trunc_coef1 and not aligned
-        if dialplan:
-            band_lo, band_hi = band_thresholds(
-                freq_ignore_low, freq_ignore_high
-            )
-            nf = torch.from_numpy(np.asarray(n_frames, np.int64)).to(
-                self.device)
-            valid = torch.arange(f, device=self.device)[None, :] < nf[:, None]
-            q0 = qfp[..., 0].contiguous()
-        else:
-            q, active, use2 = prepare_query(
-                qfp, n_frames, freq_ignore_low, freq_ignore_high, trunc_coef1
-            )
-            vote = match_votes_fused_aligned if aligned else match_votes_fused
+        with span("search.votes"):
+            mesh = store.mesh
+            f = int(qfp.shape[1])
+            dialplan = coefs == 1 and trunc_coef1 and not aligned
+            if dialplan:
+                band_lo, band_hi = band_thresholds(
+                    freq_ignore_low, freq_ignore_high
+                )
+                nf = torch.from_numpy(np.asarray(n_frames, np.int64)).to(
+                    self.device)
+                valid = (torch.arange(f, device=self.device)[None, :]
+                         < nf[:, None])
+                q0 = qfp[..., 0].contiguous()
+            else:
+                q, active, use2 = prepare_query(
+                    qfp, n_frames, freq_ignore_low, freq_ignore_high,
+                    trunc_coef1,
+                )
+                vote = (match_votes_fused_aligned if aligned
+                        else match_votes_fused)
 
         def votes_of(view) -> torch.Tensor:
-            votes = None
-            if dialplan:
-                if prefilter and self._lattice_pf_ok(view, tolerance, top):
-                    votes = self._lattice_prefiltered(
-                        store, view, q0, valid, tolerance, band_lo, band_hi,
-                        ctx_id, top,
-                    )
-                if votes is None and mesh is None:
-                    votes = lattice_votes(
-                        store.value_map_for(view), q0, valid, tolerance,
-                        band_lo, band_hi,
-                    )
-                elif votes is None:
-                    votes = sharded_lattice_votes(
-                        mesh, store.sharded(view, store.value_map_for), q0,
-                        valid, tolerance, band_lo, band_hi,
-                    )
-            else:
-                if prefilter and self._strict_pf_ok(view, coefs, tolerance,
-                                                    top, aligned):
-                    votes = self._aligned_prefiltered(
-                        store, view, q, active, use2, coefs, tolerance,
-                        ctx_id, top, aligned,
-                    )
-                if votes is None and mesh is None:
-                    votes = vote(view.db, q, active, use2, tolerance, coefs,
-                                 index=store.match_index_for(view))
-                elif votes is None:
-                    votes = sharded_votes_kernels(
-                        mesh, store.sharded(view, lambda s: s.db), q, active,
-                        use2, tolerance, coefs, aligned,
-                        index=store.sharded(view, store.match_index_for),
-                    )
-                votes = self._merge_segments(store, view, votes)
-            if ctx_id is not None:
-                keep = store.ctx_ids_for(view) == ctx_id
-                votes = torch.where(keep[None, :], votes, 0)
-            return votes
+            with span("search.votes"):
+                votes = None
+                if dialplan:
+                    if prefilter and self._lattice_pf_ok(view, tolerance, top):
+                        with span("search.prefilter"):
+                            votes = self._lattice_prefiltered(
+                                store, view, q0, valid, tolerance, band_lo,
+                                band_hi, ctx_id, top,
+                            )
+                    if votes is None and mesh is None:
+                        votes = lattice_votes(
+                            store.value_map_for(view), q0, valid, tolerance,
+                            band_lo, band_hi,
+                        )
+                    elif votes is None:
+                        votes = sharded_lattice_votes(
+                            mesh, store.sharded(view, store.value_map_for), q0,
+                            valid, tolerance, band_lo, band_hi,
+                        )
+                else:
+                    if prefilter and self._strict_pf_ok(view, coefs, tolerance,
+                                                        top, aligned):
+                        with span("search.prefilter"):
+                            votes = self._aligned_prefiltered(
+                                store, view, q, active, use2, coefs,
+                                tolerance, ctx_id, top, aligned,
+                            )
+                    if votes is None and mesh is None:
+                        votes = vote(view.db, q, active, use2, tolerance,
+                                     coefs, index=store.match_index_for(view))
+                    elif votes is None:
+                        votes = sharded_votes_kernels(
+                            mesh, store.sharded(view, lambda s: s.db), q,
+                            active, use2, tolerance, coefs, aligned,
+                            index=store.sharded(view, store.match_index_for),
+                        )
+                    votes = self._merge_segments(store, view, votes)
+                if ctx_id is not None:
+                    keep = store.ctx_ids_for(view) == ctx_id
+                    votes = torch.where(keep[None, :], votes, 0)
+                return votes
 
         return votes_of
 
@@ -946,10 +971,11 @@ class Tiresias:
         the adaptive gate must allow it."""
         k = match_lattice.LATTICE_PREFILTER_K
         rows = self._prefilter_rows(view)
-        if (rows is None or top > k or rows <= 2 * k
-                or not bound_tol_ok(None, tolerance)):
-            return False
-        return self._pf_allowed(view, "lattice")
+        return self._pf_gate(
+            rows is not None and top <= k and rows > 2 * k
+            and bound_tol_ok(None, tolerance)
+            and self._pf_allowed(view, "lattice")
+        )
 
     def _strict_pf_ok(self, view, coefs: int, tolerance: float, top: int,
                       aligned: bool) -> bool:
@@ -957,10 +983,18 @@ class Tiresias:
         with the bound maps' saturation per coefficient."""
         k = match_kernels.PREFILTER_K
         rows = self._prefilter_rows(view)
-        if (rows is None or top > k or rows <= 2 * k
-                or not bound_tol_ok(coefs, tolerance)):
-            return False
-        return self._pf_allowed(view, "aligned" if aligned else "bag")
+        return self._pf_gate(
+            rows is not None and top <= k and rows > 2 * k
+            and bound_tol_ok(coefs, tolerance)
+            and self._pf_allowed(view, "aligned" if aligned else "bag")
+        )
+
+    @staticmethod
+    def _pf_gate(admit: bool) -> bool:
+        """Count a gate's answer for one view search."""
+        metrics.add("search.prefilter_admitted" if admit
+                    else "search.prefilter_refused", 1)
+        return admit
 
     def _lattice_prefiltered(self, store, view, q0, valid, tolerance: float,
                              band_lo: float, band_hi: float,
@@ -1062,37 +1096,51 @@ class Tiresias:
         with self._collectives():
             for view in views:
                 votes = votes_of(view)
-                cols = torch.arange(votes.shape[1], device=self.device)
-                key = cols if len(views) == 1 else store.seq_for(view)
-                m, k, col = top1_by_key(votes, key)
-                stats = [m.to(torch.int64), k, col]
-                if margin:
-                    rest = torch.where(cols[None, :] == col[:, None], -1,
-                                       votes)
-                    stats.append(rest.max(dim=1).values.to(torch.int64))
-                per_view.append(torch.stack(stats))
-        got = torch.stack(per_view).cpu().numpy()  # the one readback
-        if len(views) == 1:
-            win = np.zeros(b, np.int64)
-        else:
-            # maximize votes, then minimize the (globally unique) seq
-            order = np.lexsort((got[:, 1, :], -got[:, 0, :]), axis=0)
-            win = order[0]
-        results: list[SearchResult] = []
-        for i in range(b):
-            v = int(win[i])
-            count = int(got[v, 0, i])
-            fc = int(n_frames[i])
-            if count <= 0 or (
-                margin and count - self._runner_up(got[:, :, i], v)
-                < min_margin * count
-            ):
-                # no votes, or the runner-up audio is too close to call
-                results.append(SearchResult(STATUS_NOTFOUND, fc, 0))
+                with span("search.rank"):
+                    per_view.append(self._top1_stats(
+                        store, view, votes, len(views) == 1, margin))
+        with span("search.readback"):
+            got = torch.stack(per_view).cpu().numpy()  # the one readback
+            # the device tensors go here, inside a span: their frees are
+            # host time too
+            del votes, per_view, votes_of
+        with span("search.results"):
+            if len(views) == 1:
+                win = np.zeros(b, np.int64)
             else:
-                entry = views[v].entries[int(got[v, 2, i])]
-                results.append(self._found(entry, fc, count))
+                # maximize votes, then minimize the (globally unique) seq
+                order = np.lexsort((got[:, 1, :], -got[:, 0, :]), axis=0)
+                win = order[0]
+            results: list[SearchResult] = []
+            for i in range(b):
+                v = int(win[i])
+                count = int(got[v, 0, i])
+                fc = int(n_frames[i])
+                if count <= 0 or (
+                    margin and count - self._runner_up(got[:, :, i], v)
+                    < min_margin * count
+                ):
+                    # no votes, or the runner-up audio is too close to call
+                    results.append(SearchResult(STATUS_NOTFOUND, fc, 0))
+                else:
+                    entry = views[v].entries[int(got[v, 2, i])]
+                    results.append(self._found(entry, fc, count))
         return results
+
+    def _top1_stats(self, store, view, votes: torch.Tensor, alone: bool,
+                    margin: bool) -> torch.Tensor:
+        """One view's ``[3, B]`` int64 (votes, key, row) of each query's
+        top-1 by the D5 tiebreak, and with ``margin`` a fourth row: the best
+        votes outside that row. The key is the row where the view is
+        ``alone``, else its insertion seq."""
+        cols = torch.arange(votes.shape[1], device=self.device)
+        key = cols if alone else store.seq_for(view)
+        m, k, col = top1_by_key(votes, key)
+        stats = [m.to(torch.int64), k, col]
+        if margin:
+            rest = torch.where(cols[None, :] == col[:, None], -1, votes)
+            stats.append(rest.max(dim=1).values.to(torch.int64))
+        return torch.stack(stats)
 
     @staticmethod
     def _merge_segments(store, view, votes: torch.Tensor) -> torch.Tensor:

@@ -46,7 +46,7 @@ from tiresias_tpu_torch.ops.mfcc import (
 from tiresias_tpu_torch.parallel.sharding import sharded_fingerprint
 from tiresias_tpu_torch.store.fingerprint_store import FingerprintStore
 from tiresias_tpu_torch.utils.device import resolve_device
-from tiresias_tpu_torch.utils.tracing import phase
+from tiresias_tpu_torch.utils.tracing import span
 
 log = get_logger(__name__)
 
@@ -199,7 +199,7 @@ def ingest_files(
     def dispatch(samplerate: int, law: str | None, items: list) -> None:
         nonlocal inflight
         pcms = [pcm for _, _, pcm in items]
-        with phase("ingest.fingerprint_batch"):
+        with span("ingest.fingerprint_batch"):
             if mesh is None:
                 fp_dev, n_frames = fingerprint_signals_async(
                     pcms, samplerate, dsp,
@@ -336,7 +336,7 @@ def sync_all(
     sync_contexts(store, config)
     total = SyncReport()
     for ctx in config.contexts:
-        with phase("sync.context"):
+        with span("sync.context"):
             report = sync_context_audio(
                 store, ctx.name, ctx.directory, config.dsp, device, mesh
             )

@@ -26,6 +26,7 @@ from tiresias_tpu_torch.ops.mfcc_kernels import (  # noqa: F401 - re-exported
     safe_log10,
 )
 from tiresias_tpu_torch.utils.device import resolve_device, to_device
+from tiresias_tpu_torch.utils.tracing import span
 
 # Padding value for fingerprint frames that don't exist; far below the
 # 10*log10(2e-42) floor of real values so no tolerance band reaches it.
@@ -89,29 +90,34 @@ def fingerprint_padded_batch(
     Long signals take K2 (framing inside the kernel); short ones, where
     padding the frame count to a whole row tile would waste more than 20%,
     are framed here and take K1, which packs rows densely across the batch.
+    The checks and copies to the device, and the rest, are the spans
+    ``search.upload`` and ``search.fingerprint`` (under
+    ``ingest.fingerprint_batch`` when ingest calls this).
     """
-    dsp = dsp or DspConfig()
-    device = resolve_device(device)
-    if n_valid is not None:
-        n_valid = to_device(np.asarray(n_valid, np.int32), device)
-    consts = device_constants(dsp, int(samplerate), device)
-    pcm_f = mask_valid_samples(
-        to_float_pcm(to_device(pcm, device), law), n_valid
-    ).contiguous()
-    b, s = pcm_f.shape
-    f = s // dsp.hop_size
-    tiles = -(-f // ROW_TILE)
-    if dsp.buf_size == 2 * dsp.hop_size and tiles * ROW_TILE * 5 <= f * 6:
-        out = mfcc_framed(pcm_f, consts, dsp.hop_size, dsp.buf_size)
-    else:
-        frames = frames_from_pcm(pcm_f, dsp.hop_size, dsp.buf_size)
-        out = mfcc_rows(
-            frames.reshape(b * f, dsp.buf_size).contiguous(), consts
-        ).reshape(b, f, dsp.n_coefs)
-    scale = coef_scale_for(dsp)
-    if scale is not None:
-        out = out * torch.from_numpy(scale).to(device)
-    return out
+    with span("search.upload"):
+        dsp = dsp or DspConfig()
+        device = resolve_device(device)
+        if n_valid is not None:
+            n_valid = to_device(np.asarray(n_valid, np.int32), device)
+        pcm = to_device(pcm, device)
+    with span("search.fingerprint"):
+        consts = device_constants(dsp, int(samplerate), device)
+        pcm_f = mask_valid_samples(to_float_pcm(pcm, law),
+                                   n_valid).contiguous()
+        b, s = pcm_f.shape
+        f = s // dsp.hop_size
+        tiles = -(-f // ROW_TILE)
+        if dsp.buf_size == 2 * dsp.hop_size and tiles * ROW_TILE * 5 <= f * 6:
+            out = mfcc_framed(pcm_f, consts, dsp.hop_size, dsp.buf_size)
+        else:
+            frames = frames_from_pcm(pcm_f, dsp.hop_size, dsp.buf_size)
+            out = mfcc_rows(
+                frames.reshape(b * f, dsp.buf_size).contiguous(), consts
+            ).reshape(b, f, dsp.n_coefs)
+        scale = coef_scale_for(dsp)
+        if scale is not None:
+            out = out * torch.from_numpy(scale).to(device)
+        return out
 
 
 def bucket_frames(

@@ -39,7 +39,7 @@ from tiresias_tpu_torch.api.engine import (
 )
 from tiresias_tpu_torch.config import DEF_DURATION_MS
 from tiresias_tpu_torch.utils.logging import get_logger
-from tiresias_tpu_torch.utils.tracing import metrics, phase
+from tiresias_tpu_torch.utils.tracing import metrics, phase, span
 
 log = get_logger(__name__)
 
@@ -373,7 +373,7 @@ class StreamingRecognizer:
             return None
         if window is not None:
             try:
-                with phase("serve.hangup_flush_search"):
+                with span("serve.hangup_flush_search"):
                     result = self.engine.search_pcm(
                         state.context,
                         window,
