@@ -58,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -371,6 +372,13 @@ def phase_build() -> None:
     build.kernel_library()
     say(f"[build] kernels built and loaded in {build.build_seconds():.3f} s "
         f"into {build.build_dir()}")
+    # what ptxas reported of K5's warp-specialised kernel in this build
+    for r in build.ptxas_report("match_votes_aligned_bits_kernel_ws"):
+        nw = re.search(r"ILi(\d+)EE", r["kernel"])
+        say(f"[build] ptxas match_votes_aligned_bits_kernel_ws<"
+            f"{nw.group(1) if nw else '?'}>: {r['registers']} registers at "
+            f"launch, stack frame {r['stack']} B, spill stores "
+            f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
 
 
 def bound(n_bytes: float, n_ops: float, peak: float | None = None) -> dict:
@@ -1485,6 +1493,7 @@ def phase_match_real(device, eng, queries) -> list[dict]:
         fingerprint_padded_batch,
         pad_frames_bucket,
     )
+    from tiresias_tpu_torch.utils import build
 
     (view,) = eng.store.search_views()
     index = eng.store.match_index_for(view)
@@ -1530,6 +1539,38 @@ def phase_match_real(device, eng, queries) -> list[dict]:
                 f"({bd['bound_by']}), {100 * bd['bound_ms'] / t['auto']:.1f}%"
                 f" of it; votes exact on every route")
             res[aligned, b] = dict(t, bound=bd, routes=routes, stats=st)
+    # the warp-specialised kernel K5's full scan lists the wide rows for
+    # (every row of this catalog, B >= SMALL_BATCH): its own device time at
+    # B=64 and B=8 on the auto route, votes exact
+    ws_name = "match_votes_aligned_bits_kernel_ws"
+    ws = {}
+    for b in (64, 8):
+        qq, act, u2 = q[:b], active[:b], use2[:b]
+
+        def call(qq=qq, act=act, u2=u2):
+            return tk.match_votes_fused_aligned(view.db, qq, act, u2,
+                                                STRICT_TOL, 2, index=index)
+
+        build.reset_launch_counts()
+        if not torch.equal(call(), tm.match_votes(
+                view.db, view.mask, qq, act, u2, STRICT_TOL, coefs=2,
+                aligned=True)):
+            fail(f"[kernels] K5 (b) B={b}: the listed rows' kernel != twin")
+        launches = build.LAUNCHES["match_votes_aligned_bits"]
+        ws[b, "routes"] = routes_delta(device, call)
+        if launches != 1 or ws[b, "routes"][4] <= 0:
+            fail(f"[kernels] K5 (b) B={b}: {launches} launches of the listed "
+                 f"rows' kernel and {ws[b, 'routes'][4]} items on it; one "
+                 f"launch a call, with items, expected")
+        # the profiler's split alone: the whole call would count the index
+        # kernel too
+        ws[b] = device_ms(call, 10, names=(ws_name,))[ws_name]
+        if not ws[b]:
+            fail(f"[kernels] K5 (b) B={b}: the profile holds no device time "
+                 f"of {ws_name} ({ws[b]})")
+        say(f"[kernels] K5's warp-specialised kernel (b) B={b}: {ws[b]} ms "
+            f"device (auto route, the index kernel's listed rows); items, "
+            f"frames on the bitsets, entry by entry: {ws[b, 'routes'][4:]}")
     # the twin on the same call, once (CUDA events: it runs seconds)
     a_ev = torch.cuda.Event(enable_timing=True)
     b_ev = torch.cuda.Event(enable_timing=True)
@@ -1541,16 +1582,18 @@ def phase_match_real(device, eng, queries) -> list[dict]:
     r64, r1 = res[True, 64], res[True, 1]
     bd = r64["bound"]
     bb = bits_bound(r64["stats"], bd["bytes"])
-    say(f"[kernels] K5's bit-sliced kernel (b) B=64: {r64['bits']} ms "
-        f"against the design's bound {bb['bound_ms']:.5f} ms "
-        f"({bb['bound_by']}), {100 * bb['bound_ms'] / r64['bits']:.2f}% of "
-        f"it; the index route's bound {bd['bound_ms']:.5f} ms, the bytes "
+    say(f"[kernels] K5's bit-sliced kernels (b) B=64: the listed rows' "
+        f"{ws[64]} ms, the work items' (forced route 'bits') {r64['bits']} "
+        f"ms, against the design's bound {bb['bound_ms']:.5f} ms "
+        f"({bb['bound_by']}), {100 * bb['bound_ms'] / ws[64]:.2f}% / "
+        f"{100 * bb['bound_ms'] / r64['bits']:.2f}% of it; the index "
+        f"route's bound {bd['bound_ms']:.5f} ms, the bytes "
         f"{1e3 * bd['bytes'] / HBM_BYTES_S:.5f} ms")
     out = [{
         "name": "match_votes_aligned_bits", "route": "cuda",
         "source": "tiresias_tpu_torch/csrc/match.cu",
         "replaces": "tiresias_tpu/ops/match_pallas.py:171",
-        "max_abs_err": 0.0, "ms": r64["bits"],
+        "max_abs_err": 0.0, "ms": ws[64],
         "plain_ms": a_ev.elapsed_time(b_ev),
         "plain_timing": "one call of the twin match.match_votes, CUDA events",
         "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
@@ -1567,9 +1610,15 @@ def phase_match_real(device, eng, queries) -> list[dict]:
         "library_ms": None,
         "library": "no single PyTorch call computes tolerance votes",
         "shape": "B=64 x the catalog's 10,112 rows x 1,024 frames x 2 "
-                 "coefs, tol 0.1 (case b; the forced route 'bits', every "
-                 "item; on the auto route it takes the items with wide "
-                 "bands)",
+                 "coefs, tol 0.1 (case b; the warp-specialised kernel on "
+                 "the auto route, over the rows the index kernel lists: "
+                 "every row here)",
+        "ms_b8": ws[8], "routes_b64": list(ws[64, "routes"]),
+        "routes_b8": list(ws[8, "routes"]),
+        "ptxas": build.ptxas_report(ws_name),
+        "bits_route_ms": r64["bits"],
+        "bits_route": "the work items' bit-sliced kernel forced on every "
+                      "(query, row) item",
         "auto_ms": r64["auto"], "index_route_ms": r64["index"],
         "dense_route_ms": r64["dense"],
         "ms_b1": r1["bits"],

@@ -1,16 +1,18 @@
 """The bit-sliced K5 in plain torch (``match_index.aligned_votes_bits_plain``)
 against the JAX package and the port's twins, on the CPU.
 
-``aligned_votes_bits_plain`` states the CUDA kernel's algorithm
-(``csrc/match.cu::match_votes_aligned_bits_kernel``): rank bands of
-coefficients 0 and 1 by bisection on ``fl(d − q)``, block-prefix bitsets of
-each chunk's d0 and d1 orders, hits ``B0 & (B1 | ~use2)``, and the offset
-histogram as bit-sliced counters folded every 255 frames. It must equal
-``match_jax.match_votes(aligned=True)``, the Pallas kernel in interpret mode,
-the twin ``match.match_votes`` and the wrappers' CPU paths
-(``match_votes_fused_aligned``, ``match_votes_cand``) int32 for int32. The
-CUDA kernel is held to the twin and to this statement on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+``aligned_votes_bits_plain`` states the algorithm of the bit-sliced CUDA
+kernel ``match_votes_aligned_bits_kernel_ws`` (``csrc/match.cu``), over the
+rows the full scan's index kernel lists from ``SMALL_BATCH`` queries on and
+over work items (the grouped forms and the forced route "bits"):
+rank bands of coefficients 0 and 1 by bisection on ``fl(d − q)``,
+block-prefix bitsets of each chunk's d0 and d1 orders, hits ``B0 & (B1 |
+~use2)``, and the offset histogram as bit-sliced counters folded every 255
+frames. It must equal ``match_jax.match_votes(aligned=True)``, the Pallas
+kernel in interpret mode, the twin ``match.match_votes`` and the wrappers'
+CPU paths (``match_votes_fused_aligned``, ``match_votes_cand``) int32 for
+int32. The CUDA kernel is held to the twin and to this statement on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import numpy as np

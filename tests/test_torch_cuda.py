@@ -451,6 +451,109 @@ def test_match_kernel_routes_are_counted_and_exact(dev, b):
                                     else 0), moved  # the bit-sliced
 
 
+def _listed_case(dev, seed, t, c, b, f):
+    """Rows and queries for K5's listed launch (the full scan from
+    SMALL_BATCH queries on). Every coefficient of a "near" row is N(mu +
+    shift, 0.05) dB with mu = -10 + its index, so every band of a near
+    query (the same distribution) is wide at tol 0.1 and far ones' are
+    empty: 24 rows near all but the last 6 queries, 4 near the last 6's
+    first 3, 4 near the fourth, 4 near the last 2 (from 16 queries on, rows
+    the index kernel lists with 3, 1 and 2 queries: it lists a row with
+    every query where its first 8 queries' bands are wide); 2 uniform rows
+    (narrow bands: the index route), row 1 empty, row 2 tombstoned (PAD,
+    as the store writes it), rows ragged past a random end, NaN and +-inf
+    d0 and d1 in row 3, NaN query values in query 6. Returns db, q,
+    n_frames and the near (query, row) pairs, which the index kernel lists
+    whatever else it lists."""
+    g = np.random.default_rng(seed)
+    mu = -10.0 + np.arange(c)
+    shifts = [0.0] * 24 + [25.0] * 4 + [-15.0] * 4 + [12.0] * 4
+    db = np.stack([g.normal(mu + s, 0.05, (t, c)) for s in shifts]
+                  + [g.uniform(-30.0, 20.0, (t, c)) for _ in range(2)])
+    ends = g.integers(t // 2, t + 1, len(db))
+    ends[:4] = t
+    db[np.arange(t)[None, :] >= ends[:, None]] = PAD_VALUE
+    db[1] = PAD_VALUE
+    db[2] = PAD_VALUE
+    db[3, 0:40:5, 0] = np.nan
+    db[3, 1:40:5, 0] = np.inf
+    db[3, 2:40:5, 0] = -np.inf
+    db[3, 3:40:4, 1] = np.nan
+    db[3, 4:40:9, 1] = np.inf
+    q_shift = [0.0] * (b - 6) + [25.0] * 3 + [-15.0] + [12.0] * 2
+    q = np.stack([g.normal(mu + s, 0.05, (f, c)) for s in q_shift])
+    q[6, :6, 0] = np.nan
+    q[6, 6:9, 1] = np.nan
+    n_frames = np.array([f - (i % 3) * 2 for i in range(b)], np.int32)
+    near = np.array(shifts + [np.nan] * 2)[None, :] == np.array(
+        q_shift)[:, None]
+    near[:, [1, 2]] = False
+    return (torch.from_numpy(db.astype(np.float32)).to(dev),
+            torch.from_numpy(q.astype(np.float32)).to(dev), n_frames,
+            torch.from_numpy(near).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, t, f, coefs", [
+    (8, 256, 24, 2), (64, 256, 24, 2), (128, 256, 24, 2),
+    (8, 1536, 300, 1), (8, 1536, 300, 2), (8, 1536, 300, 8),
+    (9, 5000, 40, 2), (10, 2048, 300, 2), (11, 256, 24, 8),
+    (16, 256, 24, 2)])
+def test_listed_full_scan_equals_plain_and_twin(dev, b, t, f, coefs):
+    """K5's full scan from SMALL_BATCH queries on: the index kernel lists
+    each wide row with its queries and the warp-specialised bit-sliced
+    kernel serves the list; its votes equal aligned_votes_bits_plain and
+    the twin, int32 for int32. Batches of 8, 64 and 128 on rows whose bands
+    are wide at tol 0.1; offset tiles of one, two and three counter words
+    a lane (t + f - 1 past 1,152 and 2,176 frames), queries of 300 frames
+    (counts folded past 255), three index chunks (5,000 frames), coefs 1, 2
+    and 8; rows listed with 1, 2 and 3 queries (a query split over several
+    count warps), an empty and a tombstoned row, NaN and +-inf values. One
+    launch of each kernel; the bit-sliced kernel serves every item the
+    index kernel lists, the near pairs among them, and every frame of them
+    that has a band once a tile (a single tile at 256 frames: between the
+    near pairs' count from their bands and every pair's)."""
+    db, q, n_frames, near = _listed_case(dev, 7 * b + t + f + coefs, t, 8,
+                                         b, f)
+    listed = int(near.sum())
+    qq, act, use2 = tm.prepare_query(q, n_frames, -1, -1, trunc_coef1=False)
+    index = mi.build_match_index(db)
+    counts = tk.route_counts(dev)
+    before = counts.clone()
+    build.reset_launch_counts()
+    got = tk.match_votes_fused_aligned(db, qq, act, use2, 0.1, coefs,
+                                       index=index)
+    torch.cuda.synchronize()
+    moved = (counts - before).tolist()
+    want = tm.match_votes(db, db[..., 0] != PAD_VALUE, qq, act, use2, 0.1,
+                          coefs=coefs, aligned=True)
+    assert torch.equal(got, want)
+    assert torch.equal(mi.aligned_votes_bits_plain(
+        index, db, qq, act, use2, 0.1, coefs), want)
+    assert (got[:, 1:3] == 0).all() and (got > 0).any()
+    assert build.LAUNCHES["match_votes_aligned"] == 1
+    assert build.LAUNCHES["match_votes_aligned_bits"] == 1
+    assert build.LAUNCHES["match_votes_aligned_cand_bits"] == 0
+    assert moved[4] == moved[3] >= listed, moved
+    assert moved[5] > 0, moved
+    if t + f - 1 <= 1024 + 128:  # one tile: each frame with a band, once
+        lo, hi = mi.band_bounds_plain(index, qq[..., 0], 0.1)
+        band = (hi - lo)[..., 0]
+        wide = band > 32
+        go = act[:, :, None] & (band > 0)
+        if coefs > 1:
+            d1, _, n1 = mi.coef1_order(index)
+            lo1, hi1 = mi.band_bounds_plain(dataclasses.replace(
+                index, entries=torch.stack([d1, d1], -1),
+                n_live=n1.to(torch.int32)), qq[..., 1], 0.1)
+            go &= ~(wide & use2[:, :, None] & (hi1 == lo1)[..., 0])
+        on_near = go & near[:, None, :]
+        assert (int((on_near & wide).sum()) <= moved[5]
+                <= int((go & wide).sum())), moved
+        assert (int((on_near & ~wide).sum()) <= moved[6]
+                <= int((go & ~wide).sum())), moved
+
+
 @pytest.mark.cuda
 def test_match_kernels_exact_at_edge_values(dev):
     """Stored values next to fl(q0 ± tol), ±0.0, ±inf and NaN stored frames,

@@ -458,8 +458,8 @@ def test_kernel_names_cover_every_instantiation():
             found.add(name)
             assert any(name.startswith(p) for p in parts
                        if "<" in p or p == k), name
-    assert "match_votes_aligned_bits_kernel<true, 1>" in found
-    assert "match_votes_aligned_bits_kernel<false, 3>" in found
+    assert "match_votes_aligned_bits_kernel_ws<1, false>" in found
+    assert "match_votes_aligned_bits_kernel_ws<3, true>" in found
 
 
 def test_ctypes_signatures_match_the_entry_points():

@@ -1,4 +1,6 @@
-// Shared device code of the fingerprint kernels (mfcc.cu, mfcc_fft.cu).
+// Shared device code: the fingerprint kernels' MFCC chain (mfcc.cu,
+// mfcc_fft.cu) and the mbarrier helpers of the kernels that wait on one
+// (select.cu, match.cu).
 //
 // Numerics follow tiresias_tpu/ops/mfcc_pallas.py::_mfcc_chain: float32
 // throughout, FP32 FMA only (no TF32, no bf16), and aubio's SAFE_LOG10 floor
@@ -8,6 +10,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace tiresias {
 
@@ -158,6 +161,42 @@ __device__ __forceinline__ void mfcc_chain(
     const int c = o - r * n_coefs;
     out[o] = dct_log_coef(logm + r * n_filters, n_filters, dct_t, n_coefs, c);
   }
+}
+
+// The shared-memory address of p, for PTX operands.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// An mbarrier whose phase completes after `count` arrivals.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (acquire: what the
+// arrivals released is visible after it). A fresh barrier's phase of
+// parity 1 counts as completed, so a producer's first wait on a free slot
+// passes.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival (release: the caller's earlier writes are visible to a
+// thread whose wait sees the phase complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // Opts a kernel into more than 48 KB of dynamic shared memory.

@@ -72,8 +72,15 @@
 //    for it alone.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
+
+using tiresias::mbar_arrive;
+using tiresias::mbar_init;
+using tiresias::mbar_wait;
 
 constexpr float kPad = -1e6f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -83,13 +90,22 @@ constexpr int kMaxSmem = 232448 - 1024;  // dynamic shared memory per block
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
 // Coefficients 2..coefs-1 of stored frame `frame` against query frame f.
-__device__ __noinline__ bool rest_close(const float* frame, const float* qb,
-                                        int f, int f_len, int coefs,
-                                        float tol) {
+__device__ __forceinline__ bool rest_close_inline(const float* frame,
+                                                  const float* qb, int f,
+                                                  int f_len, int coefs,
+                                                  float tol) {
   for (int c = 2; c < coefs; ++c) {
     if (!(fabsf(frame[c] - qb[(size_t)c * f_len + f]) <= tol)) return false;
   }
   return true;
+}
+
+// The same out of line (the kernels with one register budget for every
+// phase keep the rare test out of their loops).
+__device__ __noinline__ bool rest_close(const float* frame, const float* qb,
+                                        int f, int f_len, int coefs,
+                                        float tol) {
+  return rest_close_inline(frame, qb, f, f_len, coefs, tol);
 }
 
 // Entry d lies before query value q's band: fl(d - q) < -tol, or NaN from
@@ -151,16 +167,17 @@ __device__ __forceinline__ void stage_chunk(float2* s_ent,
   }
 }
 
-// The same with cp.async (no registers in between), waited for here; the
-// caller syncs the block.
+// The same with cp.async (no registers in between) by threads tid of nt,
+// waited for here; the caller syncs those threads.
 __device__ __forceinline__ void stage_chunk_async(float2* s_ent,
                                                   unsigned short* s_pos,
                                                   const float2* ent,
                                                   const short* pos,
-                                                  size_t off, int n_stage) {
+                                                  size_t off, int n_stage,
+                                                  int tid, int nt) {
   const float4* ge = reinterpret_cast<const float4*>(ent + off);
   const unsigned* gp = reinterpret_cast<const unsigned*>(pos + off);
-  for (int i = threadIdx.x; i < n_stage / 2; i += blockDim.x) {
+  for (int i = tid; i < n_stage / 2; i += nt) {
     const unsigned se = (unsigned)__cvta_generic_to_shared(
         reinterpret_cast<float4*>(s_ent) + i);
     const unsigned sp = (unsigned)__cvta_generic_to_shared(
@@ -869,7 +886,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int n_even = (n + 1) & ~1;  // entries past n are NaN
     __syncthreads();  // the previous chunk is consumed
     stage_chunk_async(s_ent, s_pos, ent, pos,
-                      ((size_t)a * n_chunks + c) * chunk, n_even);
+                      ((size_t)a * n_chunks + c) * chunk, n_even,
+                      threadIdx.x, blockDim.x);
     __syncthreads();
     const int t0 = c * chunk;
     for (int it = warp; it < n_items_b; it += kWarps) {
@@ -1005,7 +1023,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   __syncthreads();  // s_slot, s_band
   stage_chunk_async(s_ent, s_pos, ent, pos,
-                    ((size_t)a * n_chunks + c0) * chunk, (nl[c0] + 1) & ~1);
+                    ((size_t)a * n_chunks + c0) * chunk, (nl[c0] + 1) & ~1,
+                    threadIdx.x, blockDim.x);
   __syncthreads();
   const bool to_bits = nq >= bits_min;
   const float sh = to_bits ? share_bits
@@ -1088,7 +1107,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (c != staged) {  // uniform
         __syncthreads();  // the previous chunk is consumed
         stage_chunk_async(s_ent, s_pos, ent, pos,
-                          ((size_t)a * n_chunks + c) * chunk, (n + 1) & ~1);
+                          ((size_t)a * n_chunks + c) * chunk, (n + 1) & ~1,
+                          threadIdx.x, blockDim.x);
         __syncthreads();
         staged = c;
       }
@@ -1346,14 +1366,15 @@ __global__ void __launch_bounds__(kThreads5)
 
 // ------------------------------------------------- K5, bit-sliced --- //
 // Replaces the every-pair tests (match_votes_aligned_dense_kernel,
-// match_votes_aligned_group_dense_kernel) as K5's route for wide bands. In
-// the full scan at batch >= SMALL_BATCH the index kernel lists each wide
-// row once, with the mask of its queries, and this kernel serves the list
-// in the same call (kListed); otherwise it serves work items (group_item):
-// the grouped candidate form's items the grouped index kernel lists, each
-// row of the full scan below SMALL_BATCH with all its queries, batch 1's
-// candidate slots, or every item (the forced route "bits", and queries
-// whose offset histogram the index kernel cannot hold). The votes of
+// match_votes_aligned_group_dense_kernel) as K5's route for wide bands:
+// match_votes_aligned_bits_kernel_ws below. In the full scan at batch >=
+// SMALL_BATCH the index kernel lists each wide row once, with the mask of
+// its queries, and the kernel serves the list in the same call; it also
+// serves work items (group_item): the grouped candidate form's items the
+// grouped index kernel lists, each row of the full scan below SMALL_BATCH
+// with all its queries, batch 1's candidate slots, or every item (the
+// forced route "bits", and queries whose offset histogram the index kernel
+// cannot hold). The votes of
 // tiresias_tpu/ops/match_pallas.py::_make_aligned_kernel, exact.
 //
 // What bounds it. Testing every frame pair is issue-bound (~5 instructions
@@ -1365,10 +1386,9 @@ __global__ void __launch_bounds__(kThreads5)
 // adds 32 offsets at once (~500 instructions a (query, frame, row) against
 // 1,024 pair tests).
 //  - Row-stationary: one CTA per row (or work item) stages each index chunk
-//    once for every query it serves (rounds of kBitsWarps queries, a warp
-//    each; below kBitsWarps queries a query's 16-frame batches are split
-//    over several warps, their counters merged by bit-sliced adds at the
-//    end of a tile, so batch 1 keeps the warps busy).
+//    once for every query it serves (rounds of kCountWarps queries, below
+//    kCountWarps a query's 32-frame groups split over several count warps,
+//    see the kernel).
 //  - Rank bands: four bisections at once (bands4) on fl(d - q): coefficient
 //    0's band [lo, hi) of the d0-sorted chunk and coefficient 1's over the
 //    d1 order the index keeps (MatchIndex.d1/pos1/n1, built once per view;
@@ -1388,10 +1408,8 @@ __global__ void __launch_bounds__(kThreads5)
 //    2..coefs-1 are tested exactly on the surviving bits only.
 //  - A band of at most kDirect entries is tested entry by entry instead
 //    (the frame's two lanes, or the whole warp for a band over kPairWalk).
-//    The prefix bitsets are built for every item the index kernel found
-//    wide, and otherwise where a sample of the first queries' bands holds
-//    a wider band; else every band is tested entry by entry.
-//    Either way the votes are exact.
+//    The prefix bitsets are built for every staged chunk. Either way the
+//    votes are exact.
 //  - Offsets without atomics: offsets run in tiles of 1,024 x kNW + kOvf,
 //    so a query of any length is served; a lane owns kNW words of 32
 //    consecutive offsets, funnel-shifts each frame's hit words into place
@@ -1407,7 +1425,6 @@ __global__ void __launch_bounds__(kThreads5)
 // wide bands and loses to the index route on narrow ones, so the index
 // kernel hands it the former; the routes of the grouped form and of the
 // full scan below SMALL_BATCH are ops/match_kernels.py's DENSE_SHARE.
-constexpr int kBitsWarps = 8;
 constexpr int kBatch = 16;                   // frames a warp takes at once
 constexpr int kPlanes = 8;                   // counts < 256 between folds
 constexpr int kFoldAt = (1 << kPlanes) - 1;  // inputs between folds
@@ -1415,52 +1432,6 @@ constexpr int kDirect = 32;                  // widest band tested entry-wise
 constexpr int kPairWalk = 16;  // longest band a frame's two lanes walk
 constexpr int kIntMax = 0x7fffffff;
 constexpr int kOvf = 128;  // a tile's offsets past its counters' words
-
-// Dynamic shared memory of the bit-sliced kernel, in bytes (host and
-// device agree on it): the staged chunk (entries and times), its kept d1
-// order (values and times), each time's d0,
-// both prefix bitsets, and per warp kBatch rows of a chunk's words (a
-// batch's hits, padded to nwc + 1 words against bank conflicts), which are
-// also the merge area at a tile's end; per query of a round the int counts
-// of its tile's last kOvf offsets; for queries of more than kFoldAt frames,
-// per warp a tile's fold counts.
-struct BitsSmem {
-  int nwc, lg, nb, rstride, wstride;
-  long long ent, pos0, d1, pos1, d0t, p0, p1, wbuf, ovf, fold, total;
-  __host__ __device__ BitsSmem(int chunk, int nw, int warps, int folds) {
-    nwc = (chunk + 31) / 32;
-    lg = chunk <= 1024 ? 3 : 5;
-    nb = (chunk + (1 << lg) - 1) >> lg;
-    rstride = nwc + 1;
-    wstride = kBatch * rstride > kPlanes * 32 * nw ? kBatch * rstride
-                                                    : kPlanes * 32 * nw;
-    long long o = 0;
-    ent = o;
-    o += 8LL * chunk;
-    pos0 = o;
-    o += 2LL * chunk;
-    o = (o + 15) & ~15LL;
-    d1 = o;
-    o += 4LL * chunk;
-    pos1 = o;
-    o += 2LL * chunk;
-    o = (o + 15) & ~15LL;
-    d0t = o;
-    o += 4LL * chunk;
-    o = (o + 15) & ~15LL;
-    p0 = o;
-    o += 4LL * (nb + 1) * rstride;
-    p1 = o;
-    o += 4LL * (nb + 1) * rstride;
-    wbuf = o;
-    o += 4LL * warps * wstride;
-    ovf = o;
-    o += 4LL * warps * kOvf;
-    fold = o;
-    o += folds ? 4096LL * warps * nw : 0;
-    total = o;
-  }
-};
 
 // Entry d lies after query value q's band: fl(d - q) > tol, or NaN other
 // than from d = q = -inf (those entries sort first, before the band).
@@ -1470,42 +1441,30 @@ __device__ __forceinline__ bool after_band(float d, float q, float tol) {
 }
 
 // The rank bands [lo0, hi0) of q0 in e0[0, n0) (the d0 order) and [lo1,
-// hi1) of q1 in e1[0, n1) (the d1 order; n1 0 skips it): four bisections
-// of [0, n) at once, lo the entries before the band, hi those not after it
-// (both prefixes), so each step's four probes are independent and their
+// hi1) of q1 in e1[0, n1) (the d1 order; n1 0 skips it), lo the entries
+// before the band, hi those not after it (both prefixes): four searches at
+// once by steps of powers of two down from `top` (bands_top), each bound the
+// length of the prefix its predicate holds on, in a fixed number of steps
+// with no branch, so each step's four probes are independent and their
 // latencies overlap. The bands equal band_lo/band_hi's.
 __device__ __forceinline__ void bands4(const float2* e0, int n0, float q0,
                                        const float* e1, int n1, float q1,
-                                       float tol, int& lo0, int& hi0,
+                                       float tol, int top, int& lo0, int& hi0,
                                        int& lo1, int& hi1) {
-  int l0 = n0, h0 = n0, l1 = n1, h1 = n1;  // remaining lengths
   lo0 = hi0 = lo1 = hi1 = 0;
-  while ((l0 | h0 | l1 | h1) > 0) {
-    if (l0 > 0) {
-      const int half = l0 >> 1;
-      const bool p = before_band(e0[lo0 + half].x, q0, tol);
-      lo0 = p ? lo0 + half + 1 : lo0;
-      l0 = p ? l0 - half - 1 : half;
-    }
-    if (h0 > 0) {
-      const int half = h0 >> 1;
-      const bool p = !after_band(e0[hi0 + half].x, q0, tol);
-      hi0 = p ? hi0 + half + 1 : hi0;
-      h0 = p ? h0 - half - 1 : half;
-    }
-    if (l1 > 0) {
-      const int half = l1 >> 1;
-      const bool p = before_band(e1[lo1 + half], q1, tol);
-      lo1 = p ? lo1 + half + 1 : lo1;
-      l1 = p ? l1 - half - 1 : half;
-    }
-    if (h1 > 0) {
-      const int half = h1 >> 1;
-      const bool p = !after_band(e1[hi1 + half], q1, tol);
-      hi1 = p ? hi1 + half + 1 : hi1;
-      h1 = p ? h1 - half - 1 : half;
-    }
+  for (int step = top; step > 0; step >>= 1) {
+    const int a = lo0 + step, b = hi0 + step, c = lo1 + step, d = hi1 + step;
+    if (a <= n0 && before_band(e0[a - 1].x, q0, tol)) lo0 = a;
+    if (b <= n0 && !after_band(e0[b - 1].x, q0, tol)) hi0 = b;
+    if (c <= n1 && before_band(e1[c - 1], q1, tol)) lo1 = c;
+    if (d <= n1 && !after_band(e1[d - 1], q1, tol)) hi1 = d;
   }
+}
+
+// bands4's `top` for orders of n0 and n1 entries: the largest power of two
+// at most max(n0, n1), or 1.
+__device__ __forceinline__ int bands_top(int n0, int n1) {
+  return 1 << (31 - __clz(max(n0, n1) | 1));
 }
 
 // Carry-save adder: l + a + b = 2 * (returned carry) + l (bitwise).
@@ -1558,6 +1517,23 @@ struct Counters {
     n[j] += 8;
   }
 
+  // Four inputs: two carry-save adders into planes 0 and 1, then a ripple
+  // from the twos.
+  __device__ __forceinline__ void add4(int j, const unsigned (&x)[4]) {
+    unsigned* p = planes[j];
+    const unsigned a = csa(p[0], x[0], x[1]);
+    const unsigned b = csa(p[0], x[2], x[3]);
+    ripple(j, csa(p[1], a, b), 2);
+    n[j] += 4;
+  }
+
+  __device__ __forceinline__ void add(int j, const unsigned (&x)[8]) {
+    add8(j, x);
+  }
+  __device__ __forceinline__ void add(int j, const unsigned (&x)[4]) {
+    add4(j, x);
+  }
+
   __device__ __forceinline__ void flush() {
 #pragma unroll
     for (int j = 0; j < kNW; ++j) n[j] = 0;
@@ -1606,15 +1582,17 @@ struct Counters {
 
 // The kept coefficient-1 order of chunk `off` (ops/match_index.py): n
 // (even) values as float2 pairs and their times as u32 pairs, cp.async
-// issued here and waited for by the next stage_chunk_async.
+// issued here by threads tid of nt and waited for by the next
+// stage_chunk_async.
 __device__ __forceinline__ void stage_kept_async(float* s_d1,
                                                  unsigned short* s_pos1,
                                                  const float* d1k,
                                                  const short* pos1k,
-                                                 size_t off, int n) {
+                                                 size_t off, int n, int tid,
+                                                 int nt) {
   const float2* gd = reinterpret_cast<const float2*>(d1k + off);
   const unsigned* gp = reinterpret_cast<const unsigned*>(pos1k + off);
-  for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
+  for (int i = tid; i < n / 2; i += nt) {
     const unsigned sd = (unsigned)__cvta_generic_to_shared(
         reinterpret_cast<float2*>(s_d1) + i);
     const unsigned sp = (unsigned)__cvta_generic_to_shared(
@@ -1630,14 +1608,14 @@ __device__ __forceinline__ void stage_kept_async(float* s_d1,
 // rows 1..nb <= 128; columns nwc.. lie (nb + 1) * rs words on, in the
 // second order's bitsets): a warp takes two columns at a time, each lane
 // ORs down its run of <= 4 rows, a shuffle scan ORs in the runs before it.
-// Block-wide, synced.
+// By the warps of threads tid of nt; the caller syncs them after.
 __device__ __forceinline__ void prefix_or(unsigned* p, int cols, int nwc,
-                                          int nb, int rs) {
+                                          int nb, int rs, int tid, int nt) {
   const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
+  const int warps = nt >> 5;
   const int per = (nb + 31) >> 5;  // rows a lane
   const int k0 = 1 + lane * per;
-  for (int c0 = 2 * (threadIdx.x >> 5); c0 < cols; c0 += 2 * warps) {
+  for (int c0 = 2 * (tid >> 5); c0 < cols; c0 += 2 * warps) {
     unsigned v[2][4], acc[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1674,20 +1652,205 @@ __device__ __forceinline__ void prefix_or(unsigned* p, int cols, int nwc,
       }
     }
   }
-  __syncthreads();
 }
 
-// kListed: the rows of `work` (n_work[0] of them) with the queries of their
-// masks (the full scan at batch >= SMALL_BATCH). Otherwise one block per
-// work item of group_item's: a listed item of the grouped candidate form, a
-// batch-1 candidate slot, or a row of the full scan with all `every` of its
-// queries; with `work`, the items the grouped index kernel listed
-// (n_work[0] of them). d1k/pos1k/n1k: the index's kept coefficient-1 order
-// (read where coefs > 1). sample 0 builds the bitsets for every chunk,
-// else a sample of the first queries' bands decides.
-template <bool kListed, int kNW>
-__global__ void __launch_bounds__(kBitsWarps * 32, kNW == 1 ? 3 : 2)
-    match_votes_aligned_bits_kernel(
+// The prefix bitsets of a staged chunk, by threads tid of nt (`sync` syncs
+// them; synced on return): each entry's time into its block's row of s_p0
+// (the d0 order) or, with two, s_p1 (the kept d1 order, which follows s_p0),
+// then an OR down the rows, so bit b of P[k][w] is rank(32 w + b) < k g;
+// with two, each live time's d0 into s_d0t (coefficient 1's band edges test
+// it).
+template <class Sync>
+__device__ __forceinline__ void build_bitsets(
+    unsigned* s_p0, float* s_d0t, const float2* s_ent,
+    const unsigned short* s_pos0, const unsigned short* s_pos1, int n0,
+    int n1, bool two, int nwc, int lg, int nb, int rs, int tid, int nt,
+    Sync sync) {
+  unsigned* s_p1 = s_p0 + (nb + 1) * rs;
+  const int ncf = two ? 2 : 1;
+  const int m1 = two ? n1 : 0;
+  uint4* pz = reinterpret_cast<uint4*>(s_p0);
+  for (int i = tid; i < ncf * (nb + 1) * rs / 4; i += nt) {
+    pz[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = (ncf * (nb + 1) * rs & ~3) + tid; i < ncf * (nb + 1) * rs;
+       i += nt) {
+    s_p0[i] = 0u;
+  }
+  sync();
+  for (int r = tid; r < n0 + m1; r += nt) {
+    const bool one = r >= n0;
+    const int rr = one ? r - n0 : r;
+    const int t = one ? s_pos1[rr] : s_pos0[rr];
+    atomicOr((one ? s_p1 : s_p0) + ((rr >> lg) + 1) * rs + (t >> 5),
+             1u << (t & 31));
+    if (two && !one) s_d0t[t] = s_ent[rr].x;
+  }
+  sync();
+  prefix_or(s_p0, ncf * nwc, nwc, nb, rs, tid, nt);
+  sync();
+}
+
+// ------------------------------ K5, bit-sliced, warp-specialised --- //
+// The bit-sliced algorithm above, one CTA a row: a row the full scan's
+// index kernel lists from SMALL_BATCH on (work[0, n_work[0]), with the
+// mask of its queries qmask[a * mw ..]), or (qmask null) a work item of
+// group_item's. It replaces tiresias_tpu/ops/match_pallas.py::
+// _make_aligned_kernel's pair tests on wide bands, with its votes exact.
+//
+// What bounds it on the H100. Not bytes (a row's index is read once for all
+// its queries) and not the issue rate alone: per 16-frame batch a warp runs
+// a few hundred dependent instructions on shared memory (bisections, block
+// words, edge entries with shared atomics, bit-sliced adds). A kernel with
+// one such chain a warp (before this one) issued about 1.6 instructions a
+// cycle an SM and spent 9% of its warps' time at a block barrier between
+// rounds; its 80 registers held the bands' state and the counters
+// together, and spilled (PERF.md section 5).
+//
+// What the role split does. Each CTA stages a row once (the chunk, the kept
+// coefficient-1 order, both prefix bitsets) and runs two roles on it:
+//  - kCountWarps count warps (a warpgroup) hold a query each: a round's
+//    queries, or, with fewer queries than count warps, a query's 32-frame
+//    groups in turn over several, their planes merged by bit-sliced adds
+//    at a tile's end. Each waits for its ring's slots in order, adds its
+//    frames' hit words (eight frames at a time, one word a lane, no shift)
+//    into bit-sliced counters (the tile's last kOvf offsets into int
+//    counts), frees each slot by its empty mbarrier, takes the max at a
+//    tile's end and writes the vote.
+//  - Two band warps a count warp (two warpgroups) find its groups' rank
+//    bands (bisections by powers of two), build each 16-frame batch's hit
+//    rows (block words F0 & F1, the edge entries, coefficients 2..) into
+//    the ring's next slot, each row already shifted to the frame's offsets
+//    so that a count warp reads whole words, and signal its full mbarrier.
+//    The two take the groups in turn, each always the same pairs of slots,
+//    so each slot's uses are filled in order and a wait on a slot's parity
+//    cannot pass a use early.
+// So the band warps run ahead by the ring's depth (two groups), each count
+// warp and its band warps run as a pipeline of their own with no block
+// barrier between rounds, the shifts move to the band warps, and neither
+// role holds the other's state: setmaxnreg gives the band role 88 registers
+// and the count role 64, and neither spills.
+constexpr int kBandWarps = 8;   // two warpgroups
+constexpr int kCountWarps = 4;  // one warpgroup
+constexpr int kWsThreads = 32 * (kBandWarps + kCountWarps);
+// Registers a thread with one counter word a lane (kNW 1): 80 at launch
+// (65,536 over two CTAs of kWsThreads); then the band warps take 88 and the
+// count warps give up 16 for them (measured, PERF.md: the band role spills
+// below 88, the count role's planes and eight frames fit in 64). With more
+// words a lane (longer rows or queries) one CTA an SM gets 168 for both.
+constexpr int kWsRegs = 65536 / (2 * kWsThreads) / 8 * 8;
+constexpr int kBandRegs = 88;
+constexpr int kCountRegs = 64;
+static_assert(kBandWarps * (kWsRegs - kBandRegs) +
+                      kCountWarps * (kWsRegs - kCountRegs) >=
+                  0,
+              "one role takes what the other gives up");
+
+// Sets this warpgroup's registers a thread to kRegs (kLaunch at launch):
+// setmaxnreg.dec gives registers back to the CTA's pool, setmaxnreg.inc
+// waits for them.
+template <int kRegs, int kLaunch>
+__device__ __forceinline__ void set_regs() {
+  if constexpr (kRegs < kLaunch) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+  } else if constexpr (kRegs > kLaunch) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+  }
+}
+
+// CTAs an SM and registers a thread (at launch, the band role's, the count
+// role's) of the instantiation with kNW counter words a lane.
+template <int kNW>
+struct WsRegs {
+  static constexpr int kCtas = kNW == 1 ? 2 : 1;
+  static constexpr int kLaunch = 65536 / (kCtas * kWsThreads) / 8 * 8;
+  static constexpr int kBand = kNW == 1 ? kBandRegs : kLaunch;
+  static constexpr int kCount = kNW == 1 ? kCountRegs : kLaunch;
+};
+static_assert(kBandWarps == 2 * kCountWarps, "two band warps a count warp");
+constexpr int kHdr = 1;   // a slot's header: the mask of its frames with rows
+constexpr int kRing = 4;  // slots a count warp: two groups
+
+// Dynamic shared memory of the warp-specialised kernel, in bytes, laid out
+// for the largest chunk of its class (kBig: chunks of more than 1,024
+// frames), so every offset and stride is a constant: the staged chunk and
+// kept order and both prefix bitsets (the second's rows of kPs words after
+// the first's rows of the chunk's own count of blocks); each ring slot's
+// full and empty mbarriers; per count warp its tile's kOvf int counts, a
+// ring of kRing slots (a header and kBatch rows of hit words) and its
+// planes for the merge at a tile's end; each of the row's queries' first
+// offset and vote slot, in order (32 mw of each); for queries of more than
+// kFoldAt frames, per count warp its fold counts. The offsets that the
+// roles' loops read are constants, so no register holds them.
+__host__ __device__ constexpr long long up16(long long o) {
+  return (o + 15) & ~15LL;
+}
+template <bool kBig>
+struct WsLayout {
+  static constexpr int kChunk = kBig ? kMaxChunk : 1024;
+  static constexpr int kLg = kBig ? 5 : 3;
+  static constexpr int kNb = kChunk >> kLg;
+  // a hit row's words: a zero word each side of the chunk's, and one more
+  // (an odd stride: the two lanes of each of 16 frames hit 32 banks)
+  static constexpr int kRs = kChunk / 32 + 3;
+  static constexpr int kSlot = kHdr + kBatch * kRs;  // a slot's words
+  static constexpr int kPs = kChunk / 32 + 1;  // a prefix bitset row's words
+  static constexpr long long kEnt = 0;
+  static constexpr long long kPos0 = kEnt + 8LL * kChunk;
+  static constexpr long long kD1 = up16(kPos0 + 2LL * kChunk);
+  static constexpr long long kPos1 = kD1 + 4LL * kChunk;
+  static constexpr long long kD0t = up16(kPos1 + 2LL * kChunk);
+  static constexpr long long kP0 = up16(kD0t + 4LL * kChunk);
+  static constexpr long long kBars = up16(kP0 + 8LL * (kNb + 1) * kPs);
+  static constexpr long long kOvfs = kBars + 16LL * kCountWarps * kRing;
+  static constexpr long long kRingAt = kOvfs + 4LL * kCountWarps * kOvf;
+  static constexpr long long kMerge =
+      kRingAt + 4LL * kCountWarps * kRing * kSlot;
+  __host__ __device__ static constexpr long long first_at(int nw) {
+    return kMerge + 4LL * kCountWarps * nw * kPlanes * 32;
+  }
+  // then the fold counts, after the row's queries' first offsets and vote
+  // slots (32 mw each)
+  __host__ __device__ static constexpr long long fold_at(int nw, int mw) {
+    return first_at(nw) + 4LL * 64 * mw;
+  }
+  __host__ __device__ static constexpr long long total(int nw, bool fold,
+                                                       int mw) {
+    return fold_at(nw, mw) + (fold ? 4096LL * kCountWarps * nw : 0);
+  }
+};
+
+// Syncs the band warps (named barrier 1).
+struct BandSync {
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kBandWarps * 32) : "memory");
+  }
+};
+
+// Syncs the count warps (named barrier 2).
+__device__ __forceinline__ void count_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kCountWarps * 32) : "memory");
+}
+
+// The first tile offset of the round of the row's queries [r0, r0 + nr):
+// the first offset any of them reaches (s_first: each query's, from its
+// last active frame) rounded down to a word, or n_off where none has an
+// active frame.
+__device__ __forceinline__ int round_first(const int* s_first, int r0,
+                                           int nr, int n_off) {
+  int first = kIntMax;
+  for (int k = 0; k < nr; ++k) first = min(first, s_first[r0 + k]);
+  return first == kIntMax ? n_off : first & ~31;
+}
+
+// Count warps a query of a round of nr queries: a power of two.
+__device__ __forceinline__ int count_per_query(int nr) {
+  return 1 << (31 - __clz(kCountWarps / nr));
+}
+
+template <int kNW, bool kBig>
+__global__ void __launch_bounds__(kWsThreads, WsRegs<kNW>::kCtas)
+    match_votes_aligned_bits_kernel_ws(
         const float* __restrict__ db, const float* __restrict__ q,
         const float2* __restrict__ ent, const short* __restrict__ pos,
         const int* __restrict__ n_live, const float* __restrict__ d1k,
@@ -1697,125 +1860,396 @@ __global__ void __launch_bounds__(kBitsWarps * 32, kNW == 1 ? 3 : 2)
         const unsigned long long* __restrict__ n_work,
         const unsigned* __restrict__ qmask, int mw, int every, int n_cand,
         const int* __restrict__ slots, const int4* __restrict__ items,
-        const int* __restrict__ n_items, int sample,
-        int* __restrict__ votes, unsigned long long* __restrict__ routes) {
+        const int* __restrict__ n_items, int* __restrict__ votes,
+        unsigned long long* __restrict__ routes) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_slot[kBitsWarps];
-  __shared__ int s_flag, s_nq, s_scan_w, s_ofirst;
-  __shared__ unsigned s_scan_bits;
   __shared__ unsigned long long s_count[3];
-  // offsets per tile: kNW words of bit-sliced counters a lane, then kOvf
-  // offsets few frames reach (hits near a chunk's end), counted in ints
-  constexpr int kOT = 1024 * kNW + kOvf;
-  const int warps = kBitsWarps;
+  constexpr int kOT = 1024 * kNW + kOvf;  // offsets per tile
+  // frames a count warp adds at once: eight with one counter word a lane,
+  // four with more (registers for the planes)
+  constexpr int kGrp = kNW == 1 ? 8 : 4;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // the block's row a and its nq queries: a listed row's, its mask's set
+  // bits; or a work item's (blocks past the list or the items leave)
   if (work && (unsigned long long)blockIdx.x >= *n_work) return;  // uniform
-  int4 wi = make_int4(0, 0, 0, 0);
-  if (!kListed) {
-    int i = work ? work[blockIdx.x] : (int)blockIdx.x;
-    if (!work && items && i >= *n_items) return;  // uniform
-    wi = group_item(items, slots, i, every, rows);
-    if (wi.z == 0) return;  // a row id outside [0, rows): the vote stays 0
-  }
-  const int a = kListed ? work[blockIdx.x] : wi.x;
-  int nq = wi.z;
-  if (kListed) {
-    if (warp == 0) {
-      int c = 0;
-      for (int i = lane; i < mw; i += 32) {
-        c += __popc(qmask[(size_t)a * mw + i]);
-      }
-      c = __reduce_add_sync(kFull, c);
-      if (lane == 0) {
-        s_nq = c;
-        s_scan_w = -1;
-        s_scan_bits = 0u;
-      }
-    }
-    __syncthreads();
-    nq = s_nq;
-  }
+  const int i_item = work ? work[blockIdx.x] : (int)blockIdx.x;
+  if (!qmask && !work && items && i_item >= *n_items) return;  // uniform
+  const int4 wi = qmask ? make_int4(i_item, 0, 0, 0)
+                        : group_item(items, slots, i_item, every, rows);
+  const int a = wi.x;
+  const unsigned* qm = qmask ? qmask + (size_t)a * mw : nullptr;
+  int cnt = (qm || lane) ? 0 : wi.z;
+  for (int i = lane; qm && i < mw; i += 32) cnt += __popc(qm[i]);
+  // a reduction, so the count is known uniform (a uniform register holds it)
+  const int nq = __reduce_add_sync(kFull, cnt);
+  if (nq == 0) return;  // uniform: no query (votes stay 0)
   const int* nl = n_live + (size_t)a * n_chunks;
   {
     int live = 0;
     for (int c = lane; c < n_chunks; c += 32) live |= nl[c];
     if (!__syncthreads_or(live)) return;  // no stored frame: votes stay 0
   }
-  const BitsSmem L(chunk, kNW, warps, fold);
-  float2* s_ent = reinterpret_cast<float2*>(smem + L.ent);
-  unsigned short* s_pos0 = reinterpret_cast<unsigned short*>(smem + L.pos0);
-  float* s_d1 = reinterpret_cast<float*>(smem + L.d1);
-  unsigned short* s_pos1 = reinterpret_cast<unsigned short*>(smem + L.pos1);
-  float* s_d0t = reinterpret_cast<float*>(smem + L.d0t);  // d0 by time
-  unsigned* s_p0 = reinterpret_cast<unsigned*>(smem + L.p0);
-  unsigned* s_p1 = reinterpret_cast<unsigned*>(smem + L.p1);
-  const int nwc = L.nwc, lg = L.lg, nb = L.nb;
-  unsigned* wbase = reinterpret_cast<unsigned*>(smem + L.wbuf);
-  const int rs = L.rstride;
-  unsigned* rows_a = wbase + (size_t)warp * L.wstride;  // [kBatch][rs] hits
-  int* s_ovf = reinterpret_cast<int*>(smem + L.ovf);
-  for (int i = threadIdx.x; i < warps * kOvf; i += blockDim.x) s_ovf[i] = 0;
+  using Lay = WsLayout<kBig>;
+  constexpr int rs = Lay::kRs;
+  const int nwc = (chunk + 31) / 32;
+  unsigned* s_ring = reinterpret_cast<unsigned*>(smem + Lay::kRingAt);
+  int* s_ovf = reinterpret_cast<int*>(smem + Lay::kOvfs);
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(smem + Lay::kBars);
+  uint64_t* s_empty = s_full + kCountWarps * kRing;
+  for (int i = threadIdx.x; i < kCountWarps * kOvf; i += kWsThreads) {
+    s_ovf[i] = 0;
+  }
   if (fold) {
-    int* fb = reinterpret_cast<int*>(smem + L.fold);
-    for (int i = threadIdx.x; i < warps * kNW * 1024; i += blockDim.x) {
+    int* fb = reinterpret_cast<int*>(smem + Lay::fold_at(kNW, mw));
+    for (int i = threadIdx.x; i < kCountWarps * kNW * 1024; i += kWsThreads) {
       fb[i] = 0;
     }
   }
+  {  // the rows' zero words stay zero: no band warp writes them
+    uint4* z = reinterpret_cast<uint4*>(s_ring);
+    for (int i = threadIdx.x; i < kCountWarps * kRing * Lay::kSlot / 4;
+         i += kWsThreads) {
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // the row's queries in order: each one's vote slot (query b's slot b *
+  // n_cand + the row's column, n_cand the rows for a listed row), then its
+  // first offset, F-1 less its last active frame (kIntMax with none), a
+  // warp a query
+  int* s_first = reinterpret_cast<int*>(smem + Lay::first_at(kNW));
+  int* s_slot = s_first + 32 * mw;
+  if (qm) {
+    for (int b = threadIdx.x; b < 32 * mw; b += kWsThreads) {
+      const unsigned m = qm[b >> 5];
+      if (!((m >> (b & 31)) & 1u)) continue;
+      int r = __popc(m & ((1u << (b & 31)) - 1u));
+      for (int i = 0; i < (b >> 5); ++i) r += __popc(qm[i]);
+      s_slot[r] = b * rows + a;
+    }
+  } else {
+    for (int r = threadIdx.x; r < nq; r += kWsThreads) {
+      s_slot[r] = item_slot(items, slots, wi, r, n_cand);
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < nq; r += kWsThreads / 32) {
+    const float* act = q + (size_t)(s_slot[r] / n_cand) * (coefs + 2) *
+                               f_len +
+                       (size_t)(coefs + 1) * f_len;
+    int last = -1;
+    for (int f0 = (f_len - 1) & ~31; f0 >= 0 && last < 0; f0 -= 32) {
+      const int f = f0 + lane;
+      const unsigned m = __ballot_sync(kFull, f < f_len && act[f] > 0.f);
+      if (m) last = f0 + 31 - __clz(m);
+    }
+    if (lane == 0) s_first[r] = last >= 0 ? f_len - 1 - last : kIntMax;
+  }
   if (threadIdx.x < 3) s_count[threadIdx.x] = 0ull;
-  const bool two = coefs > 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kCountWarps * kRing; ++i) {
+      mbar_init(s_full + i, 1);   // the band warp's lane 0
+      mbar_init(s_empty + i, 1);  // the count warp's lane 0
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
   const size_t q_len = (size_t)(coefs + 2) * f_len;
-  const float* row = db + (size_t)a * t_len * n_coefs;
   const int n_off = t_len + f_len - 1;
-  unsigned long long n_bits = 0, n_direct = 0;
-  int staged = -1, n0 = 0, n1 = 0;
-  bool bits = false;
-  for (int r0 = 0; r0 < nq; r0 += warps) {
-    const int nr = min(warps, nq - r0);
-    const int wpq = warps / nr;  // warps per query of this round
-    const int qr = warp / wpq, sub = warp % wpq;
-    const bool mine = qr < nr;
-    // this round's queries: the mask's next set bits, or the item's slots
-    __syncthreads();  // the last round's are read
-    if (kListed && threadIdx.x == 0) {
-      int w = s_scan_w;
-      unsigned m = s_scan_bits;
-      for (int k = 0; k < nr; ++k) {
-        while (!m) m = qmask[(size_t)a * mw + ++w];
-        s_slot[k] = w * 32 + __ffs(m) - 1;
-        m &= m - 1;
+  const bool two = coefs > 1;
+
+  if (warp < kBandWarps) {
+    // ---------------------------------------------------- band role --- //
+    set_regs<WsRegs<kNW>::kBand, WsRegs<kNW>::kLaunch>();
+    constexpr int kBandThreads = kBandWarps * 32;
+    float2* s_ent = reinterpret_cast<float2*>(smem + Lay::kEnt);
+    unsigned short* s_pos0 =
+        reinterpret_cast<unsigned short*>(smem + Lay::kPos0);
+    float* s_d1 = reinterpret_cast<float*>(smem + Lay::kD1);
+    unsigned short* s_pos1 =
+        reinterpret_cast<unsigned short*>(smem + Lay::kPos1);
+    float* s_d0t = reinterpret_cast<float*>(smem + Lay::kD0t);  // by time
+    unsigned* s_p0 = reinterpret_cast<unsigned*>(smem + Lay::kP0);
+    constexpr int lg = Lay::kLg;
+    const int nb = (chunk + (1 << lg) - 1) >> lg;
+    constexpr int ps = Lay::kPs;
+    unsigned* s_p1 = s_p0 + (nb + 1) * ps;  // as build_bitsets lays it
+    const int cw = warp >> 1;  // this warp's count warp
+    const int pair = warp & 1;  // its slot pairs: (j / 2) % 2 == pair
+    int staged = -1, n0 = 0, n1 = 0;
+    int top = 1;  // bands4's, for the staged chunk
+    int jp = 0;  // the count warp's batches so far
+    for (int r0 = 0; r0 < nq; r0 += kCountWarps) {
+      const int nr = min(kCountWarps, nq - r0);
+      const int cpq = count_per_query(nr);
+      const int k = cw / cpq, sub = cw & (cpq - 1);
+      const int o_first = round_first(s_first, r0, nr, n_off);
+      const float* qb =
+          q + (size_t)(k < nr ? s_slot[r0 + k] / n_cand : 0) * q_len;
+      for (int o0 = o_first; o0 < n_off; o0 += kOT) {
+        const int c_lo = max(0, o0 - (f_len - 1)) / chunk;
+        const int c_hi = min(t_len - 1, o0 + kOT - 1) / chunk;
+        for (int c = c_lo; c <= c_hi; ++c) {
+          if (nl[c] == 0) continue;  // uniform
+          const int t0 = c * chunk;
+          if (c != staged) {  // uniform across the band warps
+            BandSync()();     // the previous chunk is consumed
+            n0 = nl[c];
+            const size_t off = ((size_t)a * n_chunks + c) * chunk;
+            if (two) {  // the kept order, waited for with the d0 order
+              n1 = n1k[(size_t)a * n_chunks + c];
+              stage_kept_async(s_d1, s_pos1, d1k, pos1k, off, (n1 + 1) & ~1,
+                               threadIdx.x, kBandThreads);
+            }
+            stage_chunk_async(s_ent, s_pos0, ent, pos, off, (n0 + 1) & ~1,
+                              threadIdx.x, kBandThreads);
+            BandSync()();
+            build_bitsets(s_p0, s_d0t, s_ent, s_pos0, s_pos1, n0, n1, two,
+                          nwc, lg, nb, ps, threadIdx.x, kBandThreads,
+                          BandSync());
+            staged = c;
+            top = bands_top(n0, two ? n1 : 0);
+          }
+          if (k >= nr) continue;  // no query for this count warp
+          // the frames whose offsets [t0 + d, t0 + clen + d) (d = F-1-f)
+          // meet this tile, in 32-frame groups: the count warp's groups g
+          // = sub + i cpq, its batches j = jp + 2 i and jp + 2 i + 1
+          const int clen = min(chunk, t_len - t0);
+          const int f_a = max(0, f_len - o0 - kOT + t0);
+          const int f_b = min(f_len, f_len - 1 - o0 + t0 + clen);
+          const int n_g = f_b > f_a ? (f_b - f_a + 31) >> 5 : 0;
+          const int n_i = n_g > sub ? (n_g - sub + cpq - 1) / cpq : 0;
+          for (int i = (pair - (jp >> 1)) & 1; i < n_i; i += 2) {
+            const int g0 = f_a + (sub + i * cpq) * 32;
+            // a lane per frame: its bands
+            const int f = g0 + lane;
+            const bool act =
+                f < f_b && qb[(size_t)(coefs + 1) * f_len + f] > 0.f;
+            int lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+            float q0 = 0.f, q1 = 0.f;
+            bool use2 = false, wide = false;
+            if (act) {
+              use2 = two && qb[(size_t)coefs * f_len + f] > 0.f;
+              q0 = qb[f];
+              q1 = two ? qb[(size_t)f_len + f] : 0.f;
+              bands4(s_ent, n0, q0, s_d1, use2 ? n1 : 0, q1, tol, top, lo0,
+                     hi0, lo1, hi1);
+              wide = hi0 - lo0 > kDirect;
+            }
+            const bool go = act && hi0 > lo0 && !(wide && use2 && hi1 == lo1);
+            const unsigned todo = __ballot_sync(kFull, go);
+            const unsigned wides = __ballot_sync(kFull, go && wide);
+            // the whole blocks of each band, and its two edges [lo, e) and
+            // [s, hi) (a band inside one block is all edge)
+            const int lb0 = (lo0 + (1 << lg) - 1) >> lg, hb0 = hi0 >> lg;
+            const int lb1 = (lo1 + (1 << lg) - 1) >> lg, hb1 = hi1 >> lg;
+            const int e0 = min(hi0, lb0 << lg), s0e = max(hb0 << lg, e0);
+            const int e1 = min(hi1, lb1 << lg), s1e = max(hb1 << lg, e1);
+            const unsigned pk0 = (unsigned)lo0 | ((unsigned)e0 << 16);
+            const unsigned pk1 = (unsigned)s0e | ((unsigned)hi0 << 16);
+            const unsigned pk2 = (unsigned)lo1 | ((unsigned)e1 << 16);
+            const unsigned pk3 = (unsigned)s1e | ((unsigned)hi1 << 16);
+            const unsigned pkb = (unsigned)lb0 | ((unsigned)hb0 << 8) |
+                                 ((unsigned)lb1 << 16) | ((unsigned)hb1 << 24);
+            const int flags = (use2 ? 1 : 0) | (wide ? 2 : 0);
+            // batches of kBatch frames, two lanes a frame: lane fi + 16 hf
+            // builds frame h + fi's hit row in words [k_lo, k_hi): the hit at
+            // time t at bit p = t - sh + 32 (sh = b % 32, b the time its
+            // tile's first offset reads, so that a count warp reads whole
+            // words: bit i of word q + 1 + u is time b + 32 u + i, q = b / 32)
+            const int fi = lane & (kBatch - 1), hf = lane >> 4;
+            const int nwh = (nwc + 1) >> 1;
+            const int k_lo = hf * nwh, k_hi = hf ? nwc + 1 : nwh;
+#pragma unroll 1
+            for (int h = 0; h < 32; h += kBatch) {
+              const int j = jp + 2 * i + h / kBatch;
+              const int si = cw * kRing + (j & (kRing - 1));
+              unsigned* slot = s_ring + si * Lay::kSlot;
+              unsigned* ra0 = slot + kHdr + 1;  // word 0 of frame 0's row
+              mbar_wait(s_empty + si, ((j / kRing) & 1) ^ 1);
+              const unsigned bm = todo & (((1u << kBatch) - 1u) << h);
+              if (bm) {  // uniform
+                const int src = h + fi;
+                const unsigned a0 = __shfl_sync(kFull, pk0, src);
+                const unsigned a1 = __shfl_sync(kFull, pk1, src);
+                const unsigned a2 = __shfl_sync(kFull, pk2, src);
+                const unsigned a3 = __shfl_sync(kFull, pk3, src);
+                const unsigned blk = __shfl_sync(kFull, pkb, src);
+                const int fl = __shfl_sync(kFull, flags, src);
+                const float q1j = __shfl_sync(kFull, q1, src);
+                const float q0j = __shfl_sync(kFull, q0, src);
+                const bool in = (bm >> src) & 1u;
+                const bool wd = fl & 2, u2 = fl & 1;
+                const int fj = g0 + src;
+                const int sh = (o0 - (f_len - 1 - fj) - t0) & 31;
+                unsigned* ra = ra0 + fi * rs;
+                // hits = B0 & (B1 or no use2), B = F | E: the whole blocks'
+                // F0 & F1 from the prefix bitsets (a narrow band: none), each
+                // row word from two of theirs ...
+                if (in) {
+                  const int blb0 = blk & 0xff, bhb0 = (blk >> 8) & 0xff;
+                  const int blb1 = (blk >> 16) & 0xff, bhb1 = blk >> 24;
+                  const bool full = wd && bhb0 > blb0 && (!u2 || bhb1 > blb1);
+                  auto whole = [&](int w) {  // 0 <= w < nwc
+                    unsigned x = 0u;
+                    if (full) {
+                      x = s_p0[bhb0 * ps + w] & ~s_p0[blb0 * ps + w];
+                      if (u2) x &= s_p1[bhb1 * ps + w] & ~s_p1[blb1 * ps + w];
+                    }
+                    return x;
+                  };
+                  unsigned prev = k_lo > 0 ? whole(k_lo - 1) : 0u;
+                  const int k_end = min(k_hi, nwc);
+#pragma unroll 2
+                  for (int k = k_lo; k < k_end; ++k) {
+                    const unsigned cur = whole(k);
+                    ra[k] = __funnelshift_r(prev, cur, sh);
+                    prev = cur;
+                  }
+                  if (k_hi > nwc) ra[nwc] = __funnelshift_r(prev, 0u, sh);
+                }
+                __syncwarp();
+                // ... then each band's edge entries E0, E1 (every other one
+                // each of the frame's two lanes) tested on the other
+                // coefficient's value: E0 & B1 | B0 & E1. Or a narrow band's
+                // entries that pass coefficient 1 and the rest
+                if (in) {
+                  const int l0 = a0 & 0xffffu, ee0 = a0 >> 16;
+                  const int ss0 = a1 & 0xffffu, h0 = a1 >> 16;
+                  if (wd) {
+                    const int n_a0 = ee0 - l0, n_a = n_a0 + (h0 - ss0);
+#pragma unroll 1
+                    for (int i = hf; i < n_a; i += 2) {
+                      const int r = i < n_a0 ? l0 + i : ss0 + i - n_a0;
+                      const int t = s_pos0[r];
+                      if (!u2 || fabsf(s_ent[r].y - q1j) <= tol) {
+                        const int p = t - sh + 32;
+                        atomicOr(ra + (p >> 5), 1u << (p & 31));
+                      }
+                    }
+                    if (u2) {
+                      const int l1 = a2 & 0xffffu, ee1 = a2 >> 16;
+                      const int ss1 = a3 & 0xffffu, h1 = a3 >> 16;
+                      const int n_b0 = ee1 - l1, n_b = n_b0 + (h1 - ss1);
+#pragma unroll 1
+                      for (int i = hf; i < n_b; i += 2) {
+                        const int t =
+                            s_pos1[i < n_b0 ? l1 + i : ss1 + i - n_b0];
+                        if (fabsf(s_d0t[t] - q0j) <= tol) {
+                          const int p = t - sh + 32;
+                          atomicOr(ra + (p >> 5), 1u << (p & 31));
+                        }
+                      }
+                    }
+                  } else if (h0 - l0 <= kPairWalk) {
+                    for (int i = hf; i < h0 - l0; i += 2) {
+                      const int r = l0 + i;
+                      const int t = s_pos0[r];
+                      bool ok = !u2 || fabsf(s_ent[r].y - q1j) <= tol;
+                      if (ok && coefs > 2) {
+                        ok = rest_close_inline(
+                            db + ((size_t)a * t_len + t0 + t) * n_coefs, qb,
+                            fj, f_len, coefs, tol);
+                      }
+                      if (ok) {
+                        const int p = t - sh + 32;
+                        atomicOr(ra + (p >> 5), 1u << (p & 31));
+                      }
+                    }
+                  }
+                }
+                // a longer band tested entry by entry: the whole warp walks
+                const unsigned longs = __ballot_sync(
+                    kFull, hf == 0 && in && !wd &&
+                               (int)(a1 >> 16) - (int)(a0 & 0xffffu) >
+                                   kPairWalk);
+                for (unsigned ml = longs; ml; ml &= ml - 1) {  // uniform
+                  const int kk = __ffs(ml) - 1;
+                  const unsigned b0 = __shfl_sync(kFull, a0, kk);
+                  const unsigned b1 = __shfl_sync(kFull, a1, kk);
+                  const int flk = __shfl_sync(kFull, fl, kk);
+                  const float q1k = __shfl_sync(kFull, q1j, kk);
+                  const int l0 = b0 & 0xffffu, h0 = b1 >> 16;
+                  const int fk = g0 + h + kk;
+                  const int shk = (o0 - (f_len - 1 - fk) - t0) & 31;
+                  unsigned* rk = ra0 + kk * rs;
+#pragma unroll 2
+                  for (int i = lane; i < h0 - l0; i += 32) {
+                    const int r = l0 + i;
+                    const int t = s_pos0[r];
+                    bool ok = !(flk & 1) || fabsf(s_ent[r].y - q1k) <= tol;
+                    if (ok && coefs > 2) {
+                      ok = rest_close_inline(
+                          db + ((size_t)a * t_len + t0 + t) * n_coefs, qb, fk,
+                          f_len, coefs, tol);
+                    }
+                    if (ok) {
+                      const int p = t - shk + 32;
+                      atomicOr(rk + (p >> 5), 1u << (p & 31));
+                    }
+                  }
+                }
+                __syncwarp();
+                // coefficients 2.. on the hits
+                if (in && wd && coefs > 2) {
+                  for (int k = k_lo; k < k_hi; ++k) {
+                    const unsigned x0 = ra[k];
+                    unsigned x = x0;
+                    for (unsigned mm = x0; mm; mm &= mm - 1) {
+                      const int bit = __ffs(mm) - 1;
+                      const int t = k * 32 + bit + sh - 32;
+                      if (!rest_close_inline(
+                              db + ((size_t)a * t_len + t0 + t) * n_coefs, qb,
+                              fj, f_len, coefs, tol)) {
+                        x &= ~(1u << bit);
+                      }
+                    }
+                    if (x != x0) ra[k] = x;
+                  }
+                }
+                if (lane == 0) {
+                  slot[0] = bm >> h;  // the frames with a band: their rows
+                  // route counts: frames on the bitsets, entry by entry
+                  atomicAdd(&s_count[1],
+                            (unsigned long long)__popc(bm & wides));
+                  atomicAdd(&s_count[2],
+                            (unsigned long long)__popc(bm & ~wides));
+                }
+              } else if (lane == 0) {
+                slot[0] = 0u;  // no frame of the batch has a band
+              }
+              __syncwarp();  // the warp's writes, then one arrival
+              if (lane == 0) mbar_arrive(s_full + si);
+            }
+          }
+          jp += 2 * n_i;
+        }
       }
-      s_scan_w = w;
-      s_scan_bits = m;
     }
-    if (!kListed && threadIdx.x < nr) {
-      s_slot[threadIdx.x] =
-          item_slot(items, slots, wi, r0 + threadIdx.x, n_cand);
+    BandSync()();
+    if (threadIdx.x >= 1 && threadIdx.x < 3 && s_count[threadIdx.x]) {
+      atomicAdd(routes + threadIdx.x, s_count[threadIdx.x]);
     }
-    if (threadIdx.x == 0) s_ofirst = kIntMax;
-    __syncthreads();
-    const int sl = mine ? s_slot[qr] : 0;
-    const int b = kListed ? sl : sl / n_cand;
-    const long long out = kListed ? (long long)b * rows + a : sl;
-    const float* qb = q + (size_t)b * q_len;
-    // the tiles start at the first offset the round's queries reach: their
-    // last active frame's (a query padded to its bucket reaches none of the
-    // offsets before)
-    if (mine && sub == 0) {
-      const float* act = qb + (size_t)(coefs + 1) * f_len;
-      int last = -1;
-      for (int f0 = (f_len - 1) & ~31; f0 >= 0 && last < 0; f0 -= 32) {
-        const int f = f0 + lane;
-        const unsigned m = __ballot_sync(kFull, f < f_len && act[f] > 0.f);
-        if (m) last = f0 + 31 - __clz(m);
-      }
-      if (lane == 0 && last >= 0) atomicMin(&s_ofirst, f_len - 1 - last);
-    }
-    __syncthreads();
-    const int o_first = s_ofirst == kIntMax ? n_off : s_ofirst & ~31;
-    int* fq = reinterpret_cast<int*>(smem + L.fold) +
-              (size_t)qr * wpq * kNW * 1024;
-    int* ovq = s_ovf + (mine ? qr : 0) * kOvf;
+    return;
+  }
+
+  // ------------------------------------------------------ count role --- //
+  set_regs<WsRegs<kNW>::kCount, WsRegs<kNW>::kLaunch>();
+  const int cw = warp - kBandWarps;
+  unsigned* s_merge = reinterpret_cast<unsigned*>(smem + Lay::kMerge);
+  // this warp's own fold and kOvf counts: a query's count warps are cw ..
+  // cw + cpq - 1, their areas consecutive (a warp may start the next round
+  // while another still ends this one, so no area is a query's)
+  int* fq = reinterpret_cast<int*>(smem + Lay::fold_at(kNW, mw)) +
+            cw * kNW * 1024;
+  int* ovq = s_ovf + cw * kOvf;
+  int jc = 0;  // this warp's batches so far
+  for (int r0 = 0; r0 < nq; r0 += kCountWarps) {
+    const int nr = min(kCountWarps, nq - r0);
+    const int cpq = count_per_query(nr);
+    const int k = cw / cpq, sub = cw & (cpq - 1);
+    const bool mine = k < nr;
+    const int o_first = round_first(s_first, r0, nr, n_off);
     int best = 0;
     for (int o0 = o_first; o0 < n_off; o0 += kOT) {
       Counters<kNW> cnt;
@@ -1823,396 +2257,144 @@ __global__ void __launch_bounds__(kBitsWarps * 32, kNW == 1 ? 3 : 2)
       const int c_lo = max(0, o0 - (f_len - 1)) / chunk;
       const int c_hi = min(t_len - 1, o0 + kOT - 1) / chunk;
       for (int c = c_lo; c <= c_hi; ++c) {
-        if (nl[c] == 0) continue;  // uniform
+        if (nl[c] == 0 || !mine) continue;  // uniform
         const int t0 = c * chunk;
-        if (c != staged) {  // uniform
-          __syncthreads();  // the previous chunk is consumed
-          n0 = nl[c];
-          const size_t off = ((size_t)a * n_chunks + c) * chunk;
-          if (two) {  // the kept order, waited for with the d0 order
-            n1 = n1k[(size_t)a * n_chunks + c];
-            stage_kept_async(s_d1, s_pos1, d1k, pos1k, off, (n1 + 1) & ~1);
-          }
-          stage_chunk_async(s_ent, s_pos0, ent, pos, off, (n0 + 1) & ~1);
-          if (threadIdx.x == 0) s_flag = !sample;
-          __syncthreads();
-          // or a sample decides the bitsets: the first 32 frames of this
-          // round's queries, any band wider than kDirect
-          if (sample && mine && sub == 0) {
-            bool wide = false;
-            if (lane < f_len && qb[(size_t)(coefs + 1) * f_len + lane] > 0.f) {
-              const float q0 = qb[lane];
-              const int lo = band_lo(s_ent, n0, q0, tol);
-              wide = band_hi(s_ent, lo, n0, q0, tol) - lo > kDirect;
-            }
-            if (__any_sync(kFull, wide) && lane == 0) s_flag = 1;
-          }
-          __syncthreads();
-          bits = s_flag != 0;
-          if (bits) {
-            // the prefix bitsets, by a prefix-OR over both orders: each
-            // entry's time into its block's row, then an OR down the rows,
-            // so bit b of P[k][w] is rank(32 w + b) < k g; and each live
-            // time's d0 (coefficient 1's band edges test it)
-            const int ncf = two ? 2 : 1;
-            const int m1 = two ? n1 : 0;
-            uint4* pz = reinterpret_cast<uint4*>(s_p0);  // s_p1 follows
-            for (int i = threadIdx.x; i < ncf * (nb + 1) * rs / 4;
-                 i += blockDim.x) {
-              pz[i] = make_uint4(0u, 0u, 0u, 0u);
-            }
-            for (int i = (ncf * (nb + 1) * rs & ~3) + threadIdx.x;
-                 i < ncf * (nb + 1) * rs; i += blockDim.x) {
-              s_p0[i] = 0u;
-            }
-            __syncthreads();
-            for (int r = threadIdx.x; r < n0 + m1; r += blockDim.x) {
-              const bool one = r >= n0;
-              const int rr = one ? r - n0 : r;
-              const int t = one ? s_pos1[rr] : s_pos0[rr];
-              atomicOr((one ? s_p1 : s_p0) + ((rr >> lg) + 1) * rs + (t >> 5),
-                       1u << (t & 31));
-              if (two && !one) s_d0t[t] = s_ent[rr].x;
-            }
-            __syncthreads();
-            prefix_or(s_p0, ncf * nwc, nwc, nb, rs);
-          }
-          staged = c;
-        }
-        if (!mine) continue;
-        // the frames whose offsets [t0 + d, t0 + clen + d) (d = F-1-f)
-        // meet this tile, in 32-frame groups, a query's groups split over
-        // its warps
         const int clen = min(chunk, t_len - t0);
         const int f_a = max(0, f_len - o0 - kOT + t0);
         const int f_b = min(f_len, f_len - 1 - o0 + t0 + clen);
-        // units of work: 32-frame groups, or (a query with several warps)
-        // half groups, each warp finding its group's bands
-        const int per = wpq > 1 ? 2 : 1;  // units a group
-        for (int u = sub; u * (32 / per) < f_b - f_a; u += wpq) {
-          const int g0 = f_a + (u / per) * 32;
-          // a lane per frame: its bands
-          const int f = g0 + lane;
-          const bool act = f < f_b && (per == 1 || (lane >> 4) == (u & 1)) &&
-                           qb[(size_t)(coefs + 1) * f_len + f] > 0.f;
-          int lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
-          float q0 = 0.f, q1 = 0.f;
-          bool use2 = false, wide = false;
-          if (act) {
-            use2 = two && qb[(size_t)coefs * f_len + f] > 0.f;
-            q0 = qb[f];
-            q1 = two ? qb[(size_t)f_len + f] : 0.f;
-            // coefficient 1's band too where bitsets are built (any frame
-            // may turn out wide), found beside coefficient 0's
-            bands4(s_ent, n0, q0, s_d1, bits && use2 ? n1 : 0, q1, tol,
-                   lo0, hi0, lo1, hi1);
-            wide = bits && hi0 - lo0 > kDirect;
+        const int n_g = f_b > f_a ? (f_b - f_a + 31) >> 5 : 0;
+        // its groups g = sub + i cpq, two batches each: m_b = 2 g + h
+        const int n_b = n_g > sub ? 2 * ((n_g - sub + cpq - 1) / cpq) : 0;
+        for (int ib = 0; ib < n_b; ++ib, ++jc) {
+          const int m_b = 2 * (sub + (ib >> 1) * cpq) + (ib & 1);
+          const int si = cw * kRing + (jc & (kRing - 1));
+          const unsigned* slot = s_ring + si * Lay::kSlot;
+          const unsigned* ra0 = slot + kHdr + 1;  // word 0 of frame 0's row
+          mbar_wait(s_full + si, (jc / kRing) & 1);
+          const unsigned counted = slot[0];
+          // frame kf of the batch (frame fh + kf): the tile's offset o0 +
+          // 32 u + i (u = lane + 32 jw) reads time b + 32 u + i of the
+          // chunk, b = b0 + kf: bit i of its row's word q + 1 + u, q = b /
+          // 32 (a row's words are 0 .. nwc, zero past them)
+          const int fh = f_a + (m_b >> 1) * 32 + (m_b & 1) * kBatch;
+          const int b0 = o0 - (f_len - 1 - fh) - t0;
+          for (unsigned m = counted; m;) {  // uniform: kGrp frames at once
+            int kfs[kGrp];  // the frames (-1: none, zeros added)
+#pragma unroll
+            for (int i = 0; i < kGrp; ++i) {
+              kfs[i] = m ? __ffs(m) - 1 : -1;
+              m &= m - 1;
+            }
+#pragma unroll
+            for (int jw = 0; jw < kNW; ++jw) {
+              // words no frame of the batch reaches: skipped
+              if ((b0 >> 5) + 1 + 32 * jw > nwc ||
+                  ((b0 + kBatch) >> 5) + 32 + 32 * jw < 0) {
+                continue;  // uniform
+              }
+              unsigned x[kGrp];
+#pragma unroll
+              for (int i = 0; i < kGrp; ++i) {
+                const int kf = max(kfs[i], 0);
+                const int w = ((b0 + kf) >> 5) + 1 + 32 * jw + lane;
+                const unsigned v = ra0[kf * rs + min(max(w, -1), nwc + 1)];
+                x[i] = kfs[i] < 0 ? 0u : v;
+              }
+              cnt.add(jw, x);
+              if (fold && cnt.n[jw] > kFoldAt - kGrp) {  // uniform
+                cnt.flush();
+                cnt.fold_into(fq);
+              }
+            }
+            // the tile's last kOvf offsets (words 32 kNW + lane, lane < 4),
+            // which only frames whose hits lie near the chunk's end reach:
+            // their bits one by one
+            if ((b0 >> 5) + 1 + 32 * kNW > nwc) continue;  // uniform
+#pragma unroll
+            for (int i = 0; i < kGrp; ++i) {
+              if (kfs[i] < 0 || lane >= kOvf / 32) continue;
+              const int w = ((b0 + kfs[i]) >> 5) + 1 + 32 * kNW + lane;
+              unsigned x = ra0[kfs[i] * rs + min(max(w, -1), nwc + 1)];
+              for (; x; x &= x - 1) {
+                atomicAdd(ovq + lane * 32 + __ffs(x) - 1, 1);
+              }
+            }
           }
-          const bool go = act && hi0 > lo0 && !(wide && use2 && hi1 == lo1);
-          const unsigned todo = __ballot_sync(kFull, go);
-          if (!todo) continue;  // uniform
-          const unsigned wides = __ballot_sync(kFull, go && wide);
-          // the whole blocks of each band, and its two edges [lo, e) and
-          // [s, hi) (a band inside one block is all edge)
-          const int lb0 = (lo0 + (1 << lg) - 1) >> lg, hb0 = hi0 >> lg;
-          const int lb1 = (lo1 + (1 << lg) - 1) >> lg, hb1 = hi1 >> lg;
-          const int e0 = min(hi0, lb0 << lg), s0e = max(hb0 << lg, e0);
-          const int e1 = min(hi1, lb1 << lg), s1e = max(hb1 << lg, e1);
-          const unsigned pk0 = (unsigned)lo0 | ((unsigned)e0 << 16);
-          const unsigned pk1 = (unsigned)s0e | ((unsigned)hi0 << 16);
-          const unsigned pk2 = (unsigned)lo1 | ((unsigned)e1 << 16);
-          const unsigned pk3 = (unsigned)s1e | ((unsigned)hi1 << 16);
-          const unsigned pkb = (unsigned)lb0 | ((unsigned)hb0 << 8) |
-                               ((unsigned)lb1 << 16) | ((unsigned)hb1 << 24);
-          const int flags = (use2 ? 1 : 0) | (wide ? 2 : 0);
-          // batches of kBatch frames, two lanes a frame: lane fi + 16 hf
-          // builds frame h + fi's hits in words [hf * nwh, (hf + 1) * nwh)
-          const int fi = lane & (kBatch - 1), hf = lane >> 4;
-          const int nwh = (nwc + 1) >> 1;
-          const int w_lo = hf * nwh, w_hi = min(nwc, w_lo + nwh);
-          const int h_lo = per == 2 ? (u & 1) * kBatch : 0;
-          const int h_hi = per == 2 ? h_lo + kBatch : 32;
-          for (int h = h_lo; h < h_hi; h += kBatch) {
-            const unsigned bm = todo & (((1u << kBatch) - 1u) << h);
-            if (!bm) continue;  // uniform
-            const int src = h + fi;
-            const unsigned a0 = __shfl_sync(kFull, pk0, src);
-            const unsigned a1 = __shfl_sync(kFull, pk1, src);
-            const unsigned a2 = __shfl_sync(kFull, pk2, src);
-            const unsigned a3 = __shfl_sync(kFull, pk3, src);
-            const unsigned blk = __shfl_sync(kFull, pkb, src);
-            const int fl = __shfl_sync(kFull, flags, src);
-            const float q1j = __shfl_sync(kFull, q1, src);
-            const float q0j = __shfl_sync(kFull, q0, src);
-            const bool in = (bm >> src) & 1u;
-            const bool wd = fl & 2, u2 = fl & 1;
-            const int fj = g0 + src;
-            unsigned* ra = rows_a + fi * rs;
-            // hits = B0 & (B1 or no use2), B = F | E: the whole blocks'
-            // F0 & F1 from the prefix bitsets (a narrow band: none) ...
-            if (in) {
-              const int blb0 = blk & 0xff, bhb0 = (blk >> 8) & 0xff;
-              const int blb1 = (blk >> 16) & 0xff, bhb1 = blk >> 24;
-              const bool full = wd && bhb0 > blb0 && (!u2 || bhb1 > blb1);
-#pragma unroll 4
-              for (int w = w_lo; w < w_hi; ++w) {
-                unsigned x = 0u;
-                if (full) {
-                  x = s_p0[bhb0 * rs + w] & ~s_p0[blb0 * rs + w];
-                  if (u2) x &= s_p1[bhb1 * rs + w] & ~s_p1[blb1 * rs + w];
-                }
-                ra[w] = x;
-              }
-            }
-            __syncwarp();
-            // ... then each band's edge entries E0, E1 (every other one each
-            // of the frame's two lanes) tested on the other coefficient's
-            // value: E0 & B1 | B0 & E1. Or a narrow band's entries that pass
-            // coefficient 1 and the rest
-            if (in) {
-              const int l0 = a0 & 0xffffu, ee0 = a0 >> 16;
-              const int ss0 = a1 & 0xffffu, h0 = a1 >> 16;
-              if (wd) {
-                const int n_a0 = ee0 - l0, n_a = n_a0 + (h0 - ss0);
-#pragma unroll 4
-                for (int i = hf; i < n_a; i += 2) {
-                  const int r = i < n_a0 ? l0 + i : ss0 + i - n_a0;
-                  const int t = s_pos0[r];
-                  if (!u2 || fabsf(s_ent[r].y - q1j) <= tol) {
-                    atomicOr(ra + (t >> 5), 1u << (t & 31));
-                  }
-                }
-                if (u2) {
-                  const int l1 = a2 & 0xffffu, ee1 = a2 >> 16;
-                  const int ss1 = a3 & 0xffffu, h1 = a3 >> 16;
-                  const int n_b0 = ee1 - l1, n_b = n_b0 + (h1 - ss1);
-#pragma unroll 4
-                  for (int i = hf; i < n_b; i += 2) {
-                    const int t = s_pos1[i < n_b0 ? l1 + i : ss1 + i - n_b0];
-                    if (fabsf(s_d0t[t] - q0j) <= tol) {
-                      atomicOr(ra + (t >> 5), 1u << (t & 31));
-                    }
-                  }
-                }
-              } else if (h0 - l0 <= kPairWalk) {
-                for (int i = hf; i < h0 - l0; i += 2) {
-                  const int r = l0 + i;
-                  const int t = s_pos0[r];
-                  bool ok = !u2 || fabsf(s_ent[r].y - q1j) <= tol;
-                  if (ok && coefs > 2) {
-                    ok = rest_close(row + (size_t)(t0 + t) * n_coefs, qb, fj,
-                                    f_len, coefs, tol);
-                  }
-                  if (ok) atomicOr(ra + (t >> 5), 1u << (t & 31));
-                }
-              }
-            }
-            // a longer band tested entry by entry: the whole warp walks it
-            const unsigned longs = __ballot_sync(
-                kFull, hf == 0 && in && !wd &&
-                           (int)(a1 >> 16) - (int)(a0 & 0xffffu) > kPairWalk);
-            for (unsigned m = longs; m; m &= m - 1) {  // uniform
-              const int k = __ffs(m) - 1;
-              const unsigned b0 = __shfl_sync(kFull, a0, k);
-              const unsigned b1 = __shfl_sync(kFull, a1, k);
-              const int flk = __shfl_sync(kFull, fl, k);
-              const float q1k = __shfl_sync(kFull, q1j, k);
-              const int l0 = b0 & 0xffffu, h0 = b1 >> 16;
-              const int fk = g0 + h + k;
-              unsigned* rk = rows_a + k * rs;
-#pragma unroll 2
-              for (int i = lane; i < h0 - l0; i += 32) {
-                const int r = l0 + i;
-                const int t = s_pos0[r];
-                bool ok = !(flk & 1) || fabsf(s_ent[r].y - q1k) <= tol;
-                if (ok && coefs > 2) {
-                  ok = rest_close(row + (size_t)(t0 + t) * n_coefs, qb, fk,
-                                  f_len, coefs, tol);
-                }
-                if (ok) atomicOr(rk + (t >> 5), 1u << (t & 31));
-              }
-            }
-            __syncwarp();
-            // coefficients 2.. on the hits; the first and last word with a
-            // hit
-            int w_first = nwc, w_last = -1;
-            if (in) {
-#pragma unroll 4
-              for (int w = w_lo; w < w_hi; ++w) {
-                unsigned x = ra[w];
-                if (wd && coefs > 2 && x) {
-                  const unsigned x0 = x;
-                  for (unsigned m = x0; m; m &= m - 1) {
-                    const int bit = __ffs(m) - 1;
-                    if (!rest_close(row + (size_t)(t0 + w * 32 + bit) *
-                                              n_coefs,
-                                    qb, fj, f_len, coefs, tol)) {
-                      x &= ~(1u << bit);
-                    }
-                  }
-                  if (x != x0) ra[w] = x;
-                }
-                if (x) {
-                  w_first = min(w_first, w);
-                  w_last = w;
-                }
-              }
-            }
-            w_first = min(w_first, __shfl_xor_sync(kFull, w_first, 16));
-            w_last = max(w_last, __shfl_xor_sync(kFull, w_last, 16));
-            const unsigned counted =
-                __ballot_sync(kFull, w_last >= 0) & ((1u << kBatch) - 1u);
-            const unsigned span = (unsigned)w_first | ((unsigned)w_last << 16);
-            __syncwarp();
-            if (lane == 0) {
-              n_bits += __popc(bm & wides);
-              n_direct += __popc(bm & ~wides);
-            }
-            // offset o of the tile reads time o - d of the chunk: bit
-            // base + 32 k + i of the frame's hits, base = o0 - d - t0; a
-            // word reads hit words qw and qw + 1, so it skips a frame whose
-            // hits lie outside them
-            // eight frames at a time (zeros past the last one), so their
-            // loads overlap and the adds need no branches
-            for (unsigned m = counted; m;) {  // uniform
-              int base[8];
-              unsigned sp[8];
-#pragma unroll
-              for (int i = 0; i < 8; ++i) {
-                const int k = m ? __ffs(m) - 1 : -1;
-                m &= m - 1;
-                sp[i] = __shfl_sync(kFull, span, k < 0 ? 0 : k);
-                if (k < 0) sp[i] = 0x0000ffffu;  // nothing: first > last
-                base[i] = o0 - (f_len - 1 - (g0 + h + max(k, 0))) - t0;
-                sp[i] |= (unsigned)max(k, 0) << 8;
-              }
-#pragma unroll
-              for (int j = 0; j < kNW; ++j) {
-                unsigned x[8];
-                bool any = false;
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                  const int qw = (base[i] >> 5) + 32 * j;  // lane 0's word
-                  const int wf = sp[i] & 0xffu, wl = (int)(sp[i] >> 16);
-                  // a word skips a frame whose hits lie outside its reach
-                  const bool r = !(qw + 32 < wf || qw > wl);
-                  any |= r;
-                  const unsigned* hr = rows_a + ((sp[i] >> 8) & 0xffu) * rs;
-                  const int w = qw + lane;
-                  x[i] = r ? __funnelshift_r(
-                                 (unsigned)w < (unsigned)nwc ? hr[w] : 0u,
-                                 (unsigned)(w + 1) < (unsigned)nwc ? hr[w + 1]
-                                                                   : 0u,
-                                 base[i] & 31)
-                           : 0u;
-                }
-                if (!any) continue;  // uniform
-                cnt.add8(j, x);
-                if (fold && cnt.n[j] > kFoldAt - 8) {  // uniform
-                  cnt.flush();
-                  cnt.fold_into(fq);
-                }
-              }
-              // the tile's last kOvf offsets (words 32 kNW + lane, lane <
-              // 4): a frame reaching them adds its bits one by one
-#pragma unroll
-              for (int i = 0; i < 8; ++i) {
-                const int qw = (base[i] >> 5) + 32 * kNW;
-                const int wf = sp[i] & 0xffu, wl = (int)(sp[i] >> 16);
-                if (qw + kOvf / 32 < wf || qw > wl) continue;  // uniform
-                if (lane < kOvf / 32) {
-                  const unsigned* hr = rows_a + ((sp[i] >> 8) & 0xffu) * rs;
-                  const int w = qw + lane;
-                  unsigned x = __funnelshift_r(
-                      (unsigned)w < (unsigned)nwc ? hr[w] : 0u,
-                      (unsigned)(w + 1) < (unsigned)nwc ? hr[w + 1] : 0u,
-                      base[i] & 31);
-                  for (; x; x &= x - 1) {
-                    atomicAdd(ovq + lane * 32 + __ffs(x) - 1, 1);
-                  }
-                }
-              }
-            }
-            __syncwarp();  // the rows are read
-          }
+          __syncwarp();  // the warp's reads, then one arrival
+          if (lane == 0) mbar_arrive(s_empty + si);  // the slot is read
         }
       }
-      // the tile's counts are complete: merge the query's warps, take the max
+      // the tile's counts are complete: merge the query's count warps (a
+      // tree of bit-sliced adds; folded counts and kOvf counts summed by
+      // its first), take the max
       cnt.flush();
-      if (fold) {
-        if (mine) cnt.fold_into(fq);
-        __syncthreads();
-        if (mine && sub == 0) {
-          int m = 0;
-          for (int i = lane; i < 32 * 32 * kNW; i += 32) {
-            m = max(m, fq[i]);
-            fq[i] = 0;
-          }
-          for (int i = lane; i < kOvf; i += 32) {
-            m = max(m, ovq[i]);
-            ovq[i] = 0;
-          }
-          best = max(best, __reduce_max_sync(kFull, m));
-        }
-        __syncthreads();
-      } else {
-        if (wpq > 1) {  // uniform: a tree of bit-sliced adds
-          __syncwarp();
-          for (int step = 1; step < wpq; step <<= 1) {
-            if (mine && (sub & (2 * step - 1)) == step) {
-              // the planes into this warp's hit rows
+      if (fold && mine) cnt.fold_into(fq);
+      if (cpq > 1) {  // uniform
+        if (fold) count_sync();
+        for (int step = 1; !fold && step < cpq; step <<= 1) {
+          if (mine && (sub & (2 * step - 1)) == step) {
+            // the planes into this warp's merge area
+            unsigned* o = s_merge + cw * kNW * kPlanes * 32;
 #pragma unroll
-              for (int j = 0; j < kNW; ++j) {
+            for (int jw = 0; jw < kNW; ++jw) {
 #pragma unroll
-                for (int k = 0; k < kPlanes; ++k) {
-                  rows_a[(j * kPlanes + k) * 32 + lane] = cnt.planes[j][k];
-                }
+              for (int kp = 0; kp < kPlanes; ++kp) {
+                o[(jw * kPlanes + kp) * 32 + lane] = cnt.planes[jw][kp];
               }
             }
-            __syncthreads();
-            if (mine && (sub & (2 * step - 1)) == 0) {  // added to the left
-              const unsigned* o = wbase + (size_t)(warp + step) * L.wstride;
+          }
+          count_sync();
+          if (mine && (sub & (2 * step - 1)) == 0) {  // added to the left
+            const unsigned* o = s_merge + (cw + step) * kNW * kPlanes * 32;
 #pragma unroll
-              for (int j = 0; j < kNW; ++j) {
-                unsigned carry = 0u;
+            for (int jw = 0; jw < kNW; ++jw) {
+              unsigned carry = 0u;
 #pragma unroll
-                for (int k = 0; k < kPlanes; ++k) {
-                  const unsigned y = o[(j * kPlanes + k) * 32 + lane];
-                  const unsigned p = cnt.planes[j][k];
-                  cnt.planes[j][k] = p ^ y ^ carry;
-                  carry = (p & y) | (carry & (p ^ y));
-                }
+              for (int kp = 0; kp < kPlanes; ++kp) {
+                const unsigned y = o[(jw * kPlanes + kp) * 32 + lane];
+                const unsigned p = cnt.planes[jw][kp];
+                cnt.planes[jw][kp] = p ^ y ^ carry;
+                carry = (p & y) | (carry & (p ^ y));
               }
             }
           }
         }
-        if (mine && sub == 0) {
-          int m = cnt.max_count();
-          for (int i = lane; i < kOvf; i += 32) {
-            m = max(m, ovq[i]);
-            ovq[i] = 0;
-          }
-          best = max(best, __reduce_max_sync(kFull, m));
-        }
-        if (wpq > 1) __syncthreads();  // rows and counts free: next tile
       }
+      if (mine && sub == 0) {
+        int m = fold ? 0 : cnt.max_count();
+        for (int i = lane; fold && i < 32 * 32 * kNW; i += 32) {
+          int v = 0;
+          for (int s = 0; s < cpq; ++s) {
+            v += fq[s * kNW * 1024 + i];
+            fq[s * kNW * 1024 + i] = 0;
+          }
+          m = max(m, v);
+        }
+        for (int i = lane; i < kOvf; i += 32) {
+          int v = 0;
+          for (int s = 0; s < cpq; ++s) {
+            v += ovq[s * kOvf + i];
+            ovq[s * kOvf + i] = 0;
+          }
+          m = max(m, v);
+        }
+        best = max(best, __reduce_max_sync(kFull, m));
+      }
+      if (cpq > 1) count_sync();  // merge areas and counts free
     }
     if (mine && sub == 0 && lane == 0) {
-      votes[out] = best;
+      votes[s_slot[r0 + k]] = best;
       atomicAdd(&s_count[0], 1ull);
     }
   }
-  if (lane == 0 && (n_bits | n_direct)) {
-    atomicAdd(&s_count[1], n_bits);
-    atomicAdd(&s_count[2], n_direct);
-  }
-  __syncthreads();
-  if (threadIdx.x < 3 && s_count[threadIdx.x]) {
-    atomicAdd(routes + threadIdx.x, s_count[threadIdx.x]);
+  count_sync();
+  if (threadIdx.x == kBandWarps * 32 && s_count[0]) {
+    atomicAdd(routes, s_count[0]);
   }
 }
 
 }  // namespace
+
 
 // Warps per block of the aligned index kernel for this chunk, query length
 // and batch (at most 8 and at most one per query); 0 when not even one
@@ -2258,21 +2440,23 @@ struct Kept {
   const short* pos1;
   const int* n1;
 };
+// A launch's rows of the bit-sliced kernel: the rows the full scan's index
+// kernel listed (work[0, n_work[0]), qmask [rows, mw] their queries' masks),
+// or (qmask null) work items of group_item's, listed (work, n_work) or not.
 struct BitsItems {
-  bool listed;              // rows of work with the queries of qmask
-  const int* work;          // listed rows (listed) or items, else null
+  const int* work;
   const unsigned long long* n_work;
-  const unsigned* qmask;    // [rows, mw] u32 (listed)
+  const unsigned* qmask;
   int mw;
-  int every, n_cand;        // group_item's (not listed)
+  int every, n_cand;        // group_item's
   const int* slots;
   const int4* items;
   const int* n_items;
 };
 
 // Launches the bit-sliced kernel on `grid` blocks (an upper bound of the
-// work items; blocks past them leave). routes: three u64 (items, frames on
-// the bitsets, frames entry by entry).
+// rows or work items; blocks past them leave). routes: three u64 (items,
+// frames on the bitsets, frames entry by entry).
 static int launch_bits(const void* db, const void* q, const void* ent,
                        const void* pos, const void* n_live, Kept kept,
                        int rows, int t_len, int n_coefs, int coefs,
@@ -2282,45 +2466,47 @@ static int launch_bits(const void* db, const void* q, const void* ent,
   if (chunk > kMaxChunk || chunk < 2 || chunk % 2 || f_len < 1 ||
       t_len < 1 || grid > 0x7fffffffLL ||
       (coefs > 1 && (!kept.d1 || !kept.pos1 || !kept.n1)) ||
-      (!it.listed && (it.n_cand < 1 || it.every < 0))) {
+      it.mw < 1 ||
+      (it.qmask ? !it.work || !it.n_work
+                : it.n_cand < 1 || it.every < 0 ||
+                      it.every > 32 * it.mw)) {
     return (int)cudaErrorInvalidValue;
   }
   if (grid < 1) return (int)cudaSuccess;
+  const bool big = chunk > 1024;
   const long long n_off = (long long)t_len + f_len - 1;
   int nw = n_off <= 1024 + kOvf ? 1 : n_off <= 2048 + kOvf ? 2 : 3;
-  const int fold = f_len > kFoldAt;
-  while (nw > 1 && BitsSmem(chunk, nw, kBitsWarps, fold).total > kMaxSmem) {
-    --nw;  // smaller offset tiles
-  }
-  const BitsSmem L(chunk, nw, kBitsWarps, fold);
-  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bool fold = f_len > kFoldAt;
+  auto total = [&](int n) {
+    return big ? WsLayout<true>::total(n, fold, it.mw)
+               : WsLayout<false>::total(n, fold, it.mw);
+  };
+  while (nw > 1 && total(nw) > kMaxSmem) --nw;  // smaller offset tiles
+  if (total(nw) > kMaxSmem) return (int)cudaErrorInvalidValue;
   using Kernel = void (*)(const float*, const float*, const float2*,
                           const short*, const int*, const float*,
                           const short*, const int*, int, int, int, int, int,
                           int, int, float, int, const int*,
                           const unsigned long long*, const unsigned*, int,
                           int, int, const int*, const int4*, const int*,
-                          int, int*, unsigned long long*);
+                          int*, unsigned long long*);
   static const Kernel kernels[2][3] = {
-      {match_votes_aligned_bits_kernel<false, 1>,
-       match_votes_aligned_bits_kernel<false, 2>,
-       match_votes_aligned_bits_kernel<false, 3>},
-      {match_votes_aligned_bits_kernel<true, 1>,
-       match_votes_aligned_bits_kernel<true, 2>,
-       match_votes_aligned_bits_kernel<true, 3>}};
-  const Kernel kernel = kernels[it.listed ? 1 : 0][nw - 1];
-  // bitsets: always for the items the index kernel found wide, else where
-  // a sample of the first queries' bands holds a wide one
-  const int sample = it.work ? 0 : 1;
+      {match_votes_aligned_bits_kernel_ws<1, false>,
+       match_votes_aligned_bits_kernel_ws<2, false>,
+       match_votes_aligned_bits_kernel_ws<3, false>},
+      {match_votes_aligned_bits_kernel_ws<1, true>,
+       match_votes_aligned_bits_kernel_ws<2, true>,
+       match_votes_aligned_bits_kernel_ws<3, true>}};
+  const Kernel kernel = kernels[big ? 1 : 0][nw - 1];
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)total(nw));
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kBitsWarps * 32, (size_t)L.total, st>>>(
+  kernel<<<(unsigned)grid, kWsThreads, (size_t)total(nw), st>>>(
       (const float*)db, (const float*)q, (const float2*)ent,
       (const short*)pos, (const int*)n_live, kept.d1, kept.pos1, kept.n1,
-      rows, t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol, fold,
+      rows, t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol, (int)fold,
       it.work, it.n_work, it.qmask, it.mw, it.every, it.n_cand, it.slots,
-      it.items, it.n_items, sample, votes, routes);
+      it.items, it.n_items, votes, routes);
   return (int)cudaGetLastError();
 }
 
@@ -2328,21 +2514,29 @@ static int launch_bits(const void* db, const void* q, const void* ent,
 // (the forced route "bits", and queries whose offset histogram the index
 // kernel cannot hold): votes [batch, rows] zeroed; routes: three u64
 // (items, frames on the bitsets, frames entry by entry); d1k/pos1k/n1k the
-// index's kept coefficient-1 order (null with coefs 1).
+// index's kept coefficient-1 order (null with coefs 1). One launch a
+// kEvery queries (each block's slots and first offsets in shared memory).
+constexpr int kEvery = 256;
 extern "C" int tiresias_match_votes_aligned_bits(
     const void* db, const void* q, const void* ent, const void* pos,
     const void* n_live, const void* d1k, const void* pos1k, const void* n1k,
     int batch, int rows, int t_len, int n_coefs, int coefs, int f_len,
     int chunk, int n_chunks, float tol, void* votes, void* routes,
     void* stream) {
-  const BitsItems it{false, nullptr, nullptr, nullptr, 0, batch, rows,
-                     nullptr, nullptr, nullptr};
-  return launch_bits(db, q, ent, pos, n_live,
-                     {(const float*)d1k, (const short*)pos1k,
-                      (const int*)n1k},
-                     rows, t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol,
-                     batch > 0 ? rows : 0, it, (int*)votes,
-                     (unsigned long long*)routes, (cudaStream_t)stream);
+  const size_t q_len = (size_t)(coefs + 2) * f_len;
+  for (int b0 = 0; b0 < batch; b0 += kEvery) {
+    const int nb = min(kEvery, batch - b0);
+    const BitsItems it{nullptr, nullptr, nullptr, (nb + 31) / 32, nb,
+                       rows,    nullptr, nullptr, nullptr};
+    const int err = launch_bits(
+        db, (const float*)q + b0 * q_len, ent, pos, n_live,
+        {(const float*)d1k, (const short*)pos1k, (const int*)n1k}, rows,
+        t_len, n_coefs, coefs, f_len, chunk, n_chunks, tol, rows, it,
+        (int*)votes + (size_t)b0 * rows, (unsigned long long*)routes,
+        (cudaStream_t)stream);
+    if (err != (int)cudaSuccess) return err;
+  }
+  return (int)cudaSuccess;
 }
 
 // Resident blocks of the every-pair kernel on this device (its grid).
@@ -2406,8 +2600,8 @@ static int match_votes_aligned(
   err = cudaGetLastError();
   if (err != cudaSuccess || kCand || !(share < INFINITY)) return (int)err;
   // the wide items: the listed rows with their queries
-  const BitsItems it{true, (const int*)work, nw, (const unsigned*)qmask,
-                     mw, 0, 1, nullptr, nullptr, nullptr};
+  const BitsItems it{(const int*)work, nw, (const unsigned*)qmask, mw, 0,
+                     rows, nullptr, nullptr, nullptr};
   return launch_bits(db, q, ent, pos, n_live, kept, rows, t_len, n_coefs,
                      coefs, f_len, chunk, n_chunks, tol, rows, it,
                      (int*)votes, rt + 2, st);
@@ -2572,8 +2766,8 @@ extern "C" int tiresias_match_votes_aligned_group(
   }
   if (wide & 1) {
     const int* listed = warps > 0 ? (const int*)work : nullptr;
-    const BitsItems it{false, listed, listed ? nw : nullptr, nullptr, 0,
-                       every, n_cand, (const int*)slots, (const int4*)items,
+    const BitsItems it{listed, listed ? nw : nullptr, nullptr, 1, every,
+                       n_cand, (const int*)slots, (const int4*)items,
                        (const int*)n_items};
     err = (cudaError_t)launch_bits(
         db, q, ent, pos, n_live,

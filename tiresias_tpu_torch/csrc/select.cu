@@ -71,9 +71,15 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using tiresias::mbar_init;
+using tiresias::mbar_wait;
+using tiresias::smem_u32;
 
 constexpr int kBins = 2048;          // level 0: below -1; 1 + (x + 1); above
 constexpr int kTop = kBins - 4;      // the highest value with a bin of its own
@@ -96,28 +102,6 @@ __device__ __forceinline__ unsigned key_of(int x) {
 
 __device__ __forceinline__ int bin0(int x) {
   return x < -1 ? 0 : (x > kTop ? kBins - 1 : x + 2);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(1u)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 // The two halves of a cluster barrier: arrive once done reading the other

@@ -232,7 +232,7 @@ def votes_by_index_plain(index: MatchIndex, db, q, active, use2, tol,
     return ok.any(dim=-1).sum(dim=1, dtype=torch.int32)
 
 
-# The bit-sliced K5 (csrc/match.cu, match_votes_aligned_bits_kernel):
+# The bit-sliced K5 (csrc/match.cu, match_votes_aligned_bits_kernel_ws):
 # counter planes (counts below 2**PLANES between folds) and the block of
 # ranks a prefix bitset steps by (16, or 32 past 1,024-frame chunks).
 PLANES = 8

@@ -11,10 +11,12 @@ query frame's coefficient-0 band is found by binary search. K4 tests only
 the frames inside it; a work item whose bands hold more than
 ``DENSE_SHARE`` of its live pairs takes the kernel's dense route instead,
 chosen on the device per item. K5's index kernel hands such an item to
-the bit-sliced kernel (``match_votes_aligned_bits_kernel``; its plain
-statement is :func:`match_index.aligned_votes_bits_plain`) in the same
+the bit-sliced kernel, ``match_votes_aligned_bits_kernel_ws`` (its plain
+statement is :func:`match_index.aligned_votes_bits_plain`), in the same
 call: the rows with such items go on a list, each with the mask of its
-queries, so one block stages a row once for all of them; a frame's hits in
+queries (one block stages a row once for all of them, or for a work item's
+queries; band warps build the queries' hit rows, count warps add them
+up); a frame's hits in
 a chunk are a bitset over the stored times, from the rank bands of
 coefficient 0 and of coefficient 1 (over the order the index keeps,
 ``MatchIndex.d1/pos1/n1``) and block-prefix bitsets of the chunk (or, for
@@ -81,7 +83,7 @@ _K4_ITEMS = 512  # (query, 32-frame group) items per K4 block (kMaxItems)
 # sooner there; the per-item candidate form has one query per block and
 # takes the small-batch shares at any batch, K5's none (no wide route).
 # K5's wide route in the full scan from SMALL_BATCH on is the bit-sliced
-# kernel (match_votes_aligned_bits_kernel; share "aligned": the index
+# kernel (match_votes_aligned_bits_kernel_ws; share "aligned": the index
 # kernel hands it a wide row whole, with every query that has the row). In
 # the grouped form (the candidate form, and the full scan below SMALL_BATCH
 # with each row one work item of every query) the index kernel decides per

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,9 +29,11 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 SOURCES = ("mfcc_fft.cu", "mfcc.cu", "lattice.cu", "match.cu", "select.cu")
 HEADERS = ("common.cuh",)
 # No --use_fast_math / -ftz=true: the aubio log floor 2e-42 is subnormal.
+# -Xptxas=-v: each kernel's registers, stack frame and spills, kept beside
+# the library (ptxas_report).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
@@ -48,15 +51,16 @@ NVCC_FLAGS = (
 # group_candidates its work list (three kernels, one launch count), with
 # K5's index kernel match_votes_aligned_cand and its wide kernels (also the
 # full scan's below SMALL_BATCH): match_votes_aligned_cand_bits, the
-# bit-sliced kernel over work items (the items of BITS_MIN_QUERIES queries
-# or more that the index kernel lists, the forced route "bits" and queries
-# too long for the index kernel, in the full scan at any batch too), and
+# bit-sliced kernel's launch over work items (the items of
+# BITS_MIN_QUERIES queries or more that the index kernel lists, the forced
+# route "bits" and queries too long for the index kernel, in the full scan
+# at any batch too), and
 # match_votes_aligned_cand_dense, the grouped every-pair kernel (the items
 # of fewer queries, and the forced route "dense");
-# match_votes_aligned_bits is the bit-sliced kernel over the rows that the
-# full scan's index kernel lists from SMALL_BATCH on; the *_per_item
-# names the per-item candidate form (the forced "per_item" route, and
-# batch 1); select_candidates is every prefilter's candidate
+# match_votes_aligned_bits is the same kernel's launch over the rows that
+# the full scan's index kernel lists from SMALL_BATCH on; the
+# *_per_item names the per-item candidate form (the forced "per_item" route,
+# and batch 1); select_candidates is every prefilter's candidate
 # selection (K-b: one kernel, kb_select_kernel) and rescore_rows the
 # dialplan prefilter's rescore.
 LAUNCHES: dict[str, int] = {
@@ -95,9 +99,8 @@ KERNEL_NAMES: dict[str, tuple[str, ...]] = {
         "match_votes_aligned_group_dense_kernel",),
     "match_votes_cand_per_item": ("match_votes_kernel<true>",),
     "match_votes_aligned_cand_per_item": ("match_votes_aligned_kernel<true>",),
-    "match_votes_aligned_bits": ("match_votes_aligned_bits_kernel<true,",),
-    "match_votes_aligned_cand_bits": (
-        "match_votes_aligned_bits_kernel<false,",),
+    "match_votes_aligned_bits": ("match_votes_aligned_bits_kernel_ws<",),
+    "match_votes_aligned_cand_bits": ("match_votes_aligned_bits_kernel_ws<",),
     "select_candidates": ("kb_select_kernel", "kb_select_grid_kernel"),
     "rescore_rows": ("rescore_rows_kernel",),
 }
@@ -201,6 +204,7 @@ _lock = threading.Lock()
 # unguarded ``+= 1`` would lose counts
 _count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_report = [""]  # the loaded library's ptxas report
 _build_seconds: float | None = None
 
 
@@ -274,6 +278,8 @@ def kernel_library() -> ctypes.CDLL:
                             f"nvcc failed on {name} ({proc.returncode}):\n"
                             f"{out}"
                         )
+                with open(f"{tmp}.ptxas", "w") as f:
+                    f.write("".join(outs))
                 proc = subprocess.run(
                     [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -287,7 +293,9 @@ def kernel_library() -> ctypes.CDLL:
                 for obj in objs:
                     if os.path.exists(obj):
                         os.remove(obj)
+            os.replace(f"{tmp}.ptxas", f"{so}.ptxas")
             os.replace(tmp, so)
+        _report[0] = f"{so}.ptxas"
         lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -296,6 +304,36 @@ def kernel_library() -> ctypes.CDLL:
         _lib = lib
         _build_seconds = time.perf_counter() - t0
         return _lib
+
+
+def ptxas_report(part: str) -> list[dict]:
+    """What ``ptxas -v`` reported, when the loaded library was built, for
+    each kernel whose (mangled) name holds ``part``: ``{"kernel",
+    "registers", "stack", "spill_stores", "spill_loads"}`` (bytes a
+    thread). Empty before the first :func:`kernel_library` call."""
+    if not _report[0] or not os.path.exists(_report[0]):
+        return []
+    out, cur = [], None
+    with open(_report[0]) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = {"kernel": m.group(1)} if part in m.group(1) else None
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and "stack" not in cur:
+                cur.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                out.append(cur)
+                cur = None
+    return out
 
 
 def build_seconds() -> float | None:
